@@ -1,0 +1,237 @@
+"""Whole-block fused int8 MBConv forward (EfficientNet).
+
+The port of the JAX package's ``compress/quant/fusedpath.py``. ``pack_fused``
+packs each converted static-int8 MBConv block into the operand layout of
+``ops.fused_mbconv`` once, in numpy on the host: requant scalars in one row,
+zp * sum(w) corrections folded into bias vectors, depthwise weights as exact
+fp32 integers. ``apply_int8_fused`` then runs the network with one
+``fused_mbconv_block`` call per block (every block, stride 2 included: the
+CUDA kernels have no lowering envelope, so ``fusable`` / ``pick_nb`` of the
+TPU path have no counterpart here). The stem and the head conv run the int8
+matmul kernel; SiLU, requant, the mean pool and the fc's float input stay as
+in ``qeffnet``.
+
+``QEffNetInt8`` is the served model: ``load_static_int8_fused(fold_dir)``
+reads a stage-4 EfficientNet artifact, ``from_jax_qmodel`` carries the JAX
+package's converted pytree (numpy leaves) onto a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ...core.artifacts import load_checkpoint_raw
+from ...models.efficientnet import EfficientNetSpec
+from ...models.registry import spec_from_dict
+from ...ops.fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_device_packed
+from ...ops.int8_matmul import int8_matmul_requant, int8_matmul_requant_plain, pack_weight
+from ...utils.device import DeviceLike, resolve_device
+from . import qeffnet, stemfold
+from .observers import dequantize_affine_shifted
+from .qresnet import _conv_leaf, _t32
+
+__all__ = ["pack_fused", "apply_int8_fused", "QEffNetInt8", "from_jax_qmodel",
+           "load_static_int8_fused"]
+
+
+def _scal_row(
+    in_scale, in_zp, e, d_scale, d_zp, q_scale, q_zp, o_scale, o_zp
+) -> np.ndarray:
+    row = np.zeros((1, 12), np.float32)
+    row[0, 0] = float(in_zp) - 128.0
+    if e is not None:
+        row[0, 1] = 1.0 / float(e[0])
+        row[0, 2] = float(e[1])
+    row[0, 3] = 1.0 / float(d_scale)
+    row[0, 4] = float(d_zp)
+    row[0, 5] = float(d_scale)
+    row[0, 6] = 1.0 / float(q_scale)
+    row[0, 7] = float(q_zp)
+    row[0, 8] = 1.0 / float(o_scale)
+    row[0, 9] = float(o_zp)
+    row[0, 10] = float(in_scale)          # residual dequant
+    row[0, 11] = float(in_zp) - 128.0
+    return row
+
+
+def _pack_block(blk: Dict, in_scale, in_zp, *, se: bool) -> Dict:
+    out: Dict = {}
+    if "expand" in blk:
+        e = blk["expand"]
+        eff = np.float32(in_scale) * np.asarray(e["w_scale"], np.float32)
+        out["we"] = np.asarray(e["w_q"]).reshape(e["w_q"].shape[-2], e["w_q"].shape[-1])
+        out["ve"] = np.stack([
+            eff,
+            np.asarray(e["bias"], np.float32)
+            - (float(in_zp) - 128.0) * np.asarray(e["w_sum"], np.float32) * eff,
+        ])
+        dw_in_scale = float(e["out_scale"])
+        e_pair = (e["out_scale"], e["out_zp"])
+    else:
+        dw_in_scale = float(in_scale)
+        e_pair = None
+
+    d = blk["dw"]
+    kk = d["w_q"].shape[0] * d["w_q"].shape[1]
+    out["wdw"] = np.asarray(d["w_q"], np.float32).reshape(kk, d["w_q"].shape[-1])
+    out["vdw"] = np.stack([
+        dw_in_scale * np.asarray(d["w_scale"], np.float32),
+        np.asarray(d["bias"], np.float32),
+    ])
+
+    if se:
+        out["srw"] = np.asarray(qeffnet._deq_se(blk["se_reduce"]), np.float32)
+        out["srb"] = np.asarray(blk["se_reduce"]["b"], np.float32).reshape(1, -1)
+        out["sew"] = np.asarray(qeffnet._deq_se(blk["se_expand"]), np.float32)
+        out["seb"] = np.asarray(blk["se_expand"]["b"], np.float32).reshape(1, -1)
+        q_scale, q_zp = float(blk["se_scale"]), float(blk["se_zp"])
+    else:
+        q_scale, q_zp = float(d["out_scale"]), float(d["out_zp"])
+
+    p = blk["project"]
+    effp = np.float32(q_scale) * np.asarray(p["w_scale"], np.float32)
+    out["wp"] = np.asarray(p["w_q"]).reshape(p["w_q"].shape[-2], p["w_q"].shape[-1])
+    out["vp"] = np.stack([
+        effp,
+        np.asarray(p["bias"], np.float32)
+        - (q_zp - 128.0) * np.asarray(p["w_sum"], np.float32) * effp,
+    ])
+    out["scal"] = _scal_row(
+        in_scale, in_zp, e_pair,
+        d["out_scale"], d["out_zp"], q_scale, q_zp,
+        blk["out_scale"], blk["out_zp"],
+    )
+    return out
+
+
+def pack_fused(spec, q: Dict) -> Dict:
+    """Per-block fused-kernel operands (numpy) for a converted static-int8
+    model; ``q`` is the JAX package's pytree with numpy leaves."""
+    se = isinstance(spec, EfficientNetSpec)
+    qf: Dict = {}
+    cur_scale, cur_zp = float(q["stem"]["out_scale"]), float(q["stem"]["out_zp"])
+    for s, depth in enumerate(spec.depths):
+        for b in range(depth):
+            blk = q[f"stage{s}"][str(b)]
+            qf[f"s{s}b{b}"] = _pack_block(blk, cur_scale, cur_zp, se=se)
+            cur_scale, cur_zp = blk["out_scale"], blk["out_zp"]
+    return qf
+
+
+# --------------------------------------------------------------------------
+# the served model
+# --------------------------------------------------------------------------
+
+
+def block_plan(spec: EfficientNetSpec) -> List[Tuple[str, int, int, bool]]:
+    """(name, kernel, stride, residual) of every MBConv block, in order."""
+    return [(f"s{s}b{b}", spec.stage_kernels[s], spec.block_stride(s, b), spec.has_residual(s, b))
+            for s, depth in enumerate(spec.depths) for b in range(depth)]
+
+
+@dataclasses.dataclass
+class QEffNetInt8:
+    """A static-INT8 EfficientNet on one device, run by the fused executor;
+    call it on raw uint8 images (B, H, W, 3)."""
+
+    spec: EfficientNetSpec
+    q: Dict    # stem, last, fc leaves on the device
+    qf: Dict   # per-block packed operands on the device
+
+    def __call__(self, x: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+        return apply_int8_fused(self.spec, self.q, self.qf, x, impl=impl)
+
+
+def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None) -> QEffNetInt8:
+    """The JAX package's converted static-int8 EfficientNet pytree (nested
+    dicts of numpy arrays, as ``msgpack_restore`` gives it) -> the port's
+    fused-executor model on ``device``."""
+    dev = resolve_device(device)
+    spec = spec_from_dict(spec_dict)
+    if not isinstance(spec, EfficientNetSpec):
+        raise NotImplementedError(
+            f"the fused executor serves EfficientNet here (MobileNetV2 needs qmobilenet, "
+            f"not ported yet), got {type(spec).__name__}")
+    qm = qeffnet.restore_derived(qmodel_np)
+    st = qm["stem"]
+    if "e" not in st:
+        raise NotImplementedError("only the normalization-folded u8 stem is ported")
+    n_stem = int(np.asarray(st["bias"]).shape[0])
+    q: Dict = {
+        "stem": {
+            "w": pack_weight(torch.from_numpy(np.array(st["w_q"], np.int8)).to(dev)),
+            "w_scale": _t32(st["w_scale"]).to(dev),
+            "bias": _t32(st["bias"]).to(dev),
+            "w_sum": torch.zeros(n_stem, dtype=torch.int32, device=dev),  # zp_s = 0
+            "e": _t32(st["e"]).to(dev),
+            "stride": int(st["stride"]),
+            "pad": int(st["pad"]),
+            "out_scale": float(np.float32(st["out_scale"])),
+            "out_zp": int(st["out_zp"]),
+        },
+        "last": _conv_leaf(qm["last"], dev),
+        "fc": {
+            **_conv_leaf(qm["fc"], dev),
+            "in_scale": float(np.float32(qm["fc"]["in_scale"])),
+            "in_zp": int(qm["fc"]["in_zp"]),
+        },
+    }
+    last_blk = qm[f"stage{len(spec.depths) - 1}"][str(spec.depths[-1] - 1)]
+    q["last"]["in_scale"] = float(np.float32(last_blk["out_scale"]))
+    q["last"]["in_zp"] = int(last_blk["out_zp"])
+    qf = {k: to_device_packed(v, dev) for k, v in pack_fused(spec, qm).items()}
+    return QEffNetInt8(spec, q, qf)
+
+
+def load_static_int8_fused(fold_dir: str, device: DeviceLike = None) -> QEffNetInt8:
+    """A stage-4 EfficientNet artifact directory (``spec.json`` and
+    ``model_static_int8_fused.msgpack``, else ``model_static_int8.msgpack``,
+    the file the fused executor shares with the unfused one) -> the model."""
+    with open(os.path.join(fold_dir, "spec.json")) as f:
+        spec_dict = json.load(f)
+    which = ("static_int8_fused"
+             if os.path.exists(os.path.join(fold_dir, "model_static_int8_fused.msgpack"))
+             else "static_int8")
+    return from_jax_qmodel(spec_dict, load_checkpoint_raw(fold_dir, which), device)
+
+
+def stem_int8(q: Dict, x: torch.Tensor, *, impl: str) -> torch.Tensor:
+    """Raw uint8 images -> the stem's int8 output (the first block's input)."""
+    stem = q["stem"]
+    y = stemfold.apply_u8_stem(stem, x, stride=stem["stride"], pad=stem["pad"], act="silu",
+                               impl=impl)
+    return qeffnet._requant(y, stem["out_scale"], stem["out_zp"])
+
+
+def head_logits(q: Dict, cur: torch.Tensor, *, impl: str) -> torch.Tensor:
+    """The last block's int8 output -> fp32 logits: 1x1 head conv + SiLU +
+    requant, mean pool of the dequantized map, int8 fc on the float features."""
+    last = q["last"]
+    cur = qeffnet.conv1x1_silu_requant(cur, last["in_zp"], last["in_scale"], last, impl=impl)
+    feats = dequantize_affine_shifted(cur, last["out_scale"], last["out_zp"]).mean(dim=(1, 2))
+    fc = q["fc"]
+    mm = int8_matmul_requant if impl == "kernel" else int8_matmul_requant_plain
+    return mm(feats, fc["w"], fc["w_scale"], fc["bias"], fc["w_sum"],
+              in_scale=fc["in_scale"], in_zp=fc["in_zp"])
+
+
+def apply_int8_fused(spec: EfficientNetSpec, q: Dict, qf: Dict, x: torch.Tensor, *,
+                     impl: str = "kernel") -> torch.Tensor:
+    """Static-int8 forward with one fused block call per MBConv block ->
+    fp32 logits (B, num_classes). ``x`` is raw uint8 NHWC; ``impl="plain"``
+    runs every kernel's plain PyTorch version (the reference the kernel path
+    is held against on the GPU); a CPU tensor always takes them."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    block = fused_mbconv_block if impl == "kernel" else fused_mbconv_block_plain
+    cur = stem_int8(q, x, impl=impl)
+    for name, k, stride, residual in block_plan(spec):
+        cur = block(cur, qf[name], kernel=k, stride=stride, act="silu",
+                    x_res=cur if residual else None)
+    return head_logits(q, cur, impl=impl)

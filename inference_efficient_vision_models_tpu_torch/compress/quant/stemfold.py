@@ -1,0 +1,63 @@
+"""Fold ImageNet normalization into a quantized stem conv (generic).
+
+The port of the JAX package's ``compress/quant/stemfold.py`` (the u8 stem of
+the MBConv families). The normalize step x_f = u*k_c + d_c (u raw uint8,
+k_c = 1/(255 sigma_c), d_c = -mu_c/sigma_c) is affine, so for a stem conv W
+
+    conv_pad0(x_f, W) = conv_upad0(u, W*k) + conv_pad0(d_img, W)
+    conv_upad0(u, W*k) = s_w * conv_pad-128(u - 128, Wq) + 128 * s_w * sum(Wq)
+
+i.e. the device consumes raw uint8 pixels through an int8 conv whose input
+quantization is exact, plus an offset map E that the checkpoint leaves out
+and ``restore_offsets`` rebuilds at load.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+from ...ops.fused_mbconv import act_plain
+from ...ops.im2col import conv_int8_im2col
+
+DERIVED_KEYS = ("e",)
+
+
+def restore_offsets(stem: Dict) -> Dict:
+    """(Re)compute the derived offset map E (1, Ho, Wo, C) on the CPU in fp32:
+    E = conv_zero-pad(d_img, w_fp) + 128 * s_w * sum(w_q)."""
+    w_fp = torch.from_numpy(np.array(stem["w_fp"], np.float32))  # (kh, kw, C, O) HWIO
+    cin = w_fp.shape[2]
+    d = -(np.asarray(IMAGENET_MEAN[:cin], np.float32) / np.asarray(IMAGENET_STD[:cin], np.float32))
+    h, wid = (int(v) for v in np.asarray(stem["input_hw"]))
+    stride, pad = int(stem["stride"]), int(stem["pad"])
+    w_q = np.asarray(stem["w_q"], np.float32)
+    w_scale = np.asarray(stem["w_scale"], np.float32)
+    d_img = torch.from_numpy(d).reshape(1, cin, 1, 1).expand(1, cin, h, wid)
+    conv_d = F.conv2d(d_img, w_fp.permute(3, 2, 0, 1), stride=stride, padding=pad)
+    e = conv_d.permute(0, 2, 3, 1).numpy() + 128.0 * w_scale * w_q.sum(axis=(0, 1, 2))
+    return {**stem, "e": np.ascontiguousarray(e, np.float32)}
+
+
+def apply_u8_stem(stem: Dict, x_u8: torch.Tensor, *, stride: int, pad: int, act: str,
+                  impl: str = "kernel") -> torch.Tensor:
+    """Raw uint8 NHWC -> fp32 stem output act(acc * s_w + b + E), before
+    requantization; ``act`` is "silu" or "relu6".
+
+    ``stem`` holds the packed weight ``w`` with ``w_scale``, ``bias``, a zero
+    ``w_sum`` and the offset map ``e`` on the input's device. The conv runs
+    the int8 matmul kernel through im2col with ``in_zp = 128`` (the
+    shifted zero point is 0, so no correction) over u - 128 padded with -128,
+    the shifted value of a zero pixel, as the JAX stem pads."""
+    if x_u8.dtype != torch.uint8:
+        raise ValueError(f"expected raw uint8 images, got {x_u8.dtype}")
+    x_s = (x_u8.to(torch.int16) - 128).to(torch.int8)
+    if pad:
+        x_s = F.pad(x_s, (0, 0, pad, pad, pad, pad), value=-128)
+    y = conv_int8_im2col(x_s, stem["w"], stem["w_scale"], stem["bias"], stem["w_sum"],
+                         stride=stride, padding=0, in_scale=1.0, in_zp=128, backend=impl)
+    return act_plain(y + stem["e"], act)

@@ -1,6 +1,6 @@
-// Shared core of the two int8 kernels: a shared-memory tiled int8 GEMM on
+// Shared core of the int8 kernels: a shared-memory tiled int8 GEMM on
 // mma.sync m16n8k32 (int8 x int8 -> int32) with the affine-int8 epilogue of
-// the JAX package's Pallas kernels:
+// the JAX package's Pallas kernels (fused_mbconv.cu brings its own stores):
 //
 //   acc  = X_s . W_q                      (int32, exact)
 //   acc -= zp_s * sum_k W_q[k, n]         (affine-input correction)
@@ -92,15 +92,17 @@ __device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N
 
 // Thread t loads A words (row (t >> 4) + 16 j, bytes 4 (t & 15) .. +3) of each
 // BM x BK slice; loaders fill `r[j]` for slice `kt`, zero outside the matrix.
-template <class ALoader>
-__device__ __forceinline__ void gemm_block(ALoader& al, const int8_t* __restrict__ wt, int Kp, int M,
-                                           int N, const Epilogue& e) {
+// gemm_tile computes the BM x BN output tile at (bm, bn) and hands every
+// in-range int32 sum to `st(m, n, acc)`; it may be called several times in one
+// block (the shared tiles are reused after its final barrier).
+template <class ALoader, class Store>
+__device__ __forceinline__ void gemm_tile(ALoader& al, const int8_t* __restrict__ wt, int Kp, int M,
+                                          int N, int bm, int bn, const Store& st) {
   __shared__ __align__(16) int8_t As[BM * SROW];
   __shared__ __align__(16) int8_t Bs[BN * SROW];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int gid = lane >> 2, tig = lane & 3;
-  const int bm = blockIdx.x * BM, bn = blockIdx.y * BN;
 
   int acc[2][4][4];
 #pragma unroll
@@ -161,8 +163,21 @@ __device__ __forceinline__ void gemm_block(ALoader& al, const int8_t* __restrict
       for (int r = 0; r < 4; ++r) {
         const int m = bm + wm * 32 + mt * 16 + gid + (r >= 2 ? 8 : 0);
         const int n = bn + wn * 32 + nt * 8 + tig * 2 + (r & 1);
-        if (m < M && n < N) store_out(e, m, n, N, acc[mt][nt][r]);
+        if (m < M && n < N) st(m, n, acc[mt][nt][r]);
       }
+}
+
+struct EpilogueStore {
+  const Epilogue& e;
+  int N;
+  __device__ __forceinline__ void operator()(int m, int n, int acc) const { store_out(e, m, n, N, acc); }
+};
+
+// The block's output tile at (blockIdx.x, blockIdx.y) through the shared epilogue.
+template <class ALoader>
+__device__ __forceinline__ void gemm_block(ALoader& al, const int8_t* __restrict__ wt, int Kp, int M,
+                                           int N, const Epilogue& e) {
+  gemm_tile(al, wt, Kp, M, N, (int)blockIdx.x * BM, (int)blockIdx.y * BN, EpilogueStore{e, N});
 }
 
 }  // namespace ievm

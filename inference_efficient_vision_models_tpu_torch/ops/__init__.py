@@ -1,6 +1,7 @@
 """int8 kernels (CUDA on a GPU tensor, plain PyTorch on a CPU tensor) and layout helpers."""
 
 from .conv3x3 import conv3x3_s1_int8, conv3x3_s1_int8_plain
+from .fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_device_packed
 from .im2col import conv_int8_im2col, extract_patches_nhwc
 from .int8_matmul import (
     PackedInt8Weight,
@@ -15,7 +16,10 @@ __all__ = [
     "conv3x3_s1_int8_plain",
     "conv_int8_im2col",
     "extract_patches_nhwc",
+    "fused_mbconv_block",
+    "fused_mbconv_block_plain",
     "int8_matmul_requant",
     "int8_matmul_requant_plain",
     "pack_weight",
+    "to_device_packed",
 ]

@@ -22,7 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,19 +40,26 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
-# kernel name -> (source stem, C symbol, argtypes)
+# kernel name -> (source stem, {C symbol: argtypes}); a kernel whose work is
+# split into several launches has one entry point per launch
 KERNELS = {
-    "int8_matmul_requant": (
-        "int8_matmul",
-        "ievm_int8_matmul_requant",
-        [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    ),
-    "conv3x3_s1_int8": (
-        "conv3x3",
-        "ievm_conv3x3_s1_int8",
-        [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    ),
+    "int8_matmul_requant": ("int8_matmul", {
+        "ievm_int8_matmul_requant":
+            [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    }),
+    "conv3x3_s1_int8": ("conv3x3", {
+        "ievm_conv3x3_s1_int8":
+            [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    }),
+    "fused_mbconv_block": ("fused_mbconv", {
+        "ievm_fused_mbconv_expand_dw":
+            [_P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 10 + [_F] * 5 + [_P],
+        "ievm_fused_mbconv_se_gate": [_P] * 6 + [_I, _I, _I, _D, _P],
+        "ievm_fused_mbconv_project":
+            [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] * 8 + [_P],
+    }),
 }
 
 launches: "collections.Counter[str]" = collections.Counter()
@@ -86,10 +93,10 @@ def build_all() -> Dict[str, str]:
     """Compile every kernel library that is missing, all ``nvcc`` runs at
     once; returns kernel name -> library path. Raises if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {k: _lib_path(stem) for k, (stem, _, _) in KERNELS.items()}
+    paths = {k: _lib_path(stem) for k, (stem, _) in KERNELS.items()}
     procs = {}
     nvcc = None
-    for k, (stem, _, _) in KERNELS.items():
+    for k, (stem, _) in KERNELS.items():
         if os.path.exists(paths[k]):
             continue
         nvcc = nvcc or _nvcc()
@@ -111,20 +118,25 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
-def kernel_fn(name: str):
-    """The bound C entry point of kernel ``name``, built and loaded on first use."""
-    fn = _fns.get(name)
+def kernel_fn(name: str, symbol: Optional[str] = None):
+    """The bound C entry point ``symbol`` of kernel ``name`` (its only one
+    when ``symbol`` is None), built and loaded on first use."""
+    if symbol is None:
+        (symbol,) = KERNELS[name][1]
+    fn = _fns.get(symbol)
     if fn is not None:
         return fn
     with _lock:
-        if name not in _fns:
+        if symbol not in _fns:
             paths = build_all()
-            for k, (_, sym, argtypes) in KERNELS.items():
-                f = getattr(ctypes.CDLL(paths[k]), sym)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-                _fns[k] = f
-    return _fns[name]
+            for k, (_, entries) in KERNELS.items():
+                lib = ctypes.CDLL(paths[k])
+                for sym, argtypes in entries.items():
+                    f = getattr(lib, sym)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                    _fns[sym] = f
+    return _fns[symbol]
 
 
 def check(name: str, rc: int) -> None:

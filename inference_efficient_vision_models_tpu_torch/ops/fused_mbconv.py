@@ -1,0 +1,230 @@
+"""One whole int8 MBConv block (expand, depthwise, SE gate, project, residual).
+
+Replaces the Pallas TPU kernel
+``inference_efficient_vision_models_tpu/ops/fused_mbconv.py:fused_mbconv_block``
+with the hand-written CUDA kernels of ``csrc/fused_mbconv.cu`` (its header
+says what bounds them on an H100 and why the block is split in two passes
+around a per-image SE gate). Same contract, on shifted-quint8 int8 NHWC:
+
+    hidden = requant_e(act(X . We * ve0 + ve1)) - e_zp    (or X - zp_s_in)
+    y      = act(dwconv_k,s(zero-pad(hidden), wdw) * vdw0 + vdw1)
+    yq     = clip(round(y * inv_d) + d_zp, 0, 255)
+    h      = (yq - d_zp) * d_scale
+    h      = h * g,  g = sigmoid(silu(mean(h) . srw + srb) . sew + seb)   (SE)
+    hq     = clip(round(h * inv_q) + q_zp, 0, 255) - 128
+    yp     = hq . Wp * vp0 + vp1  [+ (x_res - res_zp_s) * res_scale]
+    out    = clip(round(yp * inv_o) + o_zp, 0, 255) - 128
+
+``fused_mbconv_block`` launches the kernels for a CUDA tensor (three
+launches with SE, two without) and runs ``fused_mbconv_block_plain`` for a
+CPU tensor only. The SE gate is taken in float64 from the exact integer sum
+of ``yq - d_zp`` and rounded to fp32 once, on both sides, so kernel and plain
+version agree bit for bit whatever order each sums in; the JAX kernel takes
+it in fp32 from an fp32 mean, which differs from both by ulps of ``g``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _lib
+from .int8_matmul import PackedInt8Weight, pack_weight
+
+# the scalar row of the packed block (the Pallas kernel's SMEM row layout)
+ZP_S_IN = 0      # input zero point - 128 (shifted)
+INV_E, E_ZP = 1, 2          # expand requant (unused without expand)
+INV_D, D_ZP, D_SCALE = 3, 4, 5   # dw requant + dequant scale
+INV_Q, Q_ZP = 6, 7          # project-input requant (SE domain / dw domain)
+INV_O, O_ZP = 8, 9          # block-output requant
+RES_SCALE, RES_ZP_S = 10, 11  # residual dequant
+
+_ACTS = {"silu": 0, "relu6": 1}
+_VEC_KEYS = ("ve", "wdw", "vdw", "srw", "srb", "sew", "seb", "vp")
+
+
+def act_plain(y: torch.Tensor, kind: str) -> torch.Tensor:
+    """SiLU as y * (1 / (1 + exp(-y))) in fp32, the kernels' formula, or ReLU6."""
+    if kind == "silu":
+        return y * torch.reciprocal(1.0 + torch.exp(-y))
+    if kind == "relu6":
+        return torch.clamp(y, 0.0, 6.0)
+    raise ValueError(f"unknown act {kind!r}")
+
+
+def _requant_q(y: torch.Tensor, inv: float, zp: float) -> torch.Tensor:
+    """clip(round(y * inv) + zp, 0, 255) as fp32 (the quint8 value)."""
+    return torch.clamp(torch.round(y * inv) + zp, 0.0, 255.0)
+
+
+def to_device_packed(packed_np: Dict, device) -> Dict:
+    """One block's packed operands (numpy, ``fusedpath.pack_fused``) -> the
+    kernels' operands on ``device``, once at load: int8 weights in the GEMM
+    core's packed layout, fp32 vectors contiguous, the scalar row as 12
+    Python floats so a forward needs no host sync."""
+    out: Dict = {"scal": tuple(float(v) for v in np.asarray(packed_np["scal"]).reshape(-1))}
+    for k in ("we", "wp"):
+        if k in packed_np:
+            out[k] = pack_weight(torch.from_numpy(np.array(packed_np[k], np.int8)).to(device))
+    for k in _VEC_KEYS:
+        if k in packed_np:
+            v = np.array(packed_np[k], np.float32)
+            if k in ("srb", "seb"):
+                v = v.reshape(-1)
+            out[k] = torch.from_numpy(v).to(device)
+    return out
+
+
+def se_gate_plain(pool_sum: torch.Tensor, packed: Dict, pool_scale: float) -> torch.Tensor:
+    """(N, Ce) integer sums of yq - d_zp -> the fp32 SE gate (N, Ce), in float64."""
+    pooled = pool_sum.double() * pool_scale
+    r = pooled @ packed["srw"].double() + packed["srb"].double()
+    r = r * torch.reciprocal(1.0 + torch.exp(-r))
+    v = r @ packed["sew"].double() + packed["seb"].double()
+    return torch.reciprocal(1.0 + torch.exp(-v)).float()
+
+
+def _out_hw(h: int, w: int, kernel: int, stride: int):
+    pad = (kernel - 1) // 2
+    return pad, (h + 2 * pad - kernel) // stride + 1, (w + 2 * pad - kernel) // stride + 1
+
+
+def fused_mbconv_block_plain(x_s8: torch.Tensor, packed: Dict, *, kernel: int, stride: int,
+                             act: str, x_res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernels, step by step, on any device.
+
+    Both int8 GEMMs accumulate in float64 (exact for int8 products); the
+    depthwise sum is exact in fp32 (|sum| <= 25 * 255 * 128 < 2^24)."""
+    sc = packed["scal"]
+    n, h, w, cin = x_s8.shape
+    pad, ho, wo = _out_hw(h, w, kernel, stride)
+    if "we" in packed:
+        acc = x_s8.reshape(-1, cin).double() @ packed["we"].kn().double()
+        y = act_plain(acc.float() * packed["ve"][0] + packed["ve"][1], act)
+        hidden = (_requant_q(y, sc[INV_E], sc[E_ZP]) - sc[E_ZP]).reshape(n, h, w, -1)
+    else:
+        hidden = x_s8.float() - sc[ZP_S_IN]
+    ce = hidden.shape[-1]
+    hp = F.pad(hidden, (0, 0, pad, pad, pad, pad))
+    wdw = packed["wdw"]
+    acc = None
+    for dy in range(kernel):
+        for dx in range(kernel):
+            sl = hp[:, dy : dy + (ho - 1) * stride + 1 : stride,
+                    dx : dx + (wo - 1) * stride + 1 : stride, :]
+            term = sl * wdw[dy * kernel + dx]
+            acc = term if acc is None else acc + term
+    y = act_plain(acc * packed["vdw"][0] + packed["vdw"][1], act)
+    yq_d = _requant_q(y, sc[INV_D], sc[D_ZP]) - sc[D_ZP]
+    hf = yq_d * sc[D_SCALE]
+    if "srw" in packed:
+        g = se_gate_plain(yq_d.double().sum(dim=(1, 2)), packed, sc[D_SCALE] / (ho * wo))
+        hf = hf * g[:, None, None, :]
+    hq = (_requant_q(hf, sc[INV_Q], sc[Q_ZP]) - 128.0).to(torch.int8)
+    wp = packed["wp"]
+    accp = hq.reshape(-1, ce).double() @ wp.kn().double()
+    yp = (accp.float() * packed["vp"][0] + packed["vp"][1]).reshape(n, ho, wo, wp.n)
+    if x_res is not None:
+        yp = yp + (x_res.float() - sc[RES_ZP_S]) * sc[RES_SCALE]
+    return (_requant_q(yp, sc[INV_O], sc[O_ZP]) - 128.0).to(torch.int8)
+
+
+def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} float32 tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_weight(name: str, w: PackedInt8Weight, shape, device) -> None:
+    if not isinstance(w, PackedInt8Weight) or w.shape != tuple(shape) or w.wt.device != device:
+        raise ValueError(f"{name} must be a packed {tuple(shape)} int8 weight on {device}")
+
+
+def fused_mbconv_block(
+    x_s8: torch.Tensor,               # (N, H, W, Cin) int8 shifted quint8
+    packed: Dict,                     # to_device_packed(pack_fused(...)[block])
+    *,
+    kernel: int,
+    stride: int,
+    act: str,                         # 'silu' | 'relu6'
+    x_res: Optional[torch.Tensor] = None,  # (N, Ho, Wo, Co) int8 residual input
+) -> torch.Tensor:
+    """Run one packed MBConv block -> (N, Ho, Wo, Co) int8 in the block-out domain."""
+    if x_s8.device.type == "cpu":
+        return fused_mbconv_block_plain(x_s8, packed, kernel=kernel, stride=stride, act=act,
+                                        x_res=x_res)
+    if x_s8.device.type != "cuda":
+        raise ValueError(f"fused_mbconv_block runs on cpu or cuda, not {x_s8.device}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    if kernel not in (1, 3, 5) or stride not in (1, 2):
+        raise ValueError(f"the kernel takes k in (1, 3, 5) and stride 1 or 2, got {kernel}, {stride}")
+    dev = x_s8.device
+    if x_s8.dim() != 4 or x_s8.dtype != torch.int8 or not x_s8.is_contiguous():
+        raise ValueError(f"x must be a contiguous (N, H, W, C) int8 tensor, got "
+                         f"{tuple(x_s8.shape)} {x_s8.dtype}")
+    n, h, w, cin = x_s8.shape
+    _, ho, wo = _out_hw(h, w, kernel, stride)
+    wdw, wp = packed["wdw"], packed["wp"]
+    ce, co = wdw.shape[-1], wp.n
+    has_expand, has_se = "we" in packed, "srw" in packed
+    if has_expand:
+        _check_weight("we", packed["we"], (cin, ce), dev)
+        _check_f32("ve", packed["ve"], (2, ce), dev)
+    elif cin != ce:
+        raise ValueError(f"a block without expand needs Cin == Ce, got {cin} and {ce}")
+    _check_f32("wdw", wdw, (kernel * kernel, ce), dev)
+    _check_f32("vdw", packed["vdw"], (2, ce), dev)
+    _check_weight("wp", wp, (ce, co), dev)
+    _check_f32("vp", packed["vp"], (2, co), dev)
+    if has_se:
+        se = packed["srw"].shape[-1]
+        _check_f32("srw", packed["srw"], (ce, se), dev)
+        _check_f32("srb", packed["srb"], (se,), dev)
+        _check_f32("sew", packed["sew"], (se, ce), dev)
+        _check_f32("seb", packed["seb"], (ce,), dev)
+    if x_res is not None and (tuple(x_res.shape) != (n, ho, wo, co) or x_res.dtype != torch.int8
+                              or x_res.device != dev or not x_res.is_contiguous()):
+        raise ValueError(f"x_res must be a contiguous {(n, ho, wo, co)} int8 tensor on {dev}")
+    if n * max(h * w * cin, ho * wo * max(ce, co)) >= 2**31:
+        raise ValueError("the block's tensors exceed the kernels' int32 indexing")
+
+    sc = packed["scal"]
+    out = torch.empty((n, ho, wo, co), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    yq = torch.empty((n, ho, wo, ce), dtype=torch.int8, device=dev)
+    pool = torch.zeros((n, ce), dtype=torch.int32, device=dev) if has_se else None
+    we = packed["we"] if has_expand else None
+    rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_expand_dw")(
+        x_s8.data_ptr(), we.wt.data_ptr() if we else None, we.wt.shape[1] if we else 0,
+        packed["ve"].data_ptr() if we else None, wdw.data_ptr(), packed["vdw"].data_ptr(),
+        yq.data_ptr(), pool.data_ptr() if has_se else None,
+        n, h, w, cin, ce, ho, wo, kernel, stride, _ACTS[act],
+        sc[ZP_S_IN], sc[INV_E], sc[E_ZP], sc[INV_D], sc[D_ZP], stream,
+    )
+    _lib.check("fused_mbconv_block", rc)
+    g = None
+    if has_se:
+        g = torch.empty((n, ce), dtype=torch.float32, device=dev)
+        rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_se_gate")(
+            pool.data_ptr(), packed["srw"].data_ptr(), packed["srb"].data_ptr(),
+            packed["sew"].data_ptr(), packed["seb"].data_ptr(), g.data_ptr(),
+            n, ce, packed["srw"].shape[-1], sc[D_SCALE] / (ho * wo), stream,
+        )
+        _lib.check("fused_mbconv_block", rc)
+    rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_project")(
+        yq.data_ptr(), g.data_ptr() if has_se else None, wp.wt.data_ptr(), wp.wt.shape[1],
+        packed["vp"].data_ptr(), x_res.data_ptr() if x_res is not None else None,
+        out.data_ptr(), n * ho * wo, ho * wo, ce, co,
+        sc[D_ZP], sc[D_SCALE], sc[INV_Q], sc[Q_ZP], sc[RES_SCALE], sc[RES_ZP_S],
+        sc[INV_O], sc[O_ZP], stream,
+    )
+    _lib.check("fused_mbconv_block", rc)
+    return out
+

@@ -2,7 +2,8 @@
 
 ``Predictor`` overlaps three stages per batch:
 
-    host preprocess (space-to-depth, pinned staging; producer thread)
+    host preprocess (space-to-depth where the model takes it, pinned staging;
+                     producer thread)
       ->  H2D copy + forward (main thread, asynchronous on the current stream)
       ->  result gather (main thread, a couple of batches behind)
 
@@ -12,6 +13,8 @@ every CUDA operation comes from the calling thread.
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 from typing import Callable, Optional, Tuple
@@ -19,7 +22,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .compress.quant.fusedpath import load_static_int8_fused
 from .compress.quant.qresnet import load_static_int8
+from .models.efficientnet import EfficientNetSpec
+from .models.registry import spec_from_dict
 from .ops.space_to_depth import space_to_depth_u8
 from .utils.device import DeviceLike, resolve_device
 
@@ -27,10 +33,27 @@ from .utils.device import DeviceLike, resolve_device
 def load_quantized(fold_dir: str, method: str = "static_int8", *, device: DeviceLike = None):
     """Restore a stage-4 artifact -> (spec, model, apply_fn, host_preprocess).
 
-    The port serves the ResNet static-int8 artifact so far; its stem takes
-    the space-to-depth layout the host preprocess makes."""
+    Dispatches on the artifact's spec: a ResNet serves ``"static_int8"``
+    through the int8 executor, whose stem takes the space-to-depth layout the
+    host preprocess makes; an EfficientNet serves ``"static_int8_fused"``
+    (one fused kernel call per MBConv block) on raw uint8 images, with no
+    host preprocess, from ``model_static_int8_fused.msgpack`` or else the
+    shared ``model_static_int8.msgpack``."""
+    with open(os.path.join(fold_dir, "spec.json")) as f:
+        spec = spec_from_dict(json.load(f))
+    if isinstance(spec, EfficientNetSpec):
+        if method == "static_int8_fused":
+            model = load_static_int8_fused(fold_dir, device)
+            return model.spec, model, model, None
+        if method == "static_int8":
+            raise NotImplementedError(
+                "the unfused EfficientNet int8 executor (qeffnet.apply_int8) is not ported yet; "
+                "serve 'static_int8_fused'")
+        raise NotImplementedError(f"method {method!r} is not ported yet for EfficientNet "
+                                  f"(have 'static_int8_fused')")
     if method != "static_int8":
-        raise NotImplementedError(f"method {method!r} is not ported yet (have 'static_int8')")
+        raise NotImplementedError(f"method {method!r} is not ported yet for ResNet "
+                                  f"(have 'static_int8')")
     model = load_static_int8(fold_dir, device)
     return model.spec, model, model, space_to_depth_u8
 

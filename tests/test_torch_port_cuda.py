@@ -9,18 +9,27 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import random_block
+from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
+    load_static_int8_fused,
+)
 from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import load_static_int8
 from inference_efficient_vision_models_tpu_torch.ops import (
     _lib,
     conv3x3_s1_int8,
     conv3x3_s1_int8_plain,
+    fused_mbconv_block,
+    fused_mbconv_block_plain,
     int8_matmul_requant,
     int8_matmul_requant_plain,
     pack_weight,
+    to_device_packed,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "bench", "quantization", "r2", "fold_0")
+EFF_ARTIFACT = os.path.join(ROOT, "inference_efficient_vision_models_tpu_torch", "testdata",
+                            "effnet_b0_int8")
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +108,51 @@ def test_served_forward_kernel_path_matches_plain_path(cuda):
     assert counts == {"int8_matmul_requant": 8, "conv3x3_s1_int8": 13}
     assert torch.equal(got.argmax(1), ref.argmax(1))
     assert torch.allclose(got, ref, rtol=0.02, atol=0.02)
+
+
+@pytest.mark.parametrize("n,h,w,cin,ce,co,se,k,stride,expand,act,residual", [
+    (2, 8, 8, 16, 64, 16, 4, 3, 1, True, "silu", True),        # residual, SE, one Ce tile
+    (2, 12, 12, 24, 36, 20, 0, 3, 1, True, "relu6", False),    # relu6, no SE
+    (2, 10, 10, 40, 40, 40, 0, 3, 1, False, "relu6", True),    # no expand
+    (2, 7, 9, 24, 36, 24, 6, 5, 1, True, "silu", True),        # ragged H/W, k5, Ce % 8 != 0
+    (2, 15, 15, 16, 100, 24, 4, 3, 2, True, "silu", False),    # stride 2 on odd H, 2 Ce tiles
+    (3, 13, 11, 22, 38, 30, 5, 5, 2, True, "silu", False),     # Cin, Ce % 4 != 0 (byte paths)
+    (2, 20, 20, 72, 72, 72, 18, 5, 1, False, "silu", True),    # no expand, several tiles
+    (2, 9, 9, 32, 200, 48, 8, 1, 1, True, "silu", False),      # k1
+    (1, 40, 38, 8, 8, 16, 2, 3, 2, False, "silu", False),      # many stride-2 tiles
+])
+def test_fused_mbconv_kernel_matches_plain(cuda, n, h, w, cin, ce, co, se, k, stride, expand,
+                                           act, residual):
+    rng = np.random.default_rng(n + h + w + cin + ce + co + k)
+    p_np, in_zp = random_block(rng, cin=cin, ce=ce, co=co, se=se, k=k, expand=expand)
+    packed = to_device_packed(p_np, cuda)
+    x = torch.from_numpy(np.clip(np.rint(rng.normal(in_zp - 118, 30, (n, h, w, cin))), -128,
+                                 127).astype(np.int8)).to(cuda)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    res = None
+    if residual:
+        res = x if (cin, h) == (co, ho) else torch.from_numpy(
+            rng.integers(-128, 128, (n, ho, wo, co), dtype=np.int8)).to(cuda)
+    kw = dict(kernel=k, stride=stride, act=act, x_res=res)
+    before = _lib.launches["fused_mbconv_block"]
+    got = fused_mbconv_block(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["fused_mbconv_block"] == before + (3 if se else 2)
+    ref = fused_mbconv_block_plain(x, packed, **kw)
+    assert got.shape == ref.shape == (n, ho, wo, co)
+    d = (got.int() - ref.int()).abs()
+    assert d.max() <= 1 and (d == 0).float().mean() >= 0.99
+    assert got.float().std() > 2  # the requants land mid-range, not on a clip
+
+
+def test_served_effnet_kernel_path_matches_plain_path(cuda):
+    model = load_static_int8_fused(EFF_ARTIFACT, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 224, 224, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+        counts = dict(_lib.launches)
+        ref = model(x, impl="plain")
+    assert counts == {"int8_matmul_requant": 3, "fused_mbconv_block": 48}
+    assert torch.allclose(got, ref, rtol=0, atol=0.05 * float(ref.abs().max()))
