@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU, end to end, on both served paths.
+"""Drive the PyTorch/CUDA port on one GPU, end to end, on every served path.
 
 Run from the repository root: ``python3 chip_smoke.py``. It
 
@@ -23,10 +23,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (``testdata``); serving as above with (d) 16 fused-block calls and 3
    int8-matmul launches per forward, (b) and (c) with logit tolerances
    relative to the logit scale;
-4. times each kernel at its serving shapes beside its plain version, its
+4. ViT-Tiny path (the committed static-INT8 ViT-Tiny/16, and the float ViT
+   from the same seeded weights): (a) kernel D (dense + GELU) against its
+   plain version at odd shapes and at the served mlp1 shapes in bf16 and
+   fp32, kernel A at every ViT shape of both carriers; serves both int8
+   carriers (``static_int8``, ``static_int8_bf16``) as above with (d) 50
+   int8-matmul launches per forward, and runs the float forward with the
+   fused mlp1 + GELU with (d) 12 kernel-D launches per forward; (b) kernel
+   path against plain path on 32 images and (c) against the JAX golden of
+   each route;
+5. times each kernel at its serving shapes beside its plain version, its
    bound and a library call where one exists, and each forward at batch 1
    and 256 with CUDA events (median of 25 runs after warm-up), and profiles
-   a batch-256 forward with ``torch.profiler``.
+   a batch-256 forward of each path with ``torch.profiler``.
 
 Results go to stdout as JSON lines; the line before the last gives the card
 as nvidia-smi reports it and the last is ``{"ok": true, "device": ...}``.
@@ -48,6 +57,8 @@ from inference_efficient_vision_models_tpu_torch.ops import (
     _lib,
     conv3x3_s1_int8,
     conv3x3_s1_int8_plain,
+    dense_gelu,
+    dense_gelu_plain,
     fused_mbconv_block,
     fused_mbconv_block_plain,
     int8_matmul_requant,
@@ -65,6 +76,8 @@ TESTDATA = os.path.join(ROOT, "inference_efficient_vision_models_tpu_torch", "te
 GOLDEN = os.path.join(TESTDATA, "r2_fold0_jax_logits.npz")
 EFF_ARTIFACT = os.path.join(TESTDATA, "effnet_b0_int8")
 EFF_GOLDEN = os.path.join(TESTDATA, "effnet_b0_jax_logits.npz")
+VIT_ARTIFACT = os.path.join(TESTDATA, "vit_tiny_int8")
+VIT_GOLDEN = os.path.join(TESTDATA, "vit_tiny_jax_logits.npz")
 PKG = "inference_efficient_vision_models_tpu_torch"
 KERNEL_INFO = {
     "int8_matmul_requant": (f"{PKG}/csrc/int8_matmul.cu",
@@ -73,6 +86,8 @@ KERNEL_INFO = {
                         "inference_efficient_vision_models_tpu/ops/conv3x3.py:67"),
     "fused_mbconv_block": (f"{PKG}/csrc/fused_mbconv.cu",
                            "inference_efficient_vision_models_tpu/ops/fused_mbconv.py:222"),
+    "dense_gelu": (f"{PKG}/csrc/fused_dense.cu",
+                   "inference_efficient_vision_models_tpu/ops/fused_dense.py:77"),
 }
 PLAIN = {"int8_matmul_requant": int8_matmul_requant_plain,
          "conv3x3_s1_int8": conv3x3_s1_int8_plain}
@@ -81,34 +96,101 @@ PER_FORWARD = {"int8_matmul_requant": 8, "conv3x3_s1_int8": 13}
 # EfficientNet-B0: stem, head conv and fc on kernel A; 16 fused blocks with SE,
 # each three launches (expand+depthwise, SE gate, project)
 EFF_PER_FORWARD = {"int8_matmul_requant": 3, "fused_mbconv_block": 16 * 3}
+# ViT-Tiny int8 (either carrier): patch embed, 12 x (qkv, proj, mlp1, mlp2), head
+VIT_PER_FORWARD = {"int8_matmul_requant": 50}
+# float ViT-Tiny with fused_mlp: one mlp1 + GELU per block
+VIT_FLOAT_PER_FORWARD = {"dense_gelu": 12}
 BATCH = 256
 RUNS = 25
+SPIN_CYCLES = 2_000_000  # about 1 ms of GPU clock: longer than the host takes to enqueue a call
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 FP32_FMA_PER_S = 33.5e12    # H100 SXM: 67 TFLOP/s fp32 outside the tensor cores, 2 per FMA
 # EfficientNet logits: |served - reference| <= TAU * max|reference|, and the
 # same argmax where the reference's top-2 margin exceeds twice that (PERF.md
 # gives the measured values these were set from)
 TAU_B = 0.05
 TAU_C = 0.26
+# ViT-Tiny logits, the same rule: against the JAX golden of each route, twice
+# the worst deviation the CPU tests measure (fp32 float: summation order only,
+# 1e-5); kernel path against plain path on the card, 0.05
+VIT_TAU = {"int8_f32": 0.04, "int8_bf16_pair": 0.07, "float_f32": 1e-5, "float_bf16": 0.015}
+VIT_TAU_B = 0.05
 
 
 class SmokeFailure(RuntimeError):
     pass
 
 
+# The ViT-Tiny's float weights are not committed: both packages draw them
+# from a seed with this function (the test data script imports it from here).
+VIT_SEED = 0
+VIT_HEAD_STD = 0.25  # at 0.02 the logits would stay within ~0.3 of each other
+
+
+def vit_params_from_seed(spec, seed: int) -> dict:
+    """ViT parameters in the JAX layout (HWIO patch embed, (in, out) linears):
+    nested dicts of fp32 numpy arrays drawn leaf by leaf, in this order, from
+    ``np.random.default_rng(seed)`` as clip(N(0, 1), -2, 2) * std: std 0.02 for
+    every weight, bias and LayerNorm bias, 1 + that for LayerNorm scales, and
+    ``VIT_HEAD_STD`` for the head weight."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, std=0.02, mean=0.0):
+        return (mean + np.clip(rng.standard_normal(shape), -2.0, 2.0) * std).astype(np.float32)
+
+    def ln(d):
+        return {"scale": draw((d,), mean=1.0), "bias": draw((d,))}
+
+    def linear(cin, cout, std=0.02):
+        return {"w": draw((cin, cout), std), "b": draw((cout,))}
+
+    d = spec.dim
+    params = {
+        "patch_embed": {"w": draw((spec.patch, spec.patch, spec.in_chans, d)), "b": draw((d,))},
+        "cls_token": draw((1, 1, d)),
+        "pos_embed": draw((1, spec.tokens, d)),
+        "norm": ln(d),
+        "head": linear(d, spec.num_classes, VIT_HEAD_STD),
+        "blocks": {},
+    }
+    for i in range(spec.depth):
+        attn = spec.block_heads(i) * spec.head_dim
+        hidden = spec.block_mlp_hidden(i)
+        params["blocks"][str(i)] = {
+            "ln1": ln(d), "qkv": linear(d, 3 * attn), "proj": linear(attn, d),
+            "ln2": ln(d), "mlp1": linear(d, hidden), "mlp2": linear(hidden, d),
+        }
+    return params
+
+
+def leaf_sums(tree) -> np.ndarray:
+    """float64 sum of every leaf, in the tree's order: a fingerprint that makes
+    a drifting copy of the parameters fail loudly."""
+    if isinstance(tree, dict):
+        return np.concatenate([leaf_sums(v) for v in tree.values()])
+    return np.array([np.sum(np.asarray(tree), dtype=np.float64)])
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, runs: int = RUNS, warm: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, runs: int = RUNS, warm: int = 3, spin: bool = False) -> float:
+    """Median time of one call, CUDA events around each call. A forward is
+    timed as its caller sees it, host launch overhead included. A kernel
+    (``spin=True``) is timed on the device alone: a spin kernel holds the
+    stream while the host enqueues the start event, the call and the end
+    event, so the events bracket only the call's device work."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(runs)]
     for s, e in ev:
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -116,10 +198,10 @@ def time_ms(fn, runs: int = RUNS, warm: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def compare(got: torch.Tensor, ref: torch.Tensor):
+def compare(got: torch.Tensor, ref: torch.Tensor, atol: float = 1e-3):
     """-> (ok, max_abs_err) at the port's kernel tolerances: int8 within one
-    quantum and >= 99% exact; fp32 rtol 1e-5 / atol 1e-3; bf16 within one
-    bf16 ulp or that atol, whichever is larger."""
+    quantum and >= 99% exact; fp32 rtol 1e-5 / ``atol``; bf16 within one
+    bf16 ulp or ``atol``, whichever is larger."""
     if got.dtype == torch.int8:
         return compare_block(got, ref, 0.99)[:2]
     torch.cuda.synchronize()
@@ -130,8 +212,8 @@ def compare(got: torch.Tensor, ref: torch.Tensor):
     if got.dtype == torch.bfloat16:
         mag = torch.maximum(got.float().abs(), ref.float().abs()).clamp_min(1e-30)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        return bool((d <= ulp.clamp_min(1e-3)).all()), err
-    return bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-3)), err
+        return bool((d <= ulp.clamp_min(atol)).all()), err
+    return bool(torch.allclose(got, ref, rtol=1e-5, atol=atol)), err
 
 
 # --------------------------------------------------------------------------
@@ -194,7 +276,8 @@ def cost(kernel: str, x: torch.Tensor, leaf, kw):
         m, k = x.numel() // x.shape[-1], 9 * x.shape[-1]
     else:
         m, k = x.shape
-    out_bytes = 1 if kw.get("out_scale") is not None else 4
+    out_bytes = 1 if kw.get("out_scale") is not None else \
+        torch.empty((), dtype=kw.get("out_dtype", torch.float32)).element_size()
     nbytes = x.numel() * x.element_size() + k * n + 3 * 4 * n + m * n * out_bytes
     return nbytes, 2 * m * k * n
 
@@ -215,7 +298,7 @@ def int_mm_ms(x: torch.Tensor, leaf):
         torch._int_mm(x8, w8)
     except RuntimeError as e:
         return None, str(e).splitlines()[0]
-    return time_ms(lambda: torch._int_mm(x8, w8)), None
+    return time_ms(lambda: torch._int_mm(x8, w8), spin=True), None
 
 
 # --------------------------------------------------------------------------
@@ -280,8 +363,8 @@ def check_and_time_main_shapes(model, gen: torch.Generator):
         rows.append({
             "path": "resnet18", "kernel": kernel, "call": label, "x": list(shape), "n": leaf["w"].n,
             "max_abs_err": err,
-            "ms": time_ms(lambda: KERNEL[kernel](*args, **kw)),
-            "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw)),
+            "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
+            "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
             "bytes": nbytes, "ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
             "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
@@ -292,7 +375,8 @@ def check_and_time_main_shapes(model, gen: torch.Generator):
     st = model.q["stem"]
     h = st["e4"].shape[1]
     xp = torch.zeros((BATCH, h + 3, h + 3, st["w"].shape[2]), dtype=torch.int8, device="cuda")
-    emit({"phase": "stem_im2col", "ms": time_ms(lambda: extract_patches_nhwc(xp, 4, 4, 1, 0, 0))})
+    emit({"phase": "stem_im2col",
+          "ms": time_ms(lambda: extract_patches_nhwc(xp, 4, 4, 1, 0, 0), spin=True)})
     del xp
     return rows, fails
 
@@ -504,8 +588,8 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator):
             "path": "efficientnet_b0", "kernel": "fused_mbconv_block", "call": name,
             "x": list(x.shape), "ce": packed["wdw"].shape[-1], "n": packed["wp"].n,
             "k": k, "stride": stride, "max_abs_err": err, "exact": exact,
-            "ms": time_ms(lambda: fused_mbconv_block(x, packed, **kw)),
-            "plain_ms": time_ms(lambda: fused_mbconv_block_plain(x, packed, **kw)),
+            "ms": time_ms(lambda: fused_mbconv_block(x, packed, **kw), spin=True),
+            "plain_ms": time_ms(lambda: fused_mbconv_block_plain(x, packed, **kw), spin=True),
             "bytes": nbytes, "ops": ops, "dw_macs": dw,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
             "dw_ms": dw / FP32_FMA_PER_S * 1e3, "library_ms": None,
@@ -523,8 +607,8 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator):
         rows.append({
             "path": "efficientnet_b0", "kernel": kernel, "call": label, "x": list(shape),
             "n": leaf["w"].n, "max_abs_err": err,
-            "ms": time_ms(lambda: KERNEL[kernel](*args, **kw)),
-            "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw)),
+            "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
+            "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
             "bytes": nbytes, "ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
             "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
@@ -672,36 +756,301 @@ def run_efficientnet(gen: torch.Generator):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# the ViT-Tiny path: kernel D (dense + GELU) and kernel A
+# --------------------------------------------------------------------------
+
+
+# kernel D's tolerance (compare's atol): bf16 within one bf16 ulp, 1e-4 near
+# GELU's zero, where the fp32 sums' order moves an output that rounds to a
+# tiny bf16 value; fp32 rtol 1e-5 / atol 1e-5
+DENSE_ATOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+
+
+def dense_inputs(m: int, k: int, n: int, dtype, gen: torch.Generator):
+    """LayerNorm-like x (m, k), w with std 1/sqrt(k), b: outputs of order one."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=gen, device="cuda") / k**0.5).to(dtype)
+    b = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+    return x, w, b
+
+
+def dense_cost_ms(m: int, k: int, n: int, dtype):
+    """(bytes ms, operations ms) of one dense_gelu call: x, w, b read once,
+    out written once; bf16 products on the tensor cores, fp32 FMAs on the
+    CUDA cores (the function is exact fp32, not TF32)."""
+    e = torch.empty((), dtype=dtype).element_size()
+    nbytes = (m * k + k * n + n + m * n) * e
+    ops_ms = (2 * m * k * n / BF16_FLOPS_PER_S if dtype == torch.bfloat16
+              else m * k * n / FP32_FMA_PER_S) * 1e3
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops_ms
+
+
+def vit_check_dense(gen: torch.Generator):
+    """(a) kernel D against its plain version at odd shapes (ragged M, N, K; K
+    not a multiple of 16 or of 8; the element-wise loaders) and at the served
+    shapes: the mlp1 of one batch-256 forward (M = 256 * 197) in bf16 and
+    fp32, and of a batch-1 forward (M = 197). Returns the kernels-line rows
+    (the bf16 batch-256 call, 12 per forward) and the failures."""
+    import torch.nn.functional as F
+
+    fails, err_max, checks = [], {"bfloat16": 0.0, "float32": 0.0}, 0
+    for m, k, n in [(77, 40, 24), (300, 72, 168), (333, 13, 37), (1000, 768, 192), (129, 8, 8),
+                    (5, 200, 130), (4097, 72, 24), (50, 16, 1000)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = dense_inputs(m, k, n, dtype, gen)
+            ok, err = compare(dense_gelu(x, w, b), dense_gelu_plain(x, w, b), DENSE_ATOL[dtype])
+            checks += 1
+            err_max[str(dtype)[6:]] = max(err_max[str(dtype)[6:]], err)
+            if not ok:
+                fails.append(f"dense_gelu {m}x{k}x{n} {dtype}: max abs err {err}")
+    emit({"phase": "vit_a_dense_odd_shapes", "checks": checks, "max_abs_err": err_max,
+          "failed": fails})
+    rows = []
+    d, hidden, tokens = 192, 768, 197
+    for m, dtype in [(BATCH * tokens, torch.bfloat16), (BATCH * tokens, torch.float32),
+                     (tokens, torch.bfloat16)]:
+        x, w, b = dense_inputs(m, d, hidden, dtype, gen)
+        ok, err = compare(dense_gelu(x, w, b), dense_gelu_plain(x, w, b), DENSE_ATOL[dtype])
+        if not ok:
+            fails.append(f"dense_gelu served {m}x{d}x{hidden} {dtype}: max abs err {err}")
+        nbytes, bytes_ms, ops_ms = dense_cost_ms(m, d, hidden, dtype)
+        row = {
+            "path": "vit_tiny_float", "kernel": "dense_gelu", "call": "mlp1", "x": [m, d],
+            "n": hidden, "dtype": str(dtype)[6:], "max_abs_err": err,
+            "ms": time_ms(lambda: dense_gelu(x, w, b), spin=True),
+            "plain_ms": time_ms(lambda: dense_gelu_plain(x, w, b), spin=True),
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "library_ms": time_ms(lambda: F.gelu(torch.addmm(b, x, w), approximate="none"),
+                                  spin=True),
+            "library": "torch.addmm + F.gelu(approximate='none') in the same dtype",
+            "calls": 12,
+            # the kernels line sums the served forward: bf16 at batch 256
+            "in_forward": m == BATCH * tokens and dtype == torch.bfloat16,
+        }
+        rows.append(row)
+        emit({"phase": "vit_a_dense_main_shape", **row})
+        del x, w, b
+    return rows, fails
+
+
+def vit_kernel_a_calls(model, b: int):
+    """Kernel A's calls of one forward at batch b (the carrier's dtypes): the
+    u8 patch embed, then per block qkv, proj, mlp1 and mlp2 (on the bf16
+    carrier mlp1 requantizes to mlp2's input, the int8 MLP pair), and the
+    head: (label, x shape, x dtype, leaf, kwargs, calls per forward)."""
+    spec, q = model.spec, model.q
+    act = model.act_dtype
+    blk = q["blocks"]["0"]
+    t, d = spec.tokens, spec.dim
+    hidden = blk["mlp1"]["w"].n
+    pe = q["patch_embed"]
+
+    def qp(leaf):
+        return dict(in_scale=leaf["in_scale"], in_zp=leaf["in_zp"])
+
+    calls = [("patch_embed", (b * (t - 1), pe["w"].k), torch.int8, pe,
+              dict(in_scale=1.0, in_zp=128), 1),
+             ("qkv", (b * t, d), act, blk["qkv"], dict(**qp(blk["qkv"]), out_dtype=act), 12),
+             ("proj", (b * t, d), act, blk["proj"], dict(**qp(blk["proj"]), out_dtype=act), 12)]
+    if act == torch.float32:
+        calls += [("mlp1", (b * t, d), act, blk["mlp1"], dict(**qp(blk["mlp1"]), act="gelu"), 12),
+                  ("mlp2", (b * t, hidden), act, blk["mlp2"], qp(blk["mlp2"]), 12)]
+    else:
+        calls += [("mlp1", (b * t, d), act, blk["mlp1"],
+                   dict(**qp(blk["mlp1"]), act="gelu", out_scale=blk["mlp2"]["in_scale"],
+                        out_zp=blk["mlp2"]["in_zp"]), 12),
+                  ("mlp2", (b * t, hidden), torch.int8, blk["mlp2"],
+                   dict(**qp(blk["mlp2"]), out_dtype=act), 12)]
+    calls.append(("head", (b, d), act, q["head"], qp(q["head"]), 1))
+    return calls
+
+
+def vit_check_kernel_a(model, path: str, gen: torch.Generator):
+    """(a) kernel A at every ViT shape of one carrier, batch 256, and the timings."""
+    rows, fails = [], []
+    for label, shape, dtype, leaf, kw, calls in vit_kernel_a_calls(model, BATCH):
+        if dtype == torch.int8:
+            x = make_input(shape, dtype, kw["in_zp"], gen)
+        else:
+            x = (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(dtype)
+        args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
+        ok, err = compare(int8_matmul_requant(*args, **kw), int8_matmul_requant_plain(*args, **kw))
+        if not ok:
+            fails.append(f"int8_matmul_requant {path} {label} {tuple(shape)}: max abs err {err}")
+        nbytes, ops = cost("int8_matmul_requant", x, leaf, kw)
+        lib, lib_note = int_mm_ms(x, leaf)
+        rows.append({
+            "path": path, "kernel": "int8_matmul_requant", "call": label, "x": list(shape),
+            "x_dtype": str(dtype)[6:], "n": leaf["w"].n, "max_abs_err": err,
+            "ms": time_ms(lambda: int8_matmul_requant(*args, **kw), spin=True),
+            "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw), spin=True),
+            "bytes": nbytes, "ops": ops,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
+            "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
+            "calls": calls,
+        })
+        emit({"phase": "vit_a_main_shape", **rows[-1]})
+        del x, args
+    return rows, fails
+
+
+def count_forwards(fn, xs, want: dict, label: str):
+    """Run ``fn`` on each input with the launch counters set to 0 just before
+    and read just after; each forward must launch ``want``."""
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        outs = [fn(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = dict(_lib.launches)
+    for k in set(want) | set(launches):
+        if launches.get(k, 0) != want.get(k, 0) * len(xs):
+            raise SmokeFailure(f"(d) {k} launched {launches.get(k, 0)} times in {len(xs)} "
+                               f"{label} forwards, expected {want.get(k, 0) * len(xs)}")
+    return outs, launches
+
+
+def run_vit(gen: torch.Generator):
+    """Every phase of the ViT-Tiny path; -> (rows, launches by path)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qvit import load_static_int8
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+    from inference_efficient_vision_models_tpu_torch.models import vit
+
+    rows, fails = vit_check_dense(gen)
+    models = {"vit_tiny_int8": load_static_int8(VIT_ARTIFACT, "cuda", act_dtype=torch.float32),
+              "vit_tiny_int8_bf16": load_static_int8(VIT_ARTIFACT, "cuda",
+                                                     act_dtype=torch.bfloat16)}
+    for path, model in models.items():
+        r, f = vit_check_kernel_a(model, path, gen)
+        rows += r
+        fails += f
+    if fails:
+        raise SmokeFailure("ViT kernels disagree with their plain versions:\n" + "\n".join(fails))
+
+    golden = np.load(VIT_GOLDEN)
+    golden_imgs = np.random.default_rng(int(golden["seed"])).integers(
+        0, 256, tuple(golden["shape"]), dtype=np.uint8)
+    spec = models["vit_tiny_int8"].spec
+    params_np = vit_params_from_seed(spec, int(golden["param_seed"]))
+    if not np.array_equal(leaf_sums(params_np), golden["param_sums"]):
+        raise SmokeFailure("vit_params_from_seed no longer gives the weights the goldens used")
+    params = vit.params_from_jax(params_np, "cuda")
+    launches_by_path, checks = {}, []
+
+    # serving both int8 carriers; (b) kernel path against the plain path on 32
+    # images; (c) served logits against the JAX golden of the route each takes
+    small = torch.from_numpy(golden_imgs).cuda()
+    x32 = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (32, *golden_imgs.shape[1:]), dtype=np.uint8)).cuda()
+    for path, method, route in [("vit_tiny_int8_bf16", "static_int8_bf16", "int8_bf16_pair"),
+                                ("vit_tiny_int8", "static_int8", "int8_f32")]:
+        model = models[path]
+        requests, served, forwards, launches, wall = serve(
+            VIT_ARTIFACT, golden_imgs, np.random.default_rng(1), method)
+        launches_by_path[path] = launches
+        emit({"phase": f"{path}_serve", "requests": [len(r) for r in requests],
+              "forwards": forwards, "launches": launches, "wall_s": wall,
+              "served_images_per_s": sum(len(r) for r in requests) / wall})
+        for r, out in zip(requests, served):
+            if out.shape != (len(r), spec.num_classes) or not np.isfinite(out).all():
+                raise SmokeFailure(f"{path}: served logits have shape {out.shape} or are "
+                                   f"not finite")
+        for k in set(VIT_PER_FORWARD) | set(launches):  # (d)
+            want = VIT_PER_FORWARD.get(k, 0) * forwards
+            if launches.get(k, 0) != want:
+                raise SmokeFailure(f"(d) {k} launched {launches.get(k, 0)} times in {forwards} "
+                                   f"{path} forwards, expected {want}")
+        with torch.inference_mode():
+            got, plain = model(x32).cpu().numpy(), model(x32, impl="plain").cpu().numpy()
+        checks.append((f"{path}_b_kernel_vs_plain_forward", got, plain, VIT_TAU_B))
+        checks.append((f"{path}_c_served_vs_jax_golden", served[-1][: len(golden_imgs)],
+                       golden[route], VIT_TAU[route]))
+
+    # the float forward with the fused mlp1 + GELU on kernel D: the main path
+    # is the bf16 forward on the golden images, at batch 256 and at batch 1
+    def fwd(dtype, impl="kernel"):
+        return lambda u8: vit.apply(spec, params, normalize_images(u8), compute_dtype=dtype,
+                                    fused_mlp=True, impl=impl)
+
+    xb = {b: torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (b, *golden_imgs.shape[1:]), dtype=np.uint8)).cuda() for b in (1, BATCH)}
+    outs, launches = count_forwards(fwd(torch.bfloat16), [small, xb[BATCH], xb[1]],
+                                    VIT_FLOAT_PER_FORWARD, "float bf16")
+    launches_by_path["vit_tiny_float"] = launches
+    emit({"phase": "vit_tiny_float_launches", "forwards": 3, "launches": launches})
+    outs32, _ = count_forwards(fwd(torch.float32), [small], VIT_FLOAT_PER_FORWARD, "float fp32")
+    for dtype, route, out in [(torch.bfloat16, "float_bf16", outs[0]),
+                              (torch.float32, "float_f32", outs32[0])]:
+        with torch.inference_mode():
+            got, plain = fwd(dtype)(x32).cpu().numpy(), fwd(dtype, "plain")(x32).cpu().numpy()
+        tau_b = VIT_TAU_B if dtype == torch.bfloat16 else VIT_TAU["float_f32"]
+        checks.append((f"vit_tiny_{route}_b_kernel_vs_plain_forward", got, plain, tau_b))
+        checks.append((f"vit_tiny_{route}_c_vs_jax_golden", out.cpu().numpy(), golden[route],
+                       VIT_TAU[route]))
+    for name, got, ref, tau in checks:
+        ok, err, atol = logits_close(got, ref, tau)
+        emit({"phase": name, "images": len(ref), "max_abs_err": err, "atol": atol, "tau": tau,
+              "max_abs_err_over_scale": err / float(np.abs(ref).max()),
+              "argmax_identical": bool((got.argmax(1) == ref.argmax(1)).all())})
+        if not ok:
+            raise SmokeFailure(f"{name}: {err} > {atol} or an argmax differs")
+
+    # forward times (CUDA events) and a batch-256 profile of each forward
+    fwd_ms = {}
+    with torch.inference_mode():
+        for path, model in models.items():
+            for b in (1, BATCH):
+                fwd_ms[f"{path}_b{b}"] = time_ms(lambda: model(xb[b]))
+                fwd_ms[f"{path}_plain_b{b}"] = time_ms(lambda: model(xb[b], impl="plain"))
+            emit({"phase": f"{path}_profile_b256", **profile_forward(model, xb[BATCH], 1)})
+        for b in (1, BATCH):
+            fwd_ms[f"vit_tiny_float_bf16_b{b}"] = time_ms(lambda: fwd(torch.bfloat16)(xb[b]))
+            fwd_ms[f"vit_tiny_float_bf16_plain_b{b}"] = time_ms(
+                lambda: fwd(torch.bfloat16, "plain")(xb[b]))
+        fwd_ms[f"vit_tiny_float_f32_b{BATCH}"] = time_ms(lambda: fwd(torch.float32)(xb[BATCH]))
+        emit({"phase": "vit_tiny_float_bf16_profile_b256",
+              **profile_forward(fwd(torch.bfloat16), xb[BATCH], 1)})
+    fwd_ms.update({f"{k}_images_per_s": BATCH / v * 1e3 for k, v in list(fwd_ms.items())
+                   if k.endswith(f"_b{BATCH}")})
+    emit({"phase": "vit_forward", **fwd_ms})
+    return rows, launches_by_path
+
+
+
 def kernels_line(rows, launches_by_path):
     """One entry per kernel: time, plain time, bound and library time summed
-    over its calls in one batch-256 forward of every path that runs it;
-    launches summed over the served runs of those paths."""
+    over its calls in one batch-256 forward of every path that runs it (a row
+    stands for ``calls`` identical calls; rows off that forward are left
+    out); launches summed over the counted runs of those paths."""
+    notes = {
+        "fused_mbconv_block": "no PyTorch call computes a fused int8 MBConv block, and PyTorch "
+                              "has no int8 convolution on CUDA",
+        "conv3x3_s1_int8": "PyTorch has no int8 convolution on CUDA",
+        "dense_gelu": "torch.addmm + F.gelu(approximate='none') in bf16 (two launches)",
+    }
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
-        mine = [r for r in rows if r["kernel"] == k]
+        mine = [r for r in rows if r["kernel"] == k and r.get("in_forward", True)]
+        n = [r.get("calls", 1) for r in mine]
         parts = [max(r["bytes_ms"], r["ops_ms"], r.get("dw_ms", 0.0)) for r in mine]
-        by = {"bytes": sum(p for p, r in zip(parts, mine) if p == r["bytes_ms"]),
-              "operations": sum(p for p, r in zip(parts, mine) if p != r["bytes_ms"])}
+        by = {"bytes": sum(c * p for c, p, r in zip(n, parts, mine) if p == r["bytes_ms"]),
+              "operations": sum(c * p for c, p, r in zip(n, parts, mine) if p != r["bytes_ms"])}
         libs = [r["library_ms"] for r in mine]
         paths = sorted({r["path"] for r in mine})
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(launches_by_path[p].get(k, 0) for p in paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": sum(parts),
+            "ms": sum(c * r["ms"] for c, r in zip(n, mine)),
+            "plain_ms": sum(c * r["plain_ms"] for c, r in zip(n, mine)),
+            "bound_ms": sum(c * p for c, p in zip(n, parts)),
             "bound_by": max(by, key=by.get),
-            "library_ms": None if None in libs else sum(libs),
-            **({"library_note": "no PyTorch call computes a fused int8 MBConv block, and "
-                                "PyTorch has no int8 convolution on CUDA"}
-               if k == "fused_mbconv_block" else {}),
-            **({"library_note": "PyTorch has no int8 convolution on CUDA"}
-               if k == "conv3x3_s1_int8" else {}),
+            "library_ms": None if None in libs else sum(c * v for c, v in zip(n, libs)),
+            **({"library_note": notes[k]} if k in notes else {}),
             "per": f"one batch-{BATCH} forward of {' and '.join(paths)}: sum over its "
-                   f"{len(mine)} calls",
-            "paths": {p: {"calls": sum(r["path"] == p for r in mine),
-                          "ms": sum(r["ms"] for r in mine if r["path"] == p),
+                   f"{sum(n)} calls",
+            "paths": {p: {"calls": sum(c for c, r in zip(n, mine) if r["path"] == p),
+                          "ms": sum(c * r["ms"] for c, r in zip(n, mine) if r["path"] == p),
                           "launches": launches_by_path[p].get(k, 0)} for p in paths},
         })
     return kernels
@@ -748,10 +1097,10 @@ def main() -> int:
     for r, out in zip(requests, served):
         if out.shape != (len(r), model.spec.num_classes) or not np.isfinite(out).all():
             raise SmokeFailure(f"served logits have shape {out.shape} or are not finite")
-    for k, per in PER_FORWARD.items():  # (d)
-        if launches.get(k, 0) != per * forwards:
+    for k in set(PER_FORWARD) | set(launches):  # (d)
+        if launches.get(k, 0) != PER_FORWARD.get(k, 0) * forwards:
             raise SmokeFailure(f"(d) {k} launched {launches.get(k, 0)} times in {forwards} "
-                               f"forwards, expected {per * forwards}")
+                               f"forwards, expected {PER_FORWARD.get(k, 0) * forwards}")
 
     # (b) kernel path (served) against the plain path on the card
     big = requests[-1]
@@ -794,8 +1143,10 @@ def main() -> int:
     del model, x
 
     eff_rows, eff_launches = run_efficientnet(gen)
-    emit({"kernels": kernels_line(rows + eff_rows,
-                                  {"resnet18": launches, "efficientnet_b0": eff_launches})})
+    vit_rows, vit_launches = run_vit(gen)
+    emit({"kernels": kernels_line(rows + eff_rows + vit_rows,
+                                  {"resnet18": launches, "efficientnet_b0": eff_launches,
+                                   **vit_launches})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

@@ -1,15 +1,17 @@
 """Fold ImageNet normalization into a quantized stem conv (generic).
 
 The port of the JAX package's ``compress/quant/stemfold.py`` (the u8 stem of
-the MBConv families). The normalize step x_f = u*k_c + d_c (u raw uint8,
-k_c = 1/(255 sigma_c), d_c = -mu_c/sigma_c) is affine, so for a stem conv W
+the MBConv families and the ViT patch embed). The normalize step
+x_f = u*k_c + d_c (u raw uint8, k_c = 1/(255 sigma_c), d_c = -mu_c/sigma_c)
+is affine, so for a stem conv W
 
     conv_pad0(x_f, W) = conv_upad0(u, W*k) + conv_pad0(d_img, W)
     conv_upad0(u, W*k) = s_w * conv_pad-128(u - 128, Wq) + 128 * s_w * sum(Wq)
 
 i.e. the device consumes raw uint8 pixels through an int8 conv whose input
-quantization is exact, plus an offset map E that the checkpoint leaves out
-and ``restore_offsets`` rebuilds at load.
+quantization is exact, plus an offset E: for a padded stem a map that the
+checkpoint leaves out and ``restore_offsets`` rebuilds at load, for a VALID
+stem (a ViT patch embed) a per-channel vector stored as it is.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 
 from ...data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ...ops.fused_mbconv import act_plain
-from ...ops.im2col import conv_int8_im2col
+from ...ops.im2col import conv_int8_im2col, patch_matrix
+from ...ops.int8_matmul import int8_matmul_requant, int8_matmul_requant_plain
 
 DERIVED_KEYS = ("e",)
 
@@ -46,18 +49,30 @@ def restore_offsets(stem: Dict) -> Dict:
 def apply_u8_stem(stem: Dict, x_u8: torch.Tensor, *, stride: int, pad: int, act: str,
                   impl: str = "kernel") -> torch.Tensor:
     """Raw uint8 NHWC -> fp32 stem output act(acc * s_w + b + E), before
-    requantization; ``act`` is "silu" or "relu6".
+    requantization; ``act`` is "silu", "relu6" or "none".
 
     ``stem`` holds the packed weight ``w`` with ``w_scale``, ``bias``, a zero
-    ``w_sum`` and the offset map ``e`` on the input's device. The conv runs
-    the int8 matmul kernel through im2col with ``in_zp = 128`` (the
-    shifted zero point is 0, so no correction) over u - 128 padded with -128,
-    the shifted value of a zero pixel, as the JAX stem pads."""
+    ``w_sum`` and the offset ``e`` on the input's device: a (1, Ho, Wo, C)
+    map for a padded stem, a (C,) vector for a VALID one (a ViT patch embed).
+    The conv runs the int8 matmul kernel with ``in_zp = 128`` (the shifted
+    zero point is 0, so no correction) over u - 128, padded with -128, the
+    shifted value of a zero pixel, as the JAX stem pads. A VALID conv whose
+    stride equals its kernel reads its patch matrix by a reshape; any other
+    stem goes through im2col."""
     if x_u8.dtype != torch.uint8:
         raise ValueError(f"expected raw uint8 images, got {x_u8.dtype}")
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
     x_s = (x_u8.to(torch.int16) - 128).to(torch.int8)
-    if pad:
-        x_s = F.pad(x_s, (0, 0, pad, pad, pad, pad), value=-128)
-    y = conv_int8_im2col(x_s, stem["w"], stem["w_scale"], stem["bias"], stem["w_sum"],
-                         stride=stride, padding=0, in_scale=1.0, in_zp=128, backend=impl)
+    kh, _, _, o = stem["w"].shape
+    if pad == 0 and stride == kh:
+        n, h, w = x_s.shape[:3]
+        mm = int8_matmul_requant if impl == "kernel" else int8_matmul_requant_plain
+        y = mm(patch_matrix(x_s, kh), stem["w"], stem["w_scale"], stem["bias"], stem["w_sum"],
+               in_scale=1.0, in_zp=128).reshape(n, h // kh, w // kh, o)
+    else:
+        if pad:
+            x_s = F.pad(x_s, (0, 0, pad, pad, pad, pad), value=-128)
+        y = conv_int8_im2col(x_s, stem["w"], stem["w_scale"], stem["bias"], stem["w_sum"],
+                             stride=stride, padding=0, in_scale=1.0, in_zp=128, backend=impl)
     return act_plain(y + stem["e"], act)

@@ -58,14 +58,23 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Abramowitz & Stegun 7.1.26, the polynomial of the Pallas kernel's _erf.
+// Abramowitz & Stegun 7.1.26, the polynomial of the Pallas kernel's _erf,
+// rounded step by step as ops/int8_matmul.py:erf_as evaluates it (no FMA).
 __device__ __forceinline__ float erf_as(float x) {
   float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
   float a = fabsf(x);
-  float t = 1.0f / (1.0f + 0.3275911f * a);
-  float poly = t * (0.254829592f +
-                    t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return s * (1.0f - poly * expf(-a * a));
+  float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, a)));
+  float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
+  p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
+  p = __fadd_rn(0.254829592f, __fmul_rn(t, p));
+  p = __fmul_rn(t, p);
+  return __fmul_rn(s, __fadd_rn(1.0f, -__fmul_rn(p, expf(__fmul_rn(-a, a)))));
+}
+
+// GELU(y) = y * 0.5 * (1 + erf(y / sqrt(2))) in that order, as the plain versions take it.
+__device__ __forceinline__ float gelu_erf(float y) {
+  return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erf_as(__fmul_rn(y, 0.70710678118654752f))));
 }
 
 __device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N, int acc) {
@@ -74,7 +83,7 @@ __device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N
   if (e.act == ACT_RELU) {
     y = fmaxf(y, 0.f);
   } else if (e.act == ACT_GELU) {
-    y = y * 0.5f * (1.0f + erf_as(y * 0.70710678118654752f));
+    y = gelu_erf(y);
   } else if (e.act == ACT_GELU_TANH) {
     y = y * (0.5f * (1.0f + tanhf(0.7978845608028654f * (y + 0.044715f * (y * y * y)))));
   }

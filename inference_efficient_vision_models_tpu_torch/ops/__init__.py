@@ -1,6 +1,8 @@
-"""int8 kernels (CUDA on a GPU tensor, plain PyTorch on a CPU tensor) and layout helpers."""
+"""The hand-written kernels (CUDA on a GPU tensor, plain PyTorch on a CPU
+tensor) and layout helpers."""
 
 from .conv3x3 import conv3x3_s1_int8, conv3x3_s1_int8_plain
+from .fused_dense import dense_gelu, dense_gelu_plain
 from .fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_device_packed
 from .im2col import conv_int8_im2col, extract_patches_nhwc
 from .int8_matmul import (
@@ -15,6 +17,8 @@ __all__ = [
     "conv3x3_s1_int8",
     "conv3x3_s1_int8_plain",
     "conv_int8_im2col",
+    "dense_gelu",
+    "dense_gelu_plain",
     "extract_patches_nhwc",
     "fused_mbconv_block",
     "fused_mbconv_block_plain",

@@ -60,6 +60,9 @@ KERNELS = {
         "ievm_fused_mbconv_project":
             [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] * 8 + [_P],
     }),
+    "dense_gelu": ("fused_dense", {
+        "ievm_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
 }
 
 launches: "collections.Counter[str]" = collections.Counter()

@@ -47,11 +47,14 @@ _VEC_KEYS = ("ve", "wdw", "vdw", "srw", "srb", "sew", "seb", "vp")
 
 
 def act_plain(y: torch.Tensor, kind: str) -> torch.Tensor:
-    """SiLU as y * (1 / (1 + exp(-y))) in fp32, the kernels' formula, or ReLU6."""
+    """SiLU as y * (1 / (1 + exp(-y))) in fp32, the kernels' formula, ReLU6,
+    or ``"none"`` (the identity: a ViT patch embed)."""
     if kind == "silu":
         return y * torch.reciprocal(1.0 + torch.exp(-y))
     if kind == "relu6":
         return torch.clamp(y, 0.0, 6.0)
+    if kind == "none":
+        return y
     raise ValueError(f"unknown act {kind!r}")
 
 

@@ -34,6 +34,17 @@ def extract_patches_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int, padding
     return patches, ho, wo
 
 
+def patch_matrix(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N * H/p * W/p, p*p*C): the patches of a VALID conv
+    whose stride equals its kernel, one row each, in the HWIO weight order.
+    A reshape and one permute copy; no patch is read twice."""
+    n, h, w, c = x.shape
+    ho, wo = h // patch, w // patch
+    x = x[:, : ho * patch, : wo * patch].reshape(n, ho, patch, wo, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n * ho * wo, patch * patch * c)
+
+
 def conv_int8_im2col(
     x_s: torch.Tensor,        # (N, H, W, C) int8 shifted activations
     w: WeightLike,            # (kh, kw, C, O) int8, or pack_weight() of it

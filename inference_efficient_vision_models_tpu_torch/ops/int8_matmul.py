@@ -102,6 +102,11 @@ def erf_as(x: torch.Tensor) -> torch.Tensor:
     return s * (1.0 - poly * torch.exp(-a * a))
 
 
+def gelu_as(y: torch.Tensor) -> torch.Tensor:
+    """y * 0.5 * (1 + erf(y / sqrt(2))) with the A&S erf, in the kernels' order."""
+    return y * 0.5 * (1.0 + erf_as(y * 2.0**-0.5))
+
+
 def epilogue_plain(acc: torch.Tensor, *, zp_s: int, w_sum, in_scale, w_scale, bias,
                    act=None, out_scale=None, out_zp=None, out_dtype=torch.float32):
     """The shared epilogue on an exact float64 accumulator ``acc`` (..., N)."""
@@ -110,7 +115,7 @@ def epilogue_plain(acc: torch.Tensor, *, zp_s: int, w_sum, in_scale, w_scale, bi
     if act == "relu":
         y = torch.clamp_min(y, 0.0)
     elif act == "gelu":
-        y = y * 0.5 * (1.0 + erf_as(y * 2.0**-0.5))
+        y = gelu_as(y)
     elif act == "gelu_tanh":
         y = y * (0.5 * (1.0 + torch.tanh(0.7978845608028654 * (y + 0.044715 * (y * y * y)))))
     elif act is not None:

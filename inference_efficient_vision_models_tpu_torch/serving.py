@@ -24,8 +24,10 @@ import torch
 
 from .compress.quant.fusedpath import load_static_int8_fused
 from .compress.quant.qresnet import load_static_int8
+from .compress.quant.qvit import load_static_int8 as load_static_int8_vit
 from .models.efficientnet import EfficientNetSpec
 from .models.registry import spec_from_dict
+from .models.vit import ViTSpec
 from .ops.space_to_depth import space_to_depth_u8
 from .utils.device import DeviceLike, resolve_device
 
@@ -36,11 +38,21 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
     Dispatches on the artifact's spec: a ResNet serves ``"static_int8"``
     through the int8 executor, whose stem takes the space-to-depth layout the
     host preprocess makes; an EfficientNet serves ``"static_int8_fused"``
-    (one fused kernel call per MBConv block) on raw uint8 images, with no
-    host preprocess, from ``model_static_int8_fused.msgpack`` or else the
-    shared ``model_static_int8.msgpack``."""
+    (one fused kernel call per MBConv block) from
+    ``model_static_int8_fused.msgpack`` or else the shared
+    ``model_static_int8.msgpack``; a ViT serves ``"static_int8"`` (fp32
+    activation carrier) and ``"static_int8_bf16"`` (bf16 carrier, from
+    ``model_static_int8_bf16.msgpack`` or else the shared file). EfficientNet
+    and ViT take raw uint8 images, with no host preprocess."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
         spec = spec_from_dict(json.load(f))
+    if isinstance(spec, ViTSpec):
+        if method not in ("static_int8", "static_int8_bf16"):
+            raise NotImplementedError(f"method {method!r} is not ported yet for ViT "
+                                      f"(have 'static_int8' and 'static_int8_bf16')")
+        act = torch.bfloat16 if method == "static_int8_bf16" else torch.float32
+        model = load_static_int8_vit(fold_dir, device, act_dtype=act)
+        return model.spec, model, model, None
     if isinstance(spec, EfficientNetSpec):
         if method == "static_int8_fused":
             model = load_static_int8_fused(fold_dir, device)

@@ -95,4 +95,4 @@ def test_specs_match_jax():
     assert tart.load_spec_dict(pruned, "best") == jart.load_spec_dict(pruned, "best")
     assert tart.load_spec_dict(pruned, "last") is None
     with pytest.raises(NotImplementedError):
-        t_spec({"__kind__": "vit", "patch": 16})
+        t_spec({"__kind__": "mobilenet_v2", "hidden_widths": [[16]]})

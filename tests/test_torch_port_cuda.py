@@ -9,15 +9,20 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_block
+from chip_smoke import VIT_SEED, random_block, vit_params_from_seed
+from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
 from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
     load_static_int8_fused,
 )
 from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import load_static_int8
+from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+from inference_efficient_vision_models_tpu_torch.models import vit
 from inference_efficient_vision_models_tpu_torch.ops import (
     _lib,
     conv3x3_s1_int8,
     conv3x3_s1_int8_plain,
+    dense_gelu,
+    dense_gelu_plain,
     fused_mbconv_block,
     fused_mbconv_block_plain,
     int8_matmul_requant,
@@ -30,6 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "bench", "quantization", "r2", "fold_0")
 EFF_ARTIFACT = os.path.join(ROOT, "inference_efficient_vision_models_tpu_torch", "testdata",
                             "effnet_b0_int8")
+VIT_ARTIFACT = os.path.join(ROOT, "inference_efficient_vision_models_tpu_torch", "testdata",
+                            "vit_tiny_int8")
 
 pytestmark = pytest.mark.cuda
 
@@ -155,4 +162,58 @@ def test_served_effnet_kernel_path_matches_plain_path(cuda):
         counts = dict(_lib.launches)
         ref = model(x, impl="plain")
     assert counts == {"int8_matmul_requant": 3, "fused_mbconv_block": 48}
+    assert torch.allclose(got, ref, rtol=0, atol=0.05 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("m,k,n", [(197, 192, 768), (77, 40, 24), (300, 72, 168), (333, 13, 37),
+                                   (1000, 768, 192)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_gelu_kernel_matches_plain(cuda, m, k, n, dtype):
+    """bf16 within one bf16 ulp (or 1e-4 near GELU's zero), fp32 rtol/atol 1e-5."""
+    rng = np.random.default_rng(m + k + n)
+    x, w, b = (torch.from_numpy(a.astype(np.float32)).to(cuda, dtype) for a in (
+        rng.standard_normal((m, k)), rng.standard_normal((k, n)) / np.sqrt(k),
+        rng.standard_normal(n)))
+    before = _lib.launches["dense_gelu"]
+    got = dense_gelu(x, w, b)
+    torch.cuda.synchronize()
+    assert _lib.launches["dense_gelu"] == before + 1
+    ref = dense_gelu_plain(x, w, b)
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape == (m, n)
+    d = (got.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        mag = torch.maximum(got.float().abs(), ref.float().abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool((d <= ulp.clamp_min(1e-4)).all())
+    else:
+        assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_float_vit_fused_mlp_kernel_matches_plain(cuda, dtype):
+    spec = vit.vit_spec("vit_tiny_patch16_224", num_classes=6)
+    params = vit.params_from_jax(vit_params_from_seed(spec, VIT_SEED), cuda)
+    x = normalize_images(torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 224, 224, 3), dtype=np.uint8)).to(cuda))
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        got = vit.apply(spec, params, x, compute_dtype=dtype, fused_mlp=True)
+        counts = dict(_lib.launches)
+        ref = vit.apply(spec, params, x, compute_dtype=dtype, fused_mlp=True, impl="plain")
+    assert counts == {"dense_gelu": 12}
+    tol = 1e-5 if dtype == torch.float32 else 0.05
+    assert torch.allclose(got, ref, rtol=0, atol=tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+def test_served_vit_kernel_path_matches_plain_path(cuda, act):
+    model = qvit.load_static_int8(VIT_ARTIFACT, device=cuda, act_dtype=act)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 224, 224, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+        counts = dict(_lib.launches)
+        ref = model(x, impl="plain")
+    assert counts == {"int8_matmul_requant": 50}
     assert torch.allclose(got, ref, rtol=0, atol=0.05 * float(ref.abs().max()))
