@@ -8,7 +8,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    prints the card's name and power limit;
 2. ResNet18 path (the committed static-INT8 pruned ResNet18):
    (a) holds each kernel against its plain PyTorch version on the card, at
-   every shape the served model gives it (batch 256) and at odd shapes;
+   every shape the served model gives it (batch 256, and batch 1 for kernel
+   A) and at odd shapes (kernel A over K 13..4104, N 6..1280, its 36
+   input/activation/output routes, offset views and rounding ties); kernel
+   A must equal its plain version bit for bit, kernel B within a quantum;
    serves the artifact through ``Predictor.from_artifact`` (requests of 1, 8
    and 2x256 images) with the launch counters set to 0 just before and read
    just after, and checks (d) 13 direct-3x3 and 8 int8-matmul launches per
@@ -16,7 +19,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    JAX package's golden logits committed in ``testdata/``;
 3. EfficientNet-B0 path (the committed static-INT8 EfficientNet-B0, served by
    the fused-MBConv executor): (a) kernel C against its plain version at the
-   16 block shapes (batch 256) and at odd shapes, kernel A at its 3 shapes;
+   16 block shapes (batch 256) and at odd shapes, kernel A at its 3 shapes
+   (batch 256 and 1);
    (a') every block's int8 output on 8 golden images with teacher forcing
    (kernel and plain fed the same plain-path input), the check that decides
    correctness; (c') every block against the JAX package's own block outputs
@@ -26,7 +30,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 4. ViT-Tiny path (the committed static-INT8 ViT-Tiny/16, and the float ViT
    from the same seeded weights): (a) kernel D (dense + GELU) against its
    plain version at odd shapes and at the served mlp1 shapes in bf16 and
-   fp32, kernel A at every ViT shape of both carriers; serves both int8
+   fp32, kernel A at every ViT shape of both carriers (batch 256 and 1); serves both int8
    carriers (``static_int8``, ``static_int8_bf16``) as above with (d) 50
    int8-matmul launches per forward, and runs the float forward with the
    fused mlp1 + GELU with (d) 12 kernel-D launches per forward; (b) kernel
@@ -301,14 +305,64 @@ def int_mm_ms(x: torch.Tensor, leaf):
     return time_ms(lambda: torch._int_mm(x8, w8), spin=True), None
 
 
+def compare_exact(got: torch.Tensor, ref: torch.Tensor):
+    """-> (ok, max_abs_err): kernel A equals its plain version bit for bit."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return False, float("inf")
+    err = float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
+    return bool(torch.equal(got, ref)), err
+
+
+def kernel_a_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, batch: int = BATCH,
+                 calls: int = 1):
+    """(a) kernel A at one served call, exact against its plain version, then
+    its time beside the plain version's, its bound and torch._int_mm's.
+    Rows off the batch-256 forward are left out of the kernels line."""
+    args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
+    ok, err = compare_exact(int8_matmul_requant(*args, **kw), int8_matmul_requant_plain(*args, **kw))
+    nbytes, ops = cost("int8_matmul_requant", x, leaf, kw)
+    lib, lib_note = int_mm_ms(x, leaf)
+    row = {
+        "path": path, "kernel": "int8_matmul_requant", "call": label, "batch": batch,
+        "x": list(x.shape), "x_dtype": str(x.dtype)[6:], "n": leaf["w"].n, "max_abs_err": err,
+        "ms": time_ms(lambda: int8_matmul_requant(*args, **kw), spin=True),
+        "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw), spin=True),
+        "bytes": nbytes, "ops": ops,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
+        "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
+        "calls": calls, "in_forward": batch == BATCH,
+    }
+    return row, [] if ok else [f"int8_matmul_requant {path} {label} {tuple(x.shape)} "
+                               f"b{batch}: max abs err {err}"]
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
 
+# kernel A's routes: input dtype x activation x output (int8 requant, fp32, bf16)
+A_ROUTES = [(xd, act, out) for xd in (torch.int8, torch.float32, torch.bfloat16)
+            for act in (None, "relu", "gelu", "gelu_tanh")
+            for out in (torch.int8, torch.float32, torch.bfloat16)]
+
+
+# kernel A is held bit-exact; kernel B within one quantum (compare)
+CHECK = {"int8_matmul_requant": compare_exact, "conv3x3_s1_int8": compare}
+
+
+def a_kwargs(act, out):
+    kw = dict(in_scale=0.05, in_zp=113, act=act)
+    return dict(kw, out_scale=0.04, out_zp=120) if out == torch.int8 else dict(kw, out_dtype=out)
+
+
 def check_odd_shapes(gen: torch.Generator):
-    """(a) at shapes off the served path: ragged M/K/N, C not a multiple of 4,
-    float inputs, GELU variants, bf16 output."""
+    """(a) at shapes off the served path. Kernel A, bit-exact: K from 13 to
+    4104 (element, 4-byte, contiguous-row and vector loads; whole panel and
+    windows) by N from 6 to 1280, M in {1, 197, 1000}, the 36 routes between
+    them; activations at odd offsets; quotients at rint's ties. Kernel B:
+    ragged M/N, C not a multiple of 4, within one quantum."""
     errs, fails = {k: 0.0 for k in KERNEL}, []
 
     def leaf(shape):
@@ -319,19 +373,33 @@ def check_odd_shapes(gen: torch.Generator):
                 "bias": torch.randn(n, generator=gen, device="cuda"),
                 "w_sum": wq.reshape(-1, n).int().sum(0, dtype=torch.int32)}
 
+    def act_input(m, k, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        return (torch.randn((m, k), generator=gen, device="cuda") * 3).to(dtype)
+
     cases = []
-    for (m, k, n) in [(77, 56, 6), (300, 72, 160), (1000, 504, 112), (333, 13, 37)]:
-        lf = leaf((k, n))
-        xi = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
-        xf = torch.randn((m, k), generator=gen, device="cuda") * 3
-        for x, kw in [(xi, dict(relu=True, out_scale=0.07, out_zp=122)),
-                      (xi, dict(act="gelu")),
-                      (xi, dict(act="gelu_tanh", out_dtype=torch.bfloat16)),
-                      (xf, dict(act="gelu")),
-                      (xf.bfloat16(), dict(act="relu", out_scale=0.05, out_zp=3)),
-                      (xf, dict(out_dtype=torch.bfloat16))]:
-            cases.append(("int8_matmul_requant", f"{m}x{k}x{n}", x, lf,
-                          dict(in_scale=0.05, in_zp=113, **kw)))
+    for i, k in enumerate((13, 27, 192, 504, 768, 1280, 2016, 4104)):
+        for j, n in enumerate((6, 37, 192, 456, 576, 768, 1000, 1280)):
+            m = (1, 197, 1000)[(i + j) % 3]
+            xd, act, out = A_ROUTES[(8 * i + j) % len(A_ROUTES)]
+            cases.append(("int8_matmul_requant", f"{m}x{k}x{n}", act_input(m, k, xd), leaf((k, n)),
+                          a_kwargs(act, out)))
+    for k in (13, 27, 504):  # an odd element offset, and one row of odd K in
+        lf = leaf((k, 37))
+        for xd in (torch.int8, torch.float32, torch.bfloat16):
+            flat = act_input(1, 301 * k + 1, xd)[0]
+            for x in (flat[1 : 1 + 300 * k].view(300, k), flat[k : 301 * k].view(300, k)):
+                cases.append(("int8_matmul_requant", f"view+{x.storage_offset()} 300x{k}x37", x,
+                              lf, a_kwargs("gelu", torch.int8)))
+    s = torch.tensor(0.05, device="cuda")
+    ties = ((torch.arange(-300, 300, device="cuda", dtype=torch.float32) + 0.5) * s).float()
+    ties = torch.cat([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1)])
+    ties = ties[: ties.numel() // 64 * 64]
+    lf = leaf((64, 24))
+    for xd in (torch.float32, torch.bfloat16):
+        cases.append(("int8_matmul_requant", "rounding ties", ties.reshape(-1, 64).to(xd), lf,
+                      dict(in_scale=0.05, in_zp=128)))
     for (n, h, w, c, o) in [(2, 12, 14, 8, 72), (3, 7, 9, 72, 56), (2, 5, 6, 3, 8)]:
         lf = leaf((3, 3, c, o))
         x = torch.randint(-128, 128, (n, h, w, c), generator=gen, device="cuda",
@@ -341,33 +409,46 @@ def check_odd_shapes(gen: torch.Generator):
                           dict(in_scale=0.03, in_zp=150, **kw)))
     for kernel, label, x, lf, kw in cases:
         args = (x, lf["w"], lf["w_scale"], lf["bias"], lf["w_sum"])
-        ok, err = compare(KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
+        ok, err = CHECK[kernel](KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
         errs[kernel] = max(errs[kernel], err)
         if not ok:
-            fails.append(f"{kernel} {label} {kw}: max abs err {err}")
+            fails.append(f"{kernel} {label} {x.dtype} {kw}: max abs err {err}")
     emit({"phase": "a_odd_shapes", "checks": len(cases), "max_abs_err": errs, "failed": fails})
     return fails
 
 
 def check_and_time_main_shapes(model, gen: torch.Generator):
-    """(a) at every served shape (batch 256), then the timings."""
+    """(a) at every served shape (batch 256; kernel A at batch 1 too), then
+    the timings."""
     rows, fails = [], []
+    for kernel, label, shape, dtype, leaf, kw in main_path_calls(model, 1):
+        if kernel == "int8_matmul_requant":
+            row, f = kernel_a_row("resnet18", label, make_input(shape, dtype, kw["in_zp"], gen),
+                                  leaf, kw, batch=1)
+            rows.append(row)
+            fails += f
+            emit({"phase": "a_main_shape", **row})
     for kernel, label, shape, dtype, leaf, kw in main_path_calls(model, BATCH):
         x = make_input(shape, dtype, kw["in_zp"], gen)
+        if kernel == "int8_matmul_requant":
+            row, f = kernel_a_row("resnet18", label, x, leaf, kw)
+            rows.append(row)
+            fails += f
+            emit({"phase": "a_main_shape", **row})
+            continue
         args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
         ok, err = compare(KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
         if not ok:
             fails.append(f"{kernel} {label} {tuple(shape)}: max abs err {err}")
         nbytes, ops = cost(kernel, x, leaf, kw)
-        lib, lib_note = int_mm_ms(x, leaf) if kernel == "int8_matmul_requant" else (None, None)
         rows.append({
-            "path": "resnet18", "kernel": kernel, "call": label, "x": list(shape), "n": leaf["w"].n,
-            "max_abs_err": err,
+            "path": "resnet18", "kernel": kernel, "call": label, "batch": BATCH, "x": list(shape),
+            "n": leaf["w"].n, "max_abs_err": err,
             "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
             "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
             "bytes": nbytes, "ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
-            "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
+            "library_ms": None,
         })
         emit({"phase": "a_main_shape", **rows[-1]})
         del x, args
@@ -551,7 +632,7 @@ def eff_check_odd_shapes(gen_np: np.random.Generator, gen: torch.Generator):
     return fails
 
 
-def eff_kernel_a_calls(model, b: int, gen: torch.Generator):
+def eff_kernel_a_calls(model, b: int):
     """Kernel A's three calls of one forward at batch b: stem (im2col patches,
     K = 27), the head conv (K = 320) and the fc (float input)."""
     from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import block_plan
@@ -596,25 +677,13 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator):
         })
         emit({"phase": "eff_a_main_shape", **rows[-1]})
         del x
-    for kernel, label, shape, dtype, leaf, kw in eff_kernel_a_calls(model, BATCH, gen):
-        x = make_input(shape, dtype, kw["in_zp"], gen)
-        args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
-        ok, err = compare(KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
-        if not ok:
-            fails.append(f"{kernel} {label} {tuple(shape)}: max abs err {err}")
-        nbytes, ops = cost(kernel, x, leaf, kw)
-        lib, lib_note = int_mm_ms(x, leaf)
-        rows.append({
-            "path": "efficientnet_b0", "kernel": kernel, "call": label, "x": list(shape),
-            "n": leaf["w"].n, "max_abs_err": err,
-            "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
-            "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
-            "bytes": nbytes, "ops": ops,
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
-            "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
-        })
-        emit({"phase": "eff_a_main_shape", **rows[-1]})
-        del x, args
+    for b in (BATCH, 1):
+        for _, label, shape, dtype, leaf, kw in eff_kernel_a_calls(model, b):
+            row, f = kernel_a_row("efficientnet_b0", label,
+                                  make_input(shape, dtype, kw["in_zp"], gen), leaf, kw, batch=b)
+            rows.append(row)
+            fails += f
+            emit({"phase": "eff_a_main_shape", **row})
     return rows, fails
 
 
@@ -867,31 +936,19 @@ def vit_kernel_a_calls(model, b: int):
 
 
 def vit_check_kernel_a(model, path: str, gen: torch.Generator):
-    """(a) kernel A at every ViT shape of one carrier, batch 256, and the timings."""
+    """(a) kernel A at every ViT shape of one carrier, batch 256 and 1, and
+    the timings."""
     rows, fails = [], []
-    for label, shape, dtype, leaf, kw, calls in vit_kernel_a_calls(model, BATCH):
-        if dtype == torch.int8:
-            x = make_input(shape, dtype, kw["in_zp"], gen)
-        else:
-            x = (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(dtype)
-        args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
-        ok, err = compare(int8_matmul_requant(*args, **kw), int8_matmul_requant_plain(*args, **kw))
-        if not ok:
-            fails.append(f"int8_matmul_requant {path} {label} {tuple(shape)}: max abs err {err}")
-        nbytes, ops = cost("int8_matmul_requant", x, leaf, kw)
-        lib, lib_note = int_mm_ms(x, leaf)
-        rows.append({
-            "path": path, "kernel": "int8_matmul_requant", "call": label, "x": list(shape),
-            "x_dtype": str(dtype)[6:], "n": leaf["w"].n, "max_abs_err": err,
-            "ms": time_ms(lambda: int8_matmul_requant(*args, **kw), spin=True),
-            "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw), spin=True),
-            "bytes": nbytes, "ops": ops,
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
-            "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
-            "calls": calls,
-        })
-        emit({"phase": "vit_a_main_shape", **rows[-1]})
-        del x, args
+    for b in (BATCH, 1):
+        for label, shape, dtype, leaf, kw, calls in vit_kernel_a_calls(model, b):
+            if dtype == torch.int8:
+                x = make_input(shape, dtype, kw["in_zp"], gen)
+            else:
+                x = (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(dtype)
+            row, f = kernel_a_row(path, label, x, leaf, kw, batch=b, calls=calls)
+            rows.append(row)
+            fails += f
+            emit({"phase": "vit_a_main_shape", **row})
     return rows, fails
 
 

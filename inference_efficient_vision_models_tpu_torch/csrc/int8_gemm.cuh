@@ -1,6 +1,8 @@
-// Shared core of the int8 kernels: a shared-memory tiled int8 GEMM on
-// mma.sync m16n8k32 (int8 x int8 -> int32) with the affine-int8 epilogue of
-// the JAX package's Pallas kernels (fused_mbconv.cu brings its own stores):
+// Shared core of the int8 kernels: the affine-int8 epilogue of the JAX
+// package's Pallas kernels (epilogue_y / requant_i8, used by every int8
+// kernel; fused_mbconv.cu brings its own stores) and, for the direct 3x3 conv
+// and the fused MBConv block, a shared-memory tiled int8 GEMM on mma.sync
+// m16n8k32 (int8 x int8 -> int32):
 //
 //   acc  = X_s . W_q                      (int32, exact)
 //   acc -= zp_s * sum_k W_q[k, n]         (affine-input correction)
@@ -77,21 +79,106 @@ __device__ __forceinline__ float gelu_erf(float y) {
   return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erf_as(__fmul_rn(y, 0.70710678118654752f))));
 }
 
-__device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N, int acc) {
-  int a = acc - e.zp_s * e.w_sum[n];
-  float y = __fadd_rn(__fmul_rn(__int2float_rn(a), __fmul_rn(e.in_scale, e.w_scale[n])), e.bias[n]);
-  if (e.act == ACT_RELU) {
+// Correctly rounded fp32 quotients without the slow-path branch of
+// __fdiv_rn, which keeps the compiler from overlapping one element's
+// division with the next one's. Both equal __fdiv_rn bit for bit:
+// a quotient of two binary32 numbers lies at least 2^-49 (relative) away
+// from every midpoint between adjacent binary32 numbers (x - s m, with m a
+// 25-bit midpoint, is a nonzero multiple of 2^-48 |s m|, and no quotient is
+// a midpoint), so any approximation within 2^-52 rounds to the same float.
+//
+// x / s, given rs = RN_f64(1 / s) (s > 0, normal): the double product errs
+// by at most 2^-53 + 2^-53.
+__device__ __forceinline__ float div_rn_by(float x, double rs) {
+  return __double2float_rn(__dmul_rn((double)x, rs));
+}
+
+// 1 / d for d >= 1 (and +inf -> 0): an approximate double reciprocal and two
+// Newton steps (2^-22 -> 2^-44 -> 2^-53 rounding).
+__device__ __forceinline__ float rcp_rn_ge1(float d) {
+  const double dd = d;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(dd));
+  r = __fma_rn(r, __fma_rn(-dd, r, 1.0), r);
+  r = __fma_rn(r, __fma_rn(-dd, r, 1.0), r);
+  return d == INFINITY ? 0.f : __double2float_rn(r);
+}
+
+// erf-GELU as gelu_erf computes it, given t = RN(1 / gelu_den(y)):
+// kernel A's epilogue takes t from a fast reciprocal it checks, else from
+// rcp_rn_ge1 (1 + 0.3275911 |x| >= 1).
+__device__ __forceinline__ float gelu_den(float y) {
+  return __fadd_rn(1.0f, __fmul_rn(0.3275911f, fabsf(__fmul_rn(y, 0.70710678118654752f))));
+}
+
+__device__ __forceinline__ float gelu_erf_t(float y, float t) {
+  const float x = __fmul_rn(y, 0.70710678118654752f);
+  const float a = fabsf(x);
+  float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
+  p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
+  p = __fadd_rn(0.254829592f, __fmul_rn(t, p));
+  p = __fmul_rn(t, p);
+  // sign(x) * r as selects: the same value, and at x = 0 either zero gives 1 + erf = 1
+  const float r = __fadd_rn(1.0f, -__fmul_rn(p, expf(__fmul_rn(-a, a))));
+  const float erf = x > 0.f ? r : (x < 0.f ? -r : 0.f);
+  return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erf));
+}
+
+__device__ __forceinline__ float gelu_erf_nb(float y) { return gelu_erf_t(y, rcp_rn_ge1(gelu_den(y))); }
+
+// The scalar epilogue of one output element, the one definition every kernel
+// shares: a = acc - zp_s * sum_k W[k, n] (int32), scale = s_x * s_w[n] (fp32,
+// rounded once), y = act(a * scale + b[n]).
+__device__ __forceinline__ float affine_y(int a, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(a), scale), bias);
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_t(float y) {
+  if constexpr (ACT == ACT_RELU) {
     y = fmaxf(y, 0.f);
-  } else if (e.act == ACT_GELU) {
-    y = gelu_erf(y);
-  } else if (e.act == ACT_GELU_TANH) {
-    y = y * (0.5f * (1.0f + tanhf(0.7978845608028654f * (y + 0.044715f * (y * y * y)))));
+  } else if constexpr (ACT == ACT_GELU) {
+    y = gelu_erf_nb(y);
+  } else if constexpr (ACT == ACT_GELU_TANH) {
+    // y * (0.5 * (1 + tanh(0.79788456 * (y + 0.044715 * (y * y * y))))), step by step
+    const float u = __fadd_rn(y, __fmul_rn(0.044715f, __fmul_rn(__fmul_rn(y, y), y)));
+    y = __fmul_rn(y, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(__fmul_rn(0.7978845608028654f, u)))));
   }
+  return y;
+}
+
+template <int ACT>
+__device__ __forceinline__ float epilogue_y_t(int a, float scale, float bias) {
+  return act_t<ACT>(affine_y(a, scale, bias));
+}
+
+__device__ __forceinline__ float epilogue_y(int a, float scale, float bias, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return epilogue_y_t<ACT_RELU>(a, scale, bias);
+    case ACT_GELU:
+      return epilogue_y_t<ACT_GELU>(a, scale, bias);
+    case ACT_GELU_TANH:
+      return epilogue_y_t<ACT_GELU_TANH>(a, scale, bias);
+    default:
+      return epilogue_y_t<ACT_NONE>(a, scale, bias);
+  }
+}
+
+// clip(rint(y * (1/s_y)) + zp_y, 0, 255) - 128
+__device__ __forceinline__ int8_t requant_i8(float y, float inv_out, int out_zp) {
+  float q = __fadd_rn(rintf(__fmul_rn(y, inv_out)), (float)out_zp);
+  q = fminf(fmaxf(q, 0.f), 255.f);
+  return (int8_t)((int)q - 128);
+}
+
+__device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N, int acc) {
+  const float y = epilogue_y(acc - e.zp_s * e.w_sum[n], __fmul_rn(e.in_scale, e.w_scale[n]),
+                             e.bias[n], e.act);
   size_t idx = (size_t)m * N + n;
   if (e.out_kind == OUT_I8) {
-    float q = __fadd_rn(rintf(__fmul_rn(y, e.inv_out)), (float)e.out_zp);
-    q = fminf(fmaxf(q, 0.f), 255.f);
-    static_cast<int8_t*>(e.out)[idx] = (int8_t)((int)q - 128);
+    static_cast<int8_t*>(e.out)[idx] = requant_i8(y, e.inv_out, e.out_zp);
   } else if (e.out_kind == OUT_F32) {
     static_cast<float*>(e.out)[idx] = y;
   } else {

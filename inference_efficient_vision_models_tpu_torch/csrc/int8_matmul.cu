@@ -1,123 +1,825 @@
 // int8_matmul_requant on Hopper: replaces the Pallas TPU kernel
 // inference_efficient_vision_models_tpu/ops/int8_matmul.py:int8_matmul_requant.
 //
-// out (M, N) = requant/act(X (M, K) . W (K, N)) with the affine-int8 epilogue
-// of int8_gemm.cuh. X is shifted-quint8 int8, or fp32/bf16 that the kernel
-// quantizes while it loads each tile (round(x / s_x) + zp, clip, -128), so the
-// int8 copy of a float activation never exists in device memory.
+// out (M, N) = act/requant(X (M, K) . W (K, N)) with the affine-int8 epilogue
+// of int8_gemm.cuh (affine_y, act_t). X is shifted-quint8 int8, or
+// fp32/bf16 that the kernel quantizes as rint(x / s_x) + zp, clip, -128, the
+// quotient correctly rounded as the JAX quantize takes it, so the int8 copy
+// of a float activation never exists in device memory.
 //
-// Bound on an H100: at the serving shapes (im2col patches of the stem and the
-// stride-2 convs, K = 56..2016, N = 56..456) the work is 2*M*K*N int8 ops
-// against about M*K + M*N*out_bytes bytes. Only the last stage's stride-2 conv
-// (K = 2016, N = 456) lies above the card's ~590 int8 ops/byte balance point;
-// the stem, the other stride-2 convs, the 1x1 downsamples and the fc are
-// bound by bytes, so the patch read dominates. The design reads each A byte
-// once per N tile (one N tile for N <= 64), feeds mma.sync from shared memory,
-// and loads the next K slice into registers during the current slice's
-// multiply; wgmma/TMA, deeper pipelines and an implicit-im2col stem that
-// skips the patch matrix are later work.
+// What bounds it on an H100: every served call is bound by bytes, not by the
+// tensor cores. The ViT's calls (M = 197 B tokens, K = 192 or 768) do about
+// one int8 multiply-add per byte moved against the card's ~590 ops/byte
+// balance point, and their output (fp32/bf16, 576 or 768 wide) is the
+// largest stream; the ResNet's im2col calls read a patch matrix of K = 9 C
+// bytes per row; the EfficientNet stem (K = 27) reads 27 bytes and writes 32
+// per row. What the design does about it:
+//
+// - Each byte moves once, each float is quantized once. A block owns 128-row
+//   slices of X, 64 rows per consumer warpgroup, and a group of N tiles. A
+//   warpgroup loads its (64, K) panel once per slice, with 16-byte loads
+//   where row stride and pointer allow (contiguous 64-row runs for short
+//   int8 rows such as the stem's K = 27, 4-byte or element loads for the
+//   ResNet's K = 504), quantizes a float input on the
+//   way in and writes the 128-byte-swizzled K-major layout wgmma reads; it
+//   then walks all its N tiles against that panel. There is one N group
+//   whenever M has at least one 128-row slice per SM.
+// - Weights by TMA. W is packed once as (Np, Kp) int8, K contiguous: the
+//   K-major operand 8-bit wgmma needs. A producer warp streams BN x 128-byte
+//   tiles through a ring of 2-6 stages with mbarriers; ragged N and K edges
+//   come from TMA's zero fill. The tensor map is encoded once per weight
+//   (ievm_int8_weight_tensor_map) and cached beside it.
+// - wgmma m64 x BN x k32 (s8.s8 -> s32), A and B from shared memory, BN in
+//   {64, 128, 192, 256}, k32 steps past K skipped (the stem's K = 27 takes
+//   one of four); setmaxnreg moves registers from the producer to the
+//   consumers. One kernel instance per BN and loader kind (int8 vectors,
+//   fp32, bf16, contiguous int8 rows), so no instance carries the registers
+//   of a loader it never runs.
+// - Latency is hidden by overlap more than by occupancy (one block per SM,
+//   two at BN = 64): the blocks are persistent over M, and the two consumer
+//   warpgroups share only the weight ring and start staggered, so one loads
+//   or stores while the other multiplies.
+// - The served calls are issue-bound once the bytes move once, so the
+//   per-element arithmetic is cut to fp32 work without conversions, and
+//   stays bit-identical to the plain version: the quantize multiplies by
+//   RN(1 / s) and redoes the rare values near a rounding tie with the exact
+//   double quotient (quant_byte); rint and the float-to-byte conversions add
+//   2^23-scale constants (clip_byte, requant_byte); the GELU's reciprocal is
+//   an approximate one with one Newton step whose exact residual shows when
+//   it is not correctly rounded (rcp_ge1_fast). The rare redo paths run after
+//   the branch-free loops.
+// - Large K: where the whole panel does not fit beside the ring, a warpgroup
+//   loads it in windows of K chunks for each tile (int8 inputs with K = 9 C
+//   up to 2016).
+// - Epilogue per 64-column slice: w_scale, bias and w_sum come from shared
+//   memory (loaded once per block), y = acc * scale + bias (and ReLU) is
+//   staged in shared memory, GELU and the conversion to int8 or bf16 run as
+//   a second pass over it, and full rows leave with 16-byte stores where N
+//   allows.
+// The tile plan (BN, N groups, ring depth, panel or windows, grid) is chosen
+// by ops/int8_matmul.py:tile_plan and checked here.
+#include <string.h>
+
 #include "int8_gemm.cuh"
+#include "sm90.cuh"
 
 namespace ievm {
 
+using namespace sm90;
+
+constexpr int A_THREADS = 384;   // warpgroups 0 and 1 consume, warpgroup 2 produces
+constexpr int CONSUMERS = 256;
+constexpr int KS = 128;          // K bytes per ring stage and per panel chunk
+constexpr int CHUNK = BM * KS;   // one panel chunk: 128 rows x 128 bytes
+constexpr int MAX_STAGES = 6;
+constexpr int SMEM_LIMIT = 232448;  // the most shared memory a block may take
+constexpr int BAR_WG0 = 1;       // named barriers 1, 2: one per consumer warpgroup
+constexpr int BAR_STAGGER = 3;   // warpgroup 0 -> warpgroup 1, once
+
+__host__ __device__ constexpr int out_bytes(int kind) {
+  return kind == OUT_I8 ? 1 : (kind == OUT_F32 ? 4 : 2);
+}
+// a staged row: 64 output columns and padding that spreads a warp's writes over the banks
+__host__ __device__ constexpr int stage_row(int kind) {
+  return 64 * out_bytes(kind) + (kind == OUT_F32 ? 32 : 16);
+}
+
+// A staged slice: 64 rows of 64 fp32 values y = acc * scale + bias, each row
+// padded to 288 bytes so that a warp's pair stores hit distinct banks; for an
+// int8 or bf16 output a second area holds the converted rows (stage_row).
+constexpr int FROW = 288;
+__host__ __device__ constexpr int wg_stage_bytes(int kind) {
+  return 64 * FROW + (kind == OUT_F32 ? 0 : 64 * stage_row(kind));
+}
+
+// Byte offsets in the (1024-aligned) dynamic shared memory; ops/int8_matmul.py:smem_bytes
+// computes the same total.
+struct Layout {
+  int ring, staging, params, bars, total;
+  __host__ __device__ Layout(int bn, int stages, int window, int out_kind, int group_cols)
+      : ring(window * CHUNK),
+        staging(ring + stages * bn * KS),
+        params(staging + 2 * wg_stage_bytes(out_kind)),
+        bars(params + 3 * 4 * group_cols),
+        total(bars + 2 * MAX_STAGES * 8 + 1024) {}
+};
+
 struct MatmulArgs {
   const void* x;
-  const int8_t* wt;
-  int Kp;
+  const float* w_scale;
+  const float* bias;
+  const int* w_sum;
+  void* out;
   int M, K, N;
-  int vec;  // K % 4 == 0 and X 4-byte aligned: one 32-bit load per A word
-  int zp_s;
-  float in_scale;
+  int vec;  // elements per load (int8 16/4/1, 0 contiguous rows; fp32 4/1; bf16 8/2/1)
+  int out_kind, act, zp_s, out_zp;
+  float in_scale, inv_out;
+  double inv_in;  // RN_f64(1 / in_scale), for div_rn_by
+  int tiles_per_group, stages, window, nchunks;
 };
 
-struct LoadI8 {
-  const int8_t* x;
-  int M, K, vec, bm;
-  __device__ __forceinline__ void load(int kt, uint32_t (&r)[A_WORDS]) const {
-    const int k0 = kt * BK + (threadIdx.x & 15) * 4;
+// What the panel loaders read, held in registers: read from the kernel's
+// arguments, every field would be reloaded after each shared-memory store.
+struct PanelSrc {
+  const uint8_t* x;
+  int M, K, vec;
+  float zp;       // the unshifted zero point
+  double inv_in;  // RN_f64(1 / in_scale)
+  float rs;       // RN_f32(inv_in)
+};
+
+// v an integer-valued float (or +-inf, NaN): clip(v, 0, 255) - 128 as a
+// byte, without a conversion instruction (2^23 + v holds v in its low bits).
+__device__ __forceinline__ uint32_t clip_byte(float v) {
+  return (__float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), 8388608.f)) & 0xffu) ^ 0x80u;
+}
+
+constexpr float RINT_MAGIC = 12582912.f;  // 1.5 * 2^23: q + M - M = rint(q) for |q| < 2^22
+
+// The quantized byte of x, clip(rint(x / s) + zp, 0, 255) - 128, with the
+// quotient correctly rounded: one double product (div_rn_by).
+__device__ __forceinline__ uint32_t quant_byte_exact(float x, double inv_s, float zp) {
+  return clip_byte(__fadd_rn(rintf(div_rn_by(x, inv_s)), zp));
+}
+
+// The same byte from q = RN_f32(x * rs), which lies within |q| 2^-23 (1 +
+// 2^-20) of x / s: where no half-integer is within |q| 2^-20 of q, rint(q)
+// equals rint(x / s) (q - rint(q) and |.| - 0.5 are exact). Sets `redo`
+// where that does not hold (about one value in 10^4, and |q| >= 2^21, inf,
+// NaN): the caller then takes quant_byte_exact.
+__device__ __forceinline__ uint32_t quant_byte(float x, float rs, float zp, bool& redo) {
+  const float q = __fmul_rn(x, rs);
+  const float r = __fsub_rn(__fadd_rn(q, RINT_MAGIC), RINT_MAGIC);
+  const float tie = fabsf(__fsub_rn(fabsf(__fsub_rn(q, r)), 0.5f));
+  redo = !(fabsf(q) < 0x1p21f) || tie <= __fmul_rn(fabsf(q), 0x1p-20f);
+  return clip_byte(__fadd_rn(r, zp));
+}
+
+// E <= 16 values val(0..E-1) quantized into the first E / 4 words of o,
+// bytes at k0 + e >= K or in a dead row zero. The rare values quant_byte cannot settle are redone
+// after the loop, so the loop itself has no branch.
+template <int E, typename Val>
+__device__ __forceinline__ void quantize_run(Val val, bool live, int k0, int K, const PanelSrc& a,
+                                             uint32_t (&o)[4]) {
+  static_assert(E % 4 == 0 && E <= 16, "E values fill whole words of o");
+  uint32_t redo = 0;
 #pragma unroll
-    for (int j = 0; j < A_WORDS; ++j) {
-      const int m = bm + (threadIdx.x >> 4) + 16 * j;
-      uint32_t v = 0;
-      if (m < M) {
-        const int8_t* p = x + (size_t)m * K + k0;
-        if (vec) {
-          if (k0 < K) v = *reinterpret_cast<const uint32_t*>(p);
-        } else {
+  for (int e = 0; e < E; ++e) {
+    bool rd;
+    const uint32_t byte = quant_byte(val(e), a.rs, a.zp, rd);
+    const bool in = live && k0 + e < K;
+    o[e / 4] |= (in ? byte : 0u) << (8 * (e % 4));
+    redo |= (uint32_t)(in && rd) << e;
+  }
+  if (redo) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + i < K) v |= (uint32_t)(uint8_t)p[i] << (8 * i);
-        }
+    for (int e = 0; e < E; ++e)
+      if (redo >> e & 1u)
+        o[e / 4] = (o[e / 4] & ~(0xffu << (8 * (e % 4)))) |
+                   quant_byte_exact(val(e), a.inv_in, a.zp) << (8 * (e % 4));
+  }
+}
+
+// The 16 elements of X at row m, columns k0..k0+15, as raw words; zero
+// outside the matrix. W elements per load; K % W == 0.
+template <int ESZ, int W>
+__device__ __forceinline__ void load_unit(const uint8_t* __restrict__ p, int k0, int K, bool row_ok,
+                                          uint32_t (&w)[4 * ESZ]) {
+  constexpr int VB = ESZ * W;
+  static_assert(VB == 16 || VB == 4 || VB == 2 || VB == 1, "unsupported load width");
+#pragma unroll
+  for (int i = 0; i < 4 * ESZ; ++i) w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 16; i += W) {
+    if (row_ok && k0 + i < K) {
+      const uint8_t* q = p + i * ESZ;
+      const int b = i * ESZ;
+      if constexpr (VB == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(q);
+        w[b / 4] = v.x;
+        w[b / 4 + 1] = v.y;
+        w[b / 4 + 2] = v.z;
+        w[b / 4 + 3] = v.w;
+      } else if constexpr (VB == 4) {
+        w[b / 4] = *reinterpret_cast<const uint32_t*>(q);
+      } else if constexpr (VB == 2) {
+        w[b / 4] |= (uint32_t)*reinterpret_cast<const uint16_t*>(q) << (8 * (b % 4));
+      } else {
+        w[b / 4] |= (uint32_t)*q << (8 * (b % 4));
       }
-      r[j] = v;
     }
   }
+}
+
+// 16 int8 panel bytes from a unit: copied (int8) or quantized (fp32/bf16) as
+// clip(rint(x / s) + zp, 0, 255) - 128; zero at k >= K.
+// The float at element e of raw words w: fp32 (ESZ 4) or bf16 (ESZ 2).
+template <int ESZ, int N>
+__device__ __forceinline__ float raw_val(const uint32_t (&w)[N], int e) {
+  if constexpr (ESZ == 4)
+    return __uint_as_float(w[e]);
+  else
+    return __uint_as_float(e % 2 ? (w[e / 2] & 0xffff0000u) : (w[e / 2] << 16));
+}
+
+template <int ESZ>
+__device__ __forceinline__ uint4 pack_unit(const PanelSrc& a, const uint32_t (&w)[4 * ESZ], int k0) {
+  if constexpr (ESZ == 1) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    uint32_t o[4] = {0u, 0u, 0u, 0u};
+    quantize_run<16>([&](int e) { return raw_val<ESZ>(w, e); }, true, k0, a.K, a, o);
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+template <int ESZ, int W>
+__device__ __forceinline__ void load_chunk(const PanelSrc& a, int m0w, int kc,
+                                           uint32_t (&w)[4][4 * ESZ]) {
+  const uint8_t* x = a.x;
+  const int lt = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = lt + 128 * j;  // row u / 8, K bytes (u % 8) * 16 .. +15
+    const int m = m0w + (u >> 3);
+    const int k0 = kc * KS + (u & 7) * 16;
+    load_unit<ESZ, W>(x + ((size_t)m * a.K + k0) * ESZ, k0, a.K, m < a.M, w[j]);
+  }
+}
+
+template <int ESZ>
+__device__ __forceinline__ void store_chunk(const PanelSrc& a, uint8_t* dst, int m0w, int kc,
+                                            const uint32_t (&w)[4][4 * ESZ]) {
+  const int lt = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = lt + 128 * j;
+    *reinterpret_cast<uint4*>(dst + swz128(u >> 3, (u & 7) * 16)) =
+        m0w + (u >> 3) < a.M ? pack_unit<ESZ>(a, w[j], kc * KS + (u & 7) * 16)
+                             : make_uint4(0u, 0u, 0u, 0u);  // rows past M: nothing to quantize
+  }
+}
+
+// A warpgroup's half of panel chunks [0, nc): K bytes [c0 * 128, (c0 + nc) * 128)
+// of rows m0w..m0w+63, swizzled. Each thread moves 4 units of 16 bytes per
+// chunk, all loads before the first store.
+template <int ESZ, int W>
+__device__ __forceinline__ void load_panel_t(const PanelSrc& a, uint8_t* half, int m0w, int c0,
+                                             int nc) {
+  for (int c = 0; c < nc; ++c) {
+    uint32_t w[4][4 * ESZ];
+    load_chunk<ESZ, W>(a, m0w, c0 + c, w);
+    store_chunk<ESZ>(a, half + c * CHUNK, m0w, c0 + c, w);
+  }
+}
+
+// Float rows that allow 16-byte copies (the served ViT and fc inputs): the
+// panel goes through a ring of four 4 KB raw slots in `raw` (16- or 8-row
+// pieces of a chunk), filled by cp.async three pieces ahead of the one being
+// quantized, so that the loads overlap the conversions instead of waiting
+// for them. A thread quantizes 32 raw bytes (16 bf16 or 8 fp32 values).
+template <int ESZ>
+__device__ __forceinline__ void load_panel_async(const PanelSrc& a, uint8_t* half, uint8_t* raw,
+                                                 int m0w, int c0, int nc) {
+  constexpr int SLOT = 4096, SLOTS = 4;
+  constexpr int ROW = KS * ESZ;           // raw bytes of one row of a chunk
+  constexpr int ROWS = SLOT / ROW;        // rows per piece: bf16 16, fp32 8
+  constexpr int PER_CHUNK = 64 / ROWS;    // pieces per chunk
+  constexpr int E = 32 / ESZ;             // values a thread quantizes per piece
+  const int lt = threadIdx.x & 127;
+  const int bar = BAR_WG0 + (threadIdx.x >> 7);
+  // 2^lg pieces a chunk, enough for the rows below M: rows past M are never
+  // stored, so their panel rows may keep what they held
+  const int rows = max(min(64, a.M - m0w), 1);
+  const int lg = min(32 - __clz((rows + ROWS - 1) / ROWS - 1), 31 - __clz(PER_CHUNK));
+  const int pieces = nc << lg;
+  auto issue = [&](int s) {
+    if (s < pieces) {
+      const int kc = c0 + (s >> lg), r0 = (s & ((1 << lg) - 1)) * ROWS;
+      uint8_t* slot = raw + (s % SLOTS) * SLOT;
+#pragma unroll
+      for (int q = lt; q < SLOT / 16; q += 128) {
+        const int r = q / (ROW / 16), col = q % (ROW / 16);
+        const int m = m0w + r0 + r, k = kc * KS + col * (16 / ESZ);
+        const bool ok = m < a.M && k < a.K;
+        cp_async16(slot + q * 16, ok ? a.x + ((size_t)m * a.K + k) * ESZ : a.x, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < SLOTS - 1; ++s) issue(s);
+  for (int s = 0; s < pieces; ++s) {
+    cp_async_wait<SLOTS - 2>();  // this thread's copies of piece s have landed
+    named_bar(bar, 128);         // everyone's have, and piece s - 1 is quantized
+    issue(s + SLOTS - 1);
+    const int kc = s >> lg, row = (s & ((1 << lg) - 1)) * ROWS + lt * 32 / ROW;
+    const int kb = (lt * 32 % ROW) / ESZ;  // first value within the chunk
+    const uint8_t* src = raw + (s % SLOTS) * SLOT + lt * 32;
+    const uint4 v0 = *reinterpret_cast<const uint4*>(src);
+    const uint4 v1 = *reinterpret_cast<const uint4*>(src + 16);
+    const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    uint32_t o[4] = {0u, 0u, 0u, 0u};
+    quantize_run<E>([&](int e) { return raw_val<ESZ>(w, e); }, m0w + row < a.M, (c0 + kc) * KS + kb,
+                    a.K, a, o);
+    uint8_t* dst = half + kc * CHUNK + swz128(row, kb);
+    if constexpr (ESZ == 4)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(o[0], o[1]);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+  cp_async_wait<0>();
+}
+
+// int8 rows whose K (<= 128) breaks 16-byte alignment (the EfficientNet
+// stem's 27, the 1x1 downsample's 56): the 64 rows are one contiguous run of
+// at most 8 KB. flat_fetch reads it as 16-byte pieces into registers (a
+// slice ahead); flat_store puts them in `scratch` and gathers each row's
+// units inside K into the panel, whose other units stay zero from the start.
+__device__ __forceinline__ void flat_fetch(const PanelSrc& a, int m0w, uint4 (&v)[4]) {
+  const int lt = threadIdx.x & 127;
+  const int total = max(0, min(64, a.M - m0w)) * a.K;
+  const uint8_t* src = a.x + (size_t)max(m0w, 0) * a.K;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = (lt + 128 * q) * 16;
+    if (i + 16 <= total) {
+      v[q] = *reinterpret_cast<const uint4*>(src + i);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (i + e < total) w[e / 4] |= (uint32_t)src[i + e] << (8 * (e % 4));
+      v[q] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void flat_store(const PanelSrc& a, uint8_t* half, uint8_t* scratch,
+                                           int m0w, const uint4 (&v)[4]) {
+  const int lt = threadIdx.x & 127;
+  const int rows = min(64, a.M - m0w);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = (lt + 128 * q) * 16;
+    if (i < rows * a.K) *reinterpret_cast<uint4*>(scratch + i) = v[q];
+  }
+  named_bar(BAR_WG0 + (threadIdx.x >> 7), 128);
+  const int units = (a.K + 15) >> 4;  // 16-byte units of a row inside K
+  for (int u = lt; u < 64 * units; u += 128) {
+    const int r = u / units, kb = (u - r * units) * 16;
+    uint4 o = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {  // bytes r K + kb .. + 15 of the run, by aligned words and funnel shifts
+      const int s0 = r * a.K + kb, sh = (s0 & 3) * 8, valid = min(16, a.K - kb);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(scratch + (s0 & ~3));
+      uint32_t x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int keep = min(max(valid - 4 * i, 0), 4);  // bytes of word i inside K
+        x[i] = __funnelshift_r(w[i], w[i + 1], sh) & (keep == 4 ? 0xffffffffu : (1u << (8 * keep)) - 1u);
+      }
+      o = make_uint4(x[0], x[1], x[2], x[3]);
+    }
+    *reinterpret_cast<uint4*>(half + swz128(r, kb)) = o;
+  }
+}
+
+// The loaders a kernel instance holds (its XK): int8 rows by vectors, fp32
+// or bf16 rows quantized, or short int8 rows as one contiguous run.
+constexpr int XK_I8 = 0, XK_F32 = 1, XK_BF16 = 2, XK_FLAT = 3;
+
+template <int XK>
+__device__ __forceinline__ void load_panel(const PanelSrc& a, uint8_t* half, uint8_t* raw, int m0w, int c0,
+                                           int nc) {
+  if constexpr (XK == XK_I8) {
+    if (a.vec == 16)
+      load_panel_t<1, 16>(a, half, m0w, c0, nc);
+    else if (a.vec == 4)
+      load_panel_t<1, 4>(a, half, m0w, c0, nc);
+    else
+      load_panel_t<1, 1>(a, half, m0w, c0, nc);
+  } else if constexpr (XK == XK_F32) {
+    if (a.vec == 4)
+      load_panel_async<4>(a, half, raw, m0w, c0, nc);
+    else
+      load_panel_t<4, 1>(a, half, m0w, c0, nc);
+  } else if constexpr (XK == XK_BF16) {
+    if (a.vec == 8)
+      load_panel_async<2>(a, half, raw, m0w, c0, nc);
+    else if (a.vec == 2)
+      load_panel_t<2, 2>(a, half, m0w, c0, nc);
+    else
+      load_panel_t<2, 1>(a, half, m0w, c0, nc);
+  }
+}
+
+// requant_i8 as a byte, with rint and the conversion done by adding
+// RINT_MAGIC: (q + M) - (M - zp) = rint(q) + zp exactly for |q| < 2^22,
+// and beyond that it stays past the clip on the same side. zpm = M - zp.
+__device__ __forceinline__ uint32_t requant_byte(float y, float inv_out, float zpm) {
+  return clip_byte(__fsub_rn(__fadd_rn(__fmul_rn(y, inv_out), RINT_MAGIC), zpm));
+}
+
+// RN(1 / d) for d >= 1 without a double: an approximate reciprocal and one
+// Newton step leave t within an ulp of 1 / d, so the residual e = 1 - d t is
+// exact, and t is correctly rounded iff |e| < d u / 2, u the ulp below t
+// (exact; stricter than needed just above a power of two). Sets `redo`
+// otherwise (about one value in 10^6, inf, NaN): rcp_rn_ge1 then gives it.
+__device__ __forceinline__ float rcp_ge1_fast(float d, bool& redo) {
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(d));
+  t = __fmaf_rn(t, __fmaf_rn(-d, t, 1.0f), t);
+  const float e = __fmaf_rn(-d, t, 1.0f);
+  const float u = __fsub_rn(t, __int_as_float(__float_as_int(t) - 1));
+  redo = !(fabsf(e) < __fmul_rn(__fmul_rn(d, u), 0.5f));
+  return t;
+}
+
+// act_t for four values, the erf-GELU's reciprocal by rcp_ge1_fast.
+template <int ACT>
+__device__ __forceinline__ float4 act4(float4 v) {
+  if constexpr (ACT == ACT_GELU) {
+    const float y[4] = {v.x, v.y, v.z, v.w};
+    float t[4];
+    bool rd[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t[i] = rcp_ge1_fast(gelu_den(y[i]), rd[i]);
+    if (rd[0] || rd[1] || rd[2] || rd[3]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (rd[i]) t[i] = rcp_rn_ge1(gelu_den(y[i]));
+    }
+    return make_float4(gelu_erf_t(y[0], t[0]), gelu_erf_t(y[1], t[1]), gelu_erf_t(y[2], t[2]),
+                       gelu_erf_t(y[3], t[3]));
+  } else {
+    return make_float4(act_t<ACT>(v.x), act_t<ACT>(v.y), act_t<ACT>(v.z), act_t<ACT>(v.w));
+  }
+}
+
+// act and the output conversion over a staged 64 x 64 slice, 4 values per
+// step: a short loop, so the per-element code stays in the instruction cache.
+template <int ACT, int OUT>
+__device__ __noinline__ void finish_slice(const float inv_out, const float zpm, const uint8_t* fst,
+                                          uint8_t* ost) {
+  constexpr int esz = out_bytes(OUT), row_b = stage_row(OUT);
+#pragma unroll 2
+  for (int g = threadIdx.x & 127; g < 64 * 16; g += 128) {
+    const int row = g >> 4, c = (g & 15) * 4;
+    const float4 v = act4<ACT>(*reinterpret_cast<const float4*>(fst + row * FROW + c * 4));
+    const float y0 = v.x, y1 = v.y, y2 = v.z, y3 = v.w;
+    uint8_t* o = ost + row * row_b + c * esz;
+    if constexpr (OUT == OUT_I8) {
+      *reinterpret_cast<uint32_t*>(o) = requant_byte(y0, inv_out, zpm) |
+                                        requant_byte(y1, inv_out, zpm) << 8 |
+                                        requant_byte(y2, inv_out, zpm) << 16 |
+                                        requant_byte(y3, inv_out, zpm) << 24;
+    } else if constexpr (OUT == OUT_F32) {
+      *reinterpret_cast<float4*>(o) = make_float4(y0, y1, y2, y3);
+    } else {
+      const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+      const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(y2), __float2bfloat16_rn(y3));
+      *reinterpret_cast<uint2*>(o) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+}
+
+// The second pass of a slice: the GELUs and every int8 or bf16 conversion.
+// None is left for an fp32 output without GELU (ReLU is the first pass's).
+template <int OUT>
+__device__ __forceinline__ void finish_slice_act(const MatmulArgs& a, float zpm, const uint8_t* fst,
+                                                 uint8_t* ost) {
+  if (a.act == ACT_GELU)
+    finish_slice<ACT_GELU, OUT>(a.inv_out, zpm, fst, ost);
+  else if (a.act == ACT_GELU_TANH)
+    finish_slice<ACT_GELU_TANH, OUT>(a.inv_out, zpm, fst, ost);
+  else if constexpr (OUT != OUT_F32)
+    finish_slice<ACT_NONE, OUT>(a.inv_out, zpm, fst, ost);
+}
+
+// `bytes` (a multiple of vw) from shared to global memory, vw bytes at a time.
+__device__ __forceinline__ void copy_out(uint8_t* g, const uint8_t* s, int bytes, int vw) {
+  for (int e = 0; e < bytes; e += vw) {
+    if (vw == 16)
+      *reinterpret_cast<uint4*>(g + e) = *reinterpret_cast<const uint4*>(s + e);
+    else if (vw == 8)
+      *reinterpret_cast<uint2*>(g + e) = *reinterpret_cast<const uint2*>(s + e);
+    else if (vw == 4)
+      *reinterpret_cast<uint32_t*>(g + e) = *reinterpret_cast<const uint32_t*>(s + e);
+    else if (vw == 2)
+      *reinterpret_cast<uint16_t*>(g + e) = *reinterpret_cast<const uint16_t*>(s + e);
+    else
+      g[e] = s[e];
+  }
+}
+
+__device__ __forceinline__ float relu_if(bool relu, float y) { return relu ? fmaxf(y, 0.f) : y; }
+
+// One warpgroup's 64 x TN accumulators -> out rows m0w.., columns n0.., in
+// 64-column slices: y = acc * scale + bias (and ReLU) into the staging rows,
+// then GELU and conversion (finish_slice), then full rows out. ps/pb/pc hold
+// the tile's epilogue vectors.
+template <int TN>
+__device__ __forceinline__ void store_tile(const MatmulArgs& a, const int (&acc)[TN / 2],
+                                           uint8_t* stg, const float* ps, const float* pb,
+                                           const int* pc, int m0w, int n0) {
+  const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
+  const int esz = out_bytes(a.out_kind), row_b = stage_row(a.out_kind);
+  uint8_t* ost = a.out_kind == OUT_F32 ? stg : stg + 64 * FROW;
+  const int ush = a.out_kind == OUT_I8 ? 2 : (a.out_kind == OUT_F32 ? 4 : 3);  // log2 16-byte units a row
+  const int ob = (a.N * esz) & 15;
+  const int vw = ob == 0 ? 16 : (ob & 7) == 0 ? 8 : (ob & 3) == 0 ? 4 : (ob & 1) == 0 ? 2 : 1;
+  const int bar = BAR_WG0 + (threadIdx.x >> 7);
+  const bool relu = a.act == ACT_RELU;
+  const bool second = a.out_kind != OUT_F32 || a.act == ACT_GELU || a.act == ACT_GELU_TANH;
+  const float zpm = RINT_MAGIC - (float)a.out_zp;
+#pragma unroll
+  for (int j = 0; j < TN / 64; ++j) {
+    const int nc0 = n0 + 64 * j;
+    if (nc0 >= a.N) break;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      if (64 * j + (i >> 2) * 8 >= a.N - n0) break;  // 8-column groups past N: nothing to store
+      const int col = (i >> 2) * 8 + (lane & 3) * 2, c = 64 * j + col;
+      const int row = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+      *reinterpret_cast<float2*>(stg + row * FROW + col * 4) =
+          make_float2(relu_if(relu, affine_y(acc[32 * j + i] - pc[c], ps[c], pb[c])),
+                      relu_if(relu, affine_y(acc[32 * j + i + 1] - pc[c + 1], ps[c + 1], pb[c + 1])));
+    }
+    named_bar(bar, 128);
+    if (second) {
+      if (a.out_kind == OUT_I8)
+        finish_slice_act<OUT_I8>(a, zpm, stg, ost);
+      else if (a.out_kind == OUT_F32)
+        finish_slice_act<OUT_F32>(a, zpm, stg, ost);
+      else
+        finish_slice_act<OUT_BF16>(a, zpm, stg, ost);
+      named_bar(bar, 128);
+    }
+    uint8_t* out = static_cast<uint8_t*>(a.out) + ((size_t)m0w * a.N + nc0) * esz;
+    const int ncols = min(64, a.N - nc0), nbytes = ncols * esz;
+    if (vw == 16 && nbytes % 16 == 0 && m0w + 64 <= a.M) {  // whole rows of 16-byte units
+      for (int u = lt; u < 64 << ush; u += 128) {
+        const int r = u >> ush, cb = (u & ((1 << ush) - 1)) * 16;
+        if (cb < nbytes)
+          *reinterpret_cast<uint4*>(out + (size_t)r * a.N * esz + cb) =
+              *reinterpret_cast<const uint4*>(ost + r * row_b + cb);
+      }
+    } else {
+      for (int u = lt; u < 64 << ush; u += 128) {
+        const int r = u >> ush, cb = (u & ((1 << ush) - 1)) * 16;
+        const int bytes = min(16, nbytes - cb);
+        if (m0w + r < a.M && bytes > 0)
+          copy_out(out + (size_t)r * a.N * esz + cb, ost + r * row_b + cb, bytes, vw);
+      }
+    }
+    named_bar(bar, 128);
+  }
+}
+
+// Blocks per SM and the consumers' registers after setmaxnreg (the producer
+// keeps 40): a 64-wide tile leaves room for two blocks per SM.
+template <int TN>
+struct Occupancy {
+  static constexpr int blocks = TN == 64 ? 2 : 1;
+  static constexpr int consumer_regs = TN == 64 ? 96 : 232;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <int TN, int XK>
+__global__ void __launch_bounds__(A_THREADS, Occupancy<TN>::blocks)
+    matmul_sm90_kernel(const __grid_constant__ CUtensorMap wmap, const MatmulArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int t0 = (int)blockIdx.y * a.tiles_per_group;
+  const int ntiles = min(a.tiles_per_group, (a.N + TN - 1) / TN - t0);
+  const int mblocks = (a.M + BM - 1) / BM;
+  const int gcols = a.tiles_per_group * TN;
+  const Layout L(TN, a.stages, a.window, a.out_kind, gcols);
+  uint8_t* panel = smem;
+  uint8_t* ring = smem + L.ring;
+  float* ps = reinterpret_cast<float*>(smem + L.params);
+  float* pb = ps + gcols;
+  int* pc = reinterpret_cast<int*>(pb + gcols);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + MAX_STAGES;
+  const int tid = threadIdx.x;
 
-template <typename T>
-struct LoadFloat {
-  const T* x;
-  int M, K, bm, zp;  // zp: the unshifted zero point, zp_s + 128
-  float in_scale;
-  __device__ __forceinline__ void load(int kt, uint32_t (&r)[A_WORDS]) const {
-    const int k0 = kt * BK + (threadIdx.x & 15) * 4;
-#pragma unroll
-    for (int j = 0; j < A_WORDS; ++j) {
-      const int m = bm + (threadIdx.x >> 4) + 16 * j;
-      uint32_t v = 0;
-      if (m < M) {
-        const T* p = x + (size_t)m * K + k0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (k0 + i < K) {
-            float q = __fadd_rn(rintf(__fdiv_rn(to_f32(p[i]), in_scale)), (float)zp);
-            q = fminf(fmaxf(q, 0.f), 255.f);
-            v |= (uint32_t)(uint8_t)(int8_t)((int)q - 128) << (8 * i);
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    fence_mbar_init();
+  }
+  for (int i = tid; i < gcols; i += A_THREADS) {  // the group's epilogue vectors, once
+    const int n = t0 * TN + i;
+    const bool ok = n < a.N;
+    ps[i] = ok ? __fmul_rn(a.in_scale, a.w_scale[n]) : 0.f;
+    pb[i] = ok ? a.bias[n] : 0.f;
+    pc[i] = ok ? a.zp_s * a.w_sum[n] : 0;
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // producer: weight tiles, in the order the consumers take them
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int mb = blockIdx.x; mb < mblocks; mb += gridDim.x) {
+        for (int t = 0; t < ntiles; ++t) {
+          for (int c = 0; c < a.nchunks; ++c) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&full[stage], TN * KS);
+            uint8_t* dst = ring + stage * TN * KS;
+            for (int r = 0; r < TN; r += 64)
+              tma_load_2d(dst + r * KS, &wmap, &full[stage], c * KS, (t0 + t) * TN + r);
+            if (++stage == a.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
-      r[j] = v;
+    }
+  } else {  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each slice
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Occupancy<TN>::consumer_regs) : "memory");
+    const int wg = tid >> 7, lane = tid & 31;
+    const int bar = BAR_WG0 + wg;
+    uint8_t* half = panel + wg * 64 * KS;
+    uint8_t* stg = smem + L.staging + wg * wg_stage_bytes(a.out_kind);
+    const bool stream = a.window < a.nchunks;
+    const PanelSrc src{static_cast<const uint8_t*>(a.x), a.M, a.K, a.vec,
+                       (float)(a.zp_s + 128), a.inv_in, __double2float_rn(a.inv_in)};
+    int stage = 0;
+    uint32_t phase = 0;
+    int acc[TN / 2];
+    uint4 run[4];  // XK_FLAT: the next slice's rows, loaded while this one is multiplied and stored
+    if constexpr (XK == XK_FLAT) {
+      flat_fetch(src, blockIdx.x * BM + wg * 64, run);
+      for (int i = (tid & 127) * 16; i < 64 * KS; i += 128 * 16)
+        *reinterpret_cast<uint4*>(half + i) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    // With more than one slice per block, warpgroup 1 starts once warpgroup 0
+    // has its first panel, so that one loads while the other multiplies and stores.
+    const bool stagger = (int)(blockIdx.x + gridDim.x) < mblocks;
+    if (stagger && wg == 1) named_bar(BAR_STAGGER, CONSUMERS);
+    for (int mb = blockIdx.x; mb < mblocks; mb += gridDim.x) {
+      const int m0w = mb * BM + wg * 64;
+      for (int t = 0; t < ntiles; ++t) {
+        for (int c0 = 0; c0 < a.nchunks; c0 += a.window) {
+          const int nc = min(a.window, a.nchunks - c0);
+          if (stream || t == 0) {  // every wgmma on the old panel has completed (wait 0)
+            if constexpr (XK == XK_FLAT) {
+              flat_store(src, half, stg, m0w, run);
+              flat_fetch(src, m0w + (int)gridDim.x * BM, run);
+            } else {
+              load_panel<XK>(src, half, stg, m0w, c0, nc);
+            }
+            fence_proxy_async();
+            named_bar(bar, 128);
+            if (stagger && wg == 0 && mb == blockIdx.x && t == 0 && c0 == 0)
+              named_bar_arrive(BAR_STAGGER, CONSUMERS);
+          }
+          if (c0 == 0) {
+#pragma unroll
+            for (int i = 0; i < TN / 2; ++i) acc[i] = 0;
+          }
+          for (int c = 0; c < nc; ++c) {
+            mbar_wait(&full[stage], phase);
+            const uint8_t* pa = half + c * CHUNK;
+            const uint8_t* pw = ring + stage * TN * KS;
+            fence_regs(acc);
+            wgmma_fence();
+            const int kend = a.K - (c0 + c) * KS;  // past K both operands hold zeros: skip them
+#pragma unroll
+            for (int kk = 0; kk < KS / 32; ++kk)
+              if (kk * 32 < kend) WgmmaS8<TN>::mma(acc, desc_sw128(pa + kk * 32), desc_sw128(pw + kk * 32));
+            wgmma_commit();
+            wgmma_wait0();
+            fence_regs(acc);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[stage]);
+            if (++stage == a.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+        store_tile<TN>(a, acc, stg, ps + t * TN, pb + t * TN, pc + t * TN, m0w, (t0 + t) * TN);
+      }
     }
   }
-};
-
-__global__ void __launch_bounds__(THREADS) matmul_i8_kernel(MatmulArgs a, Epilogue e) {
-  LoadI8 al{static_cast<const int8_t*>(a.x), a.M, a.K, a.vec, (int)blockIdx.x * BM};
-  gemm_block(al, a.wt, a.Kp, a.M, a.N, e);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) matmul_float_kernel(MatmulArgs a, Epilogue e) {
-  LoadFloat<T> al{static_cast<const T*>(a.x), a.M, a.K, (int)blockIdx.x * BM, a.zp_s + 128, a.in_scale};
-  gemm_block(al, a.wt, a.Kp, a.M, a.N, e);
+template <int TN, int XK>
+int launch(const CUtensorMap& map, const MatmulArgs& a, dim3 grid, int smem, cudaStream_t s) {
+  static bool attr_set = false;  // the opt-in to more than 48 KB, once per kernel
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        matmul_sm90_kernel<TN, XK>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  matmul_sm90_kernel<TN, XK><<<grid, A_THREADS, smem, s>>>(map, a);
+  return (int)cudaGetLastError();
+}
+
+template <int TN>
+int launch_xk(int xk, const CUtensorMap& map, const MatmulArgs& a, dim3 grid, int smem, cudaStream_t s) {
+  switch (xk) {
+    case XK_I8:
+      return launch<TN, XK_I8>(map, a, grid, smem, s);
+    case XK_F32:
+      return launch<TN, XK_F32>(map, a, grid, smem, s);
+    case XK_BF16:
+      return launch<TN, XK_BF16>(map, a, grid, smem, s);
+    default:
+      return launch<TN, XK_FLAT>(map, a, grid, smem, s);
+  }
 }
 
 }  // namespace ievm
 
-// x_kind: 0 int8, 1 fp32, 2 bf16.  out_kind / act: see int8_gemm.cuh.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int ievm_int8_matmul_requant(const void* x, int x_kind, const void* wt, int Kp,
-                                        const void* w_scale, const void* bias, const void* w_sum,
-                                        void* out, int out_kind, int act, int M, int K, int N,
-                                        int zp_s, int out_zp, float in_scale, float inv_out,
-                                        void* stream) {
-  using namespace ievm;
-  if (M <= 0 || N <= 0 || K <= 0 || Kp % BK != 0 || Kp < K || x_kind < 0 || x_kind > 2)
+// The TMA descriptor of a packed weight (Np, Kp) int8, K contiguous: boxes
+// of 64 rows x 128 bytes, 128-byte swizzle, zero fill outside. Writes the
+// 128-byte CUtensorMap to map_out. Returns 0, a cudaError_t, or 1000 + the
+// CUresult of the encode.
+extern "C" int ievm_int8_weight_tensor_map(const void* wt, int Np, int Kp, void* map_out) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;  // the driver's entry point, found without linking libcuda
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return (int)e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  if (Np <= 0 || Kp <= 0 || Kp % 16 != 0 || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  MatmulArgs a{x, static_cast<const int8_t*>(wt), Kp, M, K, N,
-               (K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0) ? 1 : 0, zp_s, in_scale};
-  Epilogue e{static_cast<const float*>(w_scale), static_cast<const float*>(bias),
-             static_cast<const int*>(w_sum), out, out_kind, act, zp_s, out_zp, in_scale, inv_out};
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)Kp, (cuuint64_t)Np};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kp};
+  const cuuint32_t box[2] = {(cuuint32_t)ievm::KS, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(wt), dims, strides,
+                            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  memcpy(map_out, &map, sizeof(map));
+  return 0;
+}
+
+// x_kind: 0 int8, 1 fp32, 2 bf16.  out_kind / act: see int8_gemm.cuh.  wmap:
+// the weight's tensor map (ievm_int8_weight_tensor_map).  inv_in: 1 / in_scale
+// in double.  bn, grid_m, groups, tiles_per_group, stages, window: the tile
+// plan (ops/int8_matmul.py:tile_plan).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int ievm_int8_matmul_requant(const void* x, int x_kind, const void* wmap, const void* w_scale,
+                                        const void* bias, const void* w_sum, void* out, int out_kind,
+                                        int act, int M, int K, int N, int zp_s, int out_zp,
+                                        float in_scale, float inv_out, double inv_in, int bn,
+                                        int grid_m, int groups, int tiles_per_group, int stages,
+                                        int window, void* stream) {
+  using namespace ievm;
+  const int nchunks = K > 0 ? (K + KS - 1) / KS : 0;
+  const int tiles = bn > 0 ? (N + bn - 1) / bn : 0;
+  if (M <= 0 || N <= 0 || K <= 0 || x_kind < 0 || x_kind > 2 || out_kind < 0 || out_kind > 2 ||
+      act < 0 || act > 3 || (bn != 64 && bn != 128 && bn != 192 && bn != 256) || stages < 2 ||
+      stages > MAX_STAGES || window < 1 || window > nchunks || groups < 1 || groups > 65535 ||
+      grid_m < 1 || grid_m > (M + BM - 1) / BM || tiles_per_group < 1 ||
+      (long long)groups * tiles_per_group < tiles || (groups - 1) * tiles_per_group >= tiles)
+    return (int)cudaErrorInvalidValue;
+  const Layout L(bn, stages, window, out_kind, tiles_per_group * bn);
+  if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(x);
+  int vec;  // 0: int8 rows read as one contiguous run (flat_fetch)
   if (x_kind == 0)
-    matmul_i8_kernel<<<grid, THREADS, 0, s>>>(a, e);
+    vec = (K % 16 == 0 && xp % 16 == 0) ? 16
+          : (K <= KS && xp % 16 == 0) ? 0
+          : (K % 4 == 0 && xp % 4 == 0) ? 4 : 1;
   else if (x_kind == 1)
-    matmul_float_kernel<float><<<grid, THREADS, 0, s>>>(a, e);
+    vec = (K % 4 == 0 && xp % 16 == 0) ? 4 : 1;
   else
-    matmul_float_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(a, e);
-  return (int)cudaGetLastError();
+    vec = (K % 8 == 0 && xp % 16 == 0) ? 8 : (K % 2 == 0 && xp % 4 == 0) ? 2 : 1;
+  CUtensorMap map;
+  memcpy(&map, wmap, sizeof(map));
+  const MatmulArgs a{x, static_cast<const float*>(w_scale), static_cast<const float*>(bias),
+                     static_cast<const int*>(w_sum), out, M, K, N, vec, out_kind, act, zp_s,
+                     out_zp, in_scale, inv_out, inv_in, tiles_per_group, stages, window, nchunks};
+  const dim3 grid(grid_m, groups);
+  const int xk = x_kind == 0 && vec == 0 ? XK_FLAT : x_kind;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 64:
+      return launch_xk<64>(xk, map, a, grid, L.total, s);
+    case 128:
+      return launch_xk<128>(xk, map, a, grid, L.total, s);
+    case 192:
+      return launch_xk<192>(xk, map, a, grid, L.total, s);
+    default:
+      return launch_xk<256>(xk, map, a, grid, L.total, s);
+  }
 }

@@ -95,15 +95,17 @@ def vit_spec(name: str, num_classes: int = 6, image_size: int = 224) -> ViTSpec:
 # --------------------------------------------------------------------------
 
 
-def init(spec: ViTSpec, generator: torch.Generator, device: DeviceLike = "cpu") -> Dict:
+def init(spec: ViTSpec, generator: torch.Generator, device: DeviceLike = None) -> Dict:
     """Random parameters: truncated normal (±2 std) with std 0.02 for every
     weight, zero biases, unit LayerNorms, as the JAX ``init`` draws them
-    (not the same numbers: ``generator`` is torch's)."""
+    (not the same numbers: ``generator`` is torch's). On the GPU unless
+    ``device="cpu"``; the draws happen on the generator's device and move."""
     dev = resolve_device(device)
 
     def tn(*shape):
-        t = torch.empty(shape, device=dev)
-        return torch.nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+        t = torch.empty(shape, device=generator.device)
+        t = torch.nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+        return t.to(dev)
 
     def ln(d):
         return {"scale": torch.ones(d, device=dev), "bias": torch.zeros(d, device=dev)}

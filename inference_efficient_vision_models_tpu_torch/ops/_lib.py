@@ -28,7 +28,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# Tile sizes the packed weight layout must pad to (csrc/int8_gemm.cuh BN, BK).
+# Tile sizes the packed weight layout must pad to (csrc/int8_gemm.cuh BN, BK; the
+# TMA loads of csrc/int8_matmul.cu need only Kp % 16 == 0).
 TILE_N = 64
 TILE_K = 64
 
@@ -47,7 +48,8 @@ _D = ctypes.c_double
 KERNELS = {
     "int8_matmul_requant": ("int8_matmul", {
         "ievm_int8_matmul_requant":
-            [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D] + [_I] * 6 + [_P],
+        "ievm_int8_weight_tensor_map": [_P, _I, _I, _P],
     }),
     "conv3x3_s1_int8": ("conv3x3", {
         "ievm_conv3x3_s1_int8":
@@ -142,8 +144,14 @@ def kernel_fn(name: str, symbol: Optional[str] = None):
     return _fns[symbol]
 
 
-def check(name: str, rc: int) -> None:
-    """Raise on a refused launch (the C entry returns cudaGetLastError())."""
+def check_call(name: str, rc: int) -> None:
+    """Raise if a C entry returned an error code."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+        raise RuntimeError(f"{name}: CUDA call failed with error {rc}")
+
+
+def check(name: str, rc: int) -> None:
+    """Raise on a refused launch (the C entry returns cudaGetLastError()),
+    else count the launch."""
+    check_call(name, rc)
     launches[name] += 1

@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel
 ``inference_efficient_vision_models_tpu/ops/int8_matmul.py:int8_matmul_requant``
 with the hand-written CUDA kernel ``csrc/int8_matmul.cu`` (its header says
-what bounds it on an H100 and what the design does about it). Same contract:
+what bounds it on an H100 and what the design does about it; ``tile_plan``
+below chooses its tiles). Same contract:
 
     acc   = X_s . W_q                 (int32)
     acc  -= zp_s * sum_k W_q[k, n]
@@ -18,6 +19,7 @@ CUDA tensor and runs ``int8_matmul_requant_plain`` for a CPU tensor only.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Tuple, Union
 
@@ -44,6 +46,8 @@ class PackedInt8Weight:
 
     wt: torch.Tensor
     shape: Tuple[int, ...]
+    # the TMA descriptor of ``wt``, encoded on first use by the kernel
+    _tensor_map: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def k(self) -> int:
@@ -60,6 +64,18 @@ class PackedInt8Weight:
     def unpack(self) -> torch.Tensor:
         """The weight in its JAX layout."""
         return self.kn().reshape(self.shape)
+
+    def tensor_map(self) -> int:
+        """Address of the 128-byte TMA descriptor of ``wt`` (a CUDA tensor),
+        encoded once: the weights are static."""
+        buf = self._tensor_map.get("buf")
+        if buf is None:
+            buf = ctypes.create_string_buffer(128)
+            rc = _lib.kernel_fn("int8_matmul_requant", "ievm_int8_weight_tensor_map")(
+                self.wt.data_ptr(), self.wt.shape[0], self.wt.shape[1], ctypes.addressof(buf))
+            _lib.check_call("int8_matmul_requant tensor map", rc)
+            self._tensor_map["buf"] = buf
+        return ctypes.addressof(buf)
 
 
 def pack_weight(w_q: torch.Tensor) -> PackedInt8Weight:
@@ -147,6 +163,102 @@ def int8_matmul_requant_plain(
                           out_zp=out_zp, out_dtype=out_dtype)
 
 
+# --------------------------------------------------------------------------
+# the kernel's tile plan (csrc/int8_matmul.cu checks it and lays out its
+# shared memory by the same formula as smem_bytes)
+# --------------------------------------------------------------------------
+
+NUM_SMS = 132            # H100 SXM
+SMEM_LIMIT = 232_448     # shared memory one block may take (227 KB)
+PANEL_ROWS = 128         # rows of A a block owns
+K_CHUNK = 128            # K bytes per ring stage and per panel chunk
+MAX_STAGES = 6
+_OUT_BYTES = {0: 1, 1: 4, 2: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the kernel cuts (M, K) x (K, N): ``mblocks`` slices of
+    ``PANEL_ROWS`` rows, N tiles of width ``bn`` in ``groups`` groups of
+    ``tiles_per_group``; the grid is (``grid_m``, ``groups``) and a block
+    takes every ``grid_m``-th slice. Weight tiles stream through a ring of
+    ``stages``; the A panel holds ``window`` of the ``nchunks`` 128-byte K
+    chunks (``window < nchunks``: A is reloaded in windows for each tile)."""
+
+    bn: int
+    tiles: int
+    groups: int
+    tiles_per_group: int
+    mblocks: int
+    grid_m: int
+    nchunks: int
+    stages: int
+    window: int
+    smem: int
+
+    @property
+    def stream(self) -> bool:
+        return self.window < self.nchunks
+
+
+def smem_bytes(bn: int, stages: int, window: int, out_kind: int, group_cols: int) -> int:
+    """Dynamic shared memory of one block: panel, ring, the two warpgroups'
+    staged 64-column output slices (fp32 rows of 288 bytes, and for an int8
+    or bf16 output the converted rows), the group's epilogue vectors (scale,
+    bias, zero-point correction), mbarriers and 1024 bytes of alignment
+    slack (csrc/int8_matmul.cu ``Layout``)."""
+    e = _OUT_BYTES[out_kind]
+    staged = 64 * 288 + (0 if e == 4 else 64 * (64 * e + 16))
+    return (window * PANEL_ROWS * K_CHUNK + stages * bn * K_CHUNK + 2 * staged
+            + 12 * group_cols + 2 * MAX_STAGES * 8 + 1024)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+MAX_GROUP_COLS = 1280    # epilogue vectors a block keeps (15 KB)
+
+
+def tile_plan(m: int, k: int, n: int, out_kind: int, act: int = 0,
+              sms: int = NUM_SMS) -> TilePlan:
+    """The tiles for out (m, n) = act(X (m, k) . W (k, n)):
+
+    - ``bn``: of the wgmma widths 64..256 (64..192 under a GELU, whose
+      epilogue needs the registers a 256-wide accumulator takes) that give at
+      least one (slice, N tile) pair per SM, the one that pads N least (the
+      widest on a tie); 64 when none does (small M: the most blocks);
+    - N groups: as few as fill the SMs (one whenever M has >= 132 slices), so
+      a float input is quantized once per group, and no group wider than
+      ``MAX_GROUP_COLS``;
+    - persistent blocks: one per SM along M when there is one group;
+    - the whole A panel if it fits beside a ring of 6, 4, 3 or 2 stages (at
+      ``bn`` 64 within half the SM's shared memory if it can, for two blocks
+      per SM), else a ring of 3 and A in windows of as many chunks as fit."""
+    mblocks = _cdiv(m, PANEL_ROWS)
+    widest = 192 if act >= _ACTS["gelu"] else 256
+    widths = sorted(range(64, widest + 1, 64), key=lambda b: (_cdiv(n, b) * b, -b))
+    bn = next((b for b in widths if mblocks * _cdiv(n, b) >= sms), 64)
+    tiles = _cdiv(n, bn)
+    per = min(_cdiv(tiles, min(tiles, _cdiv(sms, mblocks))), MAX_GROUP_COLS // bn)
+    groups = _cdiv(tiles, per)
+    grid_m = min(mblocks, sms) if groups == 1 else mblocks
+    nchunks = _cdiv(k, K_CHUNK)
+    cols = per * bn
+    for limit in ((SMEM_LIMIT // 2, SMEM_LIMIT) if bn == 64 else (SMEM_LIMIT,)):
+        for stages in (6, 4, 3, 2):
+            smem = smem_bytes(bn, stages, nchunks, out_kind, cols)
+            if smem <= limit:
+                if limit < SMEM_LIMIT and groups == 1:
+                    grid_m = min(mblocks, 2 * sms)
+                return TilePlan(bn, tiles, groups, per, mblocks, grid_m, nchunks, stages, nchunks,
+                                smem)
+    stages = 3
+    window = (SMEM_LIMIT - smem_bytes(bn, stages, 0, out_kind, cols)) // (PANEL_ROWS * K_CHUNK)
+    return TilePlan(bn, tiles, groups, per, mblocks, grid_m, nchunks, stages, window,
+                    smem_bytes(bn, stages, window, out_kind, cols))
+
+
 def _check_vec(name: str, t: torch.Tensor, n: int, dtype, device) -> None:
     if t.shape != (n,) or t.dtype != dtype or t.device != device or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous ({n},) {dtype} tensor on {device}, "
@@ -200,11 +312,13 @@ def int8_matmul_requant(
     out = torch.empty((m, n), dtype=out_t, device=dev)
     if m == 0:
         return out
-    rc = _lib.kernel_fn("int8_matmul_requant")(
-        x_s.data_ptr(), _X_KINDS[x_s.dtype], w.wt.data_ptr(), w.wt.shape[1],
+    p = tile_plan(m, k, n, _OUT_KINDS[out_t], _ACTS[act])
+    rc = _lib.kernel_fn("int8_matmul_requant", "ievm_int8_matmul_requant")(
+        x_s.data_ptr(), _X_KINDS[x_s.dtype], w.tensor_map(),
         w_scale.data_ptr(), bias.data_ptr(), w_sum.data_ptr(), out.data_ptr(),
         _OUT_KINDS[out_t], _ACTS[act], m, k, n, int(in_zp) - 128,
         int(out_zp) if requant else 0, _f32(in_scale), _inv(out_scale) if requant else 1.0,
+        1.0 / _f32(in_scale), p.bn, p.grid_m, p.groups, p.tiles_per_group, p.stages, p.window,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("int8_matmul_requant", rc)

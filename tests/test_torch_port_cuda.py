@@ -64,6 +64,7 @@ def _leaf(rng, shape, dev):
     (333, 13, 37, torch.bfloat16, dict(act="gelu_tanh", out_dtype=torch.bfloat16)),
 ])
 def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, xin, kw):
+    """Kernel A equals its plain version bit for bit (int8, fp32 and bf16 out)."""
     rng = np.random.default_rng(m + k + n)
     w, ws, b, wsum = _leaf(rng, (k, n), cuda)
     if xin == torch.int8:
@@ -75,13 +76,88 @@ def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, xin, kw):
     ref = int8_matmul_requant_plain(x, w, ws, b, wsum, in_scale=0.05, in_zp=113, **kw)
     torch.cuda.synchronize()
     assert _lib.launches["int8_matmul_requant"] == before + 1
-    d = (got.float() - ref.float()).abs()
-    if got.dtype == torch.int8:
-        assert d.max() <= 1 and (d == 0).float().mean() >= 0.99
-    else:
-        # bf16: within one bf16 ulp (2^-7 relative at most)
-        assert torch.allclose(got.float(), ref.float(), rtol=2**-7 if got.dtype == torch.bfloat16
-                              else 1e-5, atol=1e-3)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+# every (input dtype, activation, output) of kernel A: 3 x 4 x 3
+_A_ROUTES = [(xd, act, out) for xd in (torch.int8, torch.float32, torch.bfloat16)
+             for act in (None, "relu", "gelu", "gelu_tanh")
+             for out in (torch.int8, torch.float32, torch.bfloat16)]
+_A_NS = (6, 37, 192, 456, 576, 768, 1000, 1280)
+
+
+def _a_input(gen, m, k, dtype, dev):
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    return (torch.randn((m, k), generator=gen, device=dev) * 3).to(dtype)
+
+
+def _a_kwargs(act, out):
+    kw = dict(in_scale=0.05, in_zp=113, act=act)
+    if out == torch.int8:
+        return dict(kw, out_scale=0.04, out_zp=120)
+    return dict(kw, out_dtype=out)
+
+
+@pytest.mark.parametrize("m", [1, 197, 50432])
+@pytest.mark.parametrize("k", [13, 27, 192, 504, 768, 1280, 2016, 4104])
+def test_int8_matmul_kernel_exact_over_shapes(cuda, k, m):
+    """Bit-exact against the plain version at every N of the list; three of
+    the 36 routes per N, rotating with (K, M) so that the 24 (K, M) cases
+    cover every route at every M (panel and windowed A, vector, 4-byte,
+    element and contiguous-row loads, N groups, ragged N and K)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k * 1000 + m)
+    rng = np.random.default_rng(k + m)
+    for i, n in enumerate(_A_NS):
+        lf = _leaf(rng, (k, n), cuda)
+        for j in range(3):
+            xd, act, out = _A_ROUTES[(3 * i + j + 5 * k + m) % len(_A_ROUTES)]
+            x = _a_input(gen, m, k, xd, cuda)
+            kw = _a_kwargs(act, out)
+            got = int8_matmul_requant(x, *lf, **kw)
+            ref = int8_matmul_requant_plain(x, *lf, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == out and torch.equal(got, ref), (m, k, n, xd, act, out)
+
+
+@pytest.mark.parametrize("xd", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [13, 27, 504])
+def test_int8_matmul_kernel_exact_on_offset_views(cuda, xd, k):
+    """Activations that start at an odd element offset, and a view that
+    starts one row of odd K into its buffer (no aligned vector loads)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    m, n = 300, 37
+    lf = _leaf(np.random.default_rng(k), (k, n), cuda)
+    flat = _a_input(gen, 1, (m + 1) * k + 1, xd, cuda)[0]
+    for x in (flat[1 : 1 + m * k].view(m, k), flat[k : k + m * k].view(m, k)):
+        for act, out in [("gelu", torch.int8), (None, torch.float32), ("relu", torch.bfloat16)]:
+            kw = _a_kwargs(act, out)
+            got = int8_matmul_requant(x, *lf, **kw)
+            ref = int8_matmul_requant_plain(x, *lf, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (xd, k, x.storage_offset(), act, out)
+
+
+@pytest.mark.parametrize("in_scale", [0.05, 0.1, 0.0123, 1 / 255])
+def test_int8_matmul_quantize_exact_at_rounding_ties(cuda, in_scale):
+    """The kernel's quantize rounds x / s as a correctly rounded division:
+    inputs whose quotient is a half-integer, one float either side of it,
+    zeros, denormals and huge values quantize as the plain version does."""
+    s = torch.tensor(in_scale, dtype=torch.float32, device=cuda)
+    j = torch.arange(-300, 300, device=cuda, dtype=torch.float32)
+    ties = ((j + 0.5) * s).float()
+    vals = torch.cat([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1),
+                      torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-30, 3e38, -3e38], device=cuda)])
+    x = vals[: vals.numel() // 64 * 64].reshape(-1, 64)
+    lf = _leaf(np.random.default_rng(1), (64, 24), cuda)
+    for xx in (x, x.bfloat16()):
+        kw = dict(in_scale=in_scale, in_zp=128)
+        got = int8_matmul_requant(xx, *lf, **kw)
+        ref = int8_matmul_requant_plain(xx, *lf, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("shape,o", [((2, 12, 14, 8), 72), ((4, 56, 56, 56), 56),
@@ -217,3 +293,13 @@ def test_served_vit_kernel_path_matches_plain_path(cuda, act):
         ref = model(x, impl="plain")
     assert counts == {"int8_matmul_requant": 50}
     assert torch.allclose(got, ref, rtol=0, atol=0.05 * float(ref.abs().max()))
+
+
+def test_vit_init_defaults_to_the_gpu(cuda):
+    """``vit.init`` runs on the GPU unless asked; a CPU generator still serves it."""
+    spec = vit.vit_spec("vit_tiny_patch16_224", num_classes=6)
+    params = vit.init(spec, torch.Generator().manual_seed(0))
+    assert params["blocks"]["0"]["qkv"]["w"].device.type == "cuda"
+    assert params["norm"]["scale"].device.type == "cuda"
+    ref = vit.init(spec, torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(params["blocks"]["0"]["qkv"]["w"].cpu(), ref["blocks"]["0"]["qkv"]["w"])

@@ -195,7 +195,7 @@ def test_float_vit_matches_jax(dtype, fused):
 def test_init_and_seeded_params_have_jax_layout():
     spec = _tiny_spec()
     ref, _ = jvit.init(jax.random.PRNGKey(0), spec)
-    got = tvit.init(t_spec(spec.to_dict()), torch.Generator().manual_seed(0))
+    got = tvit.init(t_spec(spec.to_dict()), torch.Generator().manual_seed(0), device="cpu")
     seeded = vit_params_from_seed(spec, 0)
     paths = jax.tree_util.tree_flatten_with_path(ref)[0]
     for tree in (got, seeded):
