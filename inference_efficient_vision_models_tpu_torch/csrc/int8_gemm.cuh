@@ -60,25 +60,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Abramowitz & Stegun 7.1.26, the polynomial of the Pallas kernel's _erf,
-// rounded step by step as ops/int8_matmul.py:erf_as evaluates it (no FMA).
-__device__ __forceinline__ float erf_as(float x) {
-  float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  float a = fabsf(x);
-  float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, a)));
-  float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
-  p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
-  p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
-  p = __fadd_rn(0.254829592f, __fmul_rn(t, p));
-  p = __fmul_rn(t, p);
-  return __fmul_rn(s, __fadd_rn(1.0f, -__fmul_rn(p, expf(__fmul_rn(-a, a)))));
-}
-
-// GELU(y) = y * 0.5 * (1 + erf(y / sqrt(2))) in that order, as the plain versions take it.
-__device__ __forceinline__ float gelu_erf(float y) {
-  return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erf_as(__fmul_rn(y, 0.70710678118654752f))));
-}
-
 // Correctly rounded fp32 quotients without the slow-path branch of
 // __fdiv_rn, which keeps the compiler from overlapping one element's
 // division with the next one's. Both equal __fdiv_rn bit for bit:
@@ -104,9 +85,28 @@ __device__ __forceinline__ float rcp_rn_ge1(float d) {
   return d == INFINITY ? 0.f : __double2float_rn(r);
 }
 
-// erf-GELU as gelu_erf computes it, given t = RN(1 / gelu_den(y)):
-// kernel A's epilogue takes t from a fast reciprocal it checks, else from
-// rcp_rn_ge1 (1 + 0.3275911 |x| >= 1).
+// RN(1 / d) for d >= 1 without a double: an approximate reciprocal and one
+// Newton step leave t within an ulp of 1 / d, so the residual e = 1 - d t is
+// exact, and t is correctly rounded iff |e| < d u / 2, u the ulp below t
+// (exact; stricter than needed just above a power of two). Sets `redo`
+// otherwise (about one value in 10^6, inf, NaN): rcp_rn_ge1 then gives it.
+// Loops take this form for every element and redo the flagged ones after the
+// loop, so that no per-element branch serialises them.
+__device__ __forceinline__ float rcp_ge1_fast(float d, bool& redo) {
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(d));
+  t = __fmaf_rn(t, __fmaf_rn(-d, t, 1.0f), t);
+  const float e = __fmaf_rn(-d, t, 1.0f);
+  const float u = __fsub_rn(t, __int_as_float(__float_as_int(t) - 1));
+  redo = !(fabsf(e) < __fmul_rn(__fmul_rn(d, u), 0.5f));
+  return t;
+}
+
+// The erf-GELU of the plain versions (ops/int8_matmul.py:gelu_as): GELU(y) =
+// y * 0.5 * (1 + erf(y / sqrt(2))) in that order, erf by Abramowitz & Stegun
+// 7.1.26 (the Pallas kernel's _erf) rounded step by step (no FMA), given
+// t = RN(1 / gelu_den(y)) (1 + 0.3275911 |x| >= 1): from rcp_ge1_fast where
+// it is settled, else from rcp_rn_ge1 (gelu_erf_nb).
 __device__ __forceinline__ float gelu_den(float y) {
   return __fadd_rn(1.0f, __fmul_rn(0.3275911f, fabsf(__fmul_rn(y, 0.70710678118654752f))));
 }
@@ -119,13 +119,33 @@ __device__ __forceinline__ float gelu_erf_t(float y, float t) {
   p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
   p = __fadd_rn(0.254829592f, __fmul_rn(t, p));
   p = __fmul_rn(t, p);
-  // sign(x) * r as selects: the same value, and at x = 0 either zero gives 1 + erf = 1
+  // sign(x) * r as r with x's sign: the same value for x != 0; x = y / sqrt(2)
+  // rounds to zero only for y = +-0 (y / sqrt(2) of the least denormal rounds
+  // up to it), and then the result is (y * 0.5) * (1 +- r) = y * 0.5 either
+  // way, zero of y's sign, since 1 +- r > 0
   const float r = __fadd_rn(1.0f, -__fmul_rn(p, expf(__fmul_rn(-a, a))));
-  const float erf = x > 0.f ? r : (x < 0.f ? -r : 0.f);
+  const float erf = copysignf(r, x);
   return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erf));
 }
 
 __device__ __forceinline__ float gelu_erf_nb(float y) { return gelu_erf_t(y, rcp_rn_ge1(gelu_den(y))); }
+
+// gelu_erf_nb of four values: the reciprocals by rcp_ge1_fast, the rare
+// unsettled ones redone after them.
+__device__ __forceinline__ float4 gelu4(float4 v) {
+  const float y[4] = {v.x, v.y, v.z, v.w};
+  float t[4];
+  bool rd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[i] = rcp_ge1_fast(gelu_den(y[i]), rd[i]);
+  if (rd[0] || rd[1] || rd[2] || rd[3]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (rd[i]) t[i] = rcp_rn_ge1(gelu_den(y[i]));
+  }
+  return make_float4(gelu_erf_t(y[0], t[0]), gelu_erf_t(y[1], t[1]), gelu_erf_t(y[2], t[2]),
+                     gelu_erf_t(y[3], t[3]));
+}
 
 // The scalar epilogue of one output element, the one definition every kernel
 // shares: a = acc - zp_s * sum_k W[k, n] (int32), scale = s_x * s_w[n] (fp32,
@@ -171,6 +191,22 @@ __device__ __forceinline__ int8_t requant_i8(float y, float inv_out, int out_zp)
   float q = __fadd_rn(rintf(__fmul_rn(y, inv_out)), (float)out_zp);
   q = fminf(fmaxf(q, 0.f), 255.f);
   return (int8_t)((int)q - 128);
+}
+
+constexpr float RINT_MAGIC = 12582912.f;  // 1.5 * 2^23: q + M - M = rint(q) for |q| < 2^22
+
+// v an integer-valued float (or +-inf): clip(v, 0, 255) as a byte, without a
+// conversion instruction (2^23 + v holds v in its low bits). Conversions and
+// rint run at an eighth of the fp32 rate on Hopper; these additions do not.
+__device__ __forceinline__ uint32_t clip_u8(float v) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), 8388608.f)) & 0xffu;
+}
+
+// clip(rint(y * inv) + zp, 0, 255) as a byte, rint and the conversion done by
+// adding RINT_MAGIC: (q + M) - (M - zp) = rint(q) + zp exactly for |q| < 2^22,
+// and beyond that it stays past the clip on the same side. zpm = M - zp.
+__device__ __forceinline__ uint32_t requant_u8(float y, float inv, float zpm) {
+  return clip_u8(__fsub_rn(__fadd_rn(__fmul_rn(y, inv), RINT_MAGIC), zpm));
 }
 
 __device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N, int acc) {

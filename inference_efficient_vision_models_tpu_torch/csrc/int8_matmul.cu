@@ -129,12 +129,8 @@ struct PanelSrc {
 };
 
 // v an integer-valued float (or +-inf, NaN): clip(v, 0, 255) - 128 as a
-// byte, without a conversion instruction (2^23 + v holds v in its low bits).
-__device__ __forceinline__ uint32_t clip_byte(float v) {
-  return (__float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), 8388608.f)) & 0xffu) ^ 0x80u;
-}
-
-constexpr float RINT_MAGIC = 12582912.f;  // 1.5 * 2^23: q + M - M = rint(q) for |q| < 2^22
+// byte, without a conversion instruction (int8_gemm.cuh clip_u8).
+__device__ __forceinline__ uint32_t clip_byte(float v) { return clip_u8(v) ^ 0x80u; }
 
 // The quantized byte of x, clip(rint(x / s) + zp, 0, 255) - 128, with the
 // quotient correctly rounded: one double product (div_rn_by).
@@ -412,44 +408,16 @@ __device__ __forceinline__ void load_panel(const PanelSrc& a, uint8_t* half, uin
   }
 }
 
-// requant_i8 as a byte, with rint and the conversion done by adding
-// RINT_MAGIC: (q + M) - (M - zp) = rint(q) + zp exactly for |q| < 2^22,
-// and beyond that it stays past the clip on the same side. zpm = M - zp.
+// requant_i8 as a byte (int8_gemm.cuh requant_u8, shifted). zpm = RINT_MAGIC - zp.
 __device__ __forceinline__ uint32_t requant_byte(float y, float inv_out, float zpm) {
-  return clip_byte(__fsub_rn(__fadd_rn(__fmul_rn(y, inv_out), RINT_MAGIC), zpm));
+  return requant_u8(y, inv_out, zpm) ^ 0x80u;
 }
 
-// RN(1 / d) for d >= 1 without a double: an approximate reciprocal and one
-// Newton step leave t within an ulp of 1 / d, so the residual e = 1 - d t is
-// exact, and t is correctly rounded iff |e| < d u / 2, u the ulp below t
-// (exact; stricter than needed just above a power of two). Sets `redo`
-// otherwise (about one value in 10^6, inf, NaN): rcp_rn_ge1 then gives it.
-__device__ __forceinline__ float rcp_ge1_fast(float d, bool& redo) {
-  float t;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(d));
-  t = __fmaf_rn(t, __fmaf_rn(-d, t, 1.0f), t);
-  const float e = __fmaf_rn(-d, t, 1.0f);
-  const float u = __fsub_rn(t, __int_as_float(__float_as_int(t) - 1));
-  redo = !(fabsf(e) < __fmul_rn(__fmul_rn(d, u), 0.5f));
-  return t;
-}
-
-// act_t for four values, the erf-GELU's reciprocal by rcp_ge1_fast.
+// act_t for four values, the erf-GELU's reciprocal by rcp_ge1_fast (int8_gemm.cuh gelu4).
 template <int ACT>
 __device__ __forceinline__ float4 act4(float4 v) {
   if constexpr (ACT == ACT_GELU) {
-    const float y[4] = {v.x, v.y, v.z, v.w};
-    float t[4];
-    bool rd[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) t[i] = rcp_ge1_fast(gelu_den(y[i]), rd[i]);
-    if (rd[0] || rd[1] || rd[2] || rd[3]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (rd[i]) t[i] = rcp_rn_ge1(gelu_den(y[i]));
-    }
-    return make_float4(gelu_erf_t(y[0], t[0]), gelu_erf_t(y[1], t[1]), gelu_erf_t(y[2], t[2]),
-                       gelu_erf_t(y[3], t[3]));
+    return gelu4(v);
   } else {
     return make_float4(act_t<ACT>(v.x), act_t<ACT>(v.y), act_t<ACT>(v.z), act_t<ACT>(v.w));
   }
@@ -744,19 +712,9 @@ int launch_xk(int xk, const CUtensorMap& map, const MatmulArgs& a, dim3 grid, in
 // 128-byte CUtensorMap to map_out. Returns 0, a cudaError_t, or 1000 + the
 // CUresult of the encode.
 extern "C" int ievm_int8_weight_tensor_map(const void* wt, int Np, int Kp, void* map_out) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;  // the driver's entry point, found without linking libcuda
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return (int)e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
-  }
+  ievm::sm90::TensorMapEncode encode;
+  const cudaError_t e = ievm::sm90::tensor_map_encoder(&encode);
+  if (e != cudaSuccess) return (int)e;
   if (Np <= 0 || Kp <= 0 || Kp % 16 != 0 || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;

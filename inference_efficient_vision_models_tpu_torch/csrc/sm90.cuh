@@ -1,18 +1,43 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads, named barriers
-// and the int8 warpgroup MMA (wgmma) on shared-memory descriptors.
+// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads, named barriers,
+// the int8 and bf16 warpgroup MMAs (wgmma) on shared-memory descriptors, and
+// the host's tensor-map encoder.
 //
 // Shared-memory operands use the 128-byte swizzle: a tile is rows of 128
-// bytes of K, and the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+// bytes, and the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B writes that layout, threads that fill
-// a tile themselves use swz128(), and desc_sw128() tells wgmma to read it.
-// Tiles start on 1024-byte boundaries (one swizzle atom of 8 rows).
+// a tile themselves use swz128(), and the desc_* functions tell wgmma to read
+// it. Tiles start on 1024-byte boundaries (one swizzle atom of 8 rows).
+// A K-major operand has rows of 128 bytes of K (desc_sw128); an MN-major one
+// (the bf16 B operand read from a (K, N) matrix) has rows of 64 N values,
+// one row per k (desc_sw128_mn).
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ievm {
 namespace sm90 {
+
+// cuTensorMapEncodeTiled, taken from the driver without linking libcuda.
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t tensor_map_encoder(TensorMapEncode* out) {
+  static TensorMapEncode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<TensorMapEncode>(fn);
+  }
+  *out = encode;
+  return cudaSuccess;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -66,6 +91,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 2-D TMA store of one box from shared memory (bulk group of this thread).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Barrier `id` (1..15) over the first `count` threads of the block.
 __device__ __forceinline__ void named_bar(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -97,6 +141,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// MN-major operand descriptor, 128-byte swizzle: rows of 64 16-bit values
+// along MN, one row per k; 8-row k groups 1024 bytes apart (the stride
+// field) and 64-wide MN blocks `mn_stride` bytes apart (the leading field).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t mn_stride) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((mn_stride >> 4) & 0x3FFF) << 16) | (64ull << 32) |
+         (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -197,6 +250,34 @@ struct WgmmaS8<256> {
 };
 
 #undef IEVM_D8
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define IEVM_F8(i)                                                                             \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x 128, f32, registers) += A (64 x 16, bf16, K-major desc) . B (16 x 128,
+// bf16, MN-major desc: imm-trans-b = 1). d[i] sits where WgmmaS8's does.
+__device__ __forceinline__ void wgmma_bf16_n128_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : IEVM_F8(0), IEVM_F8(8), IEVM_F8(16), IEVM_F8(24), IEVM_F8(32), IEVM_F8(40), IEVM_F8(48),
+        IEVM_F8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef IEVM_F8
 
 }  // namespace sm90
 }  // namespace ievm

@@ -57,13 +57,13 @@ KERNELS = {
     }),
     "fused_mbconv_block": ("fused_mbconv", {
         "ievm_fused_mbconv_expand_dw":
-            [_P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 10 + [_F] * 5 + [_P],
+            [_P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 13 + [_F] * 4 + [_P],
         "ievm_fused_mbconv_se_gate": [_P] * 6 + [_I, _I, _I, _D, _P],
         "ievm_fused_mbconv_project":
             [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] * 8 + [_P],
     }),
     "dense_gelu": ("fused_dense", {
-        "ievm_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ievm_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     }),
 }
 

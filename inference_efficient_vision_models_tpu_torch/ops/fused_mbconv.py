@@ -17,14 +17,16 @@ around a per-image SE gate). Same contract, on shifted-quint8 int8 NHWC:
 
 ``fused_mbconv_block`` launches the kernels for a CUDA tensor (three
 launches with SE, two without) and runs ``fused_mbconv_block_plain`` for a
-CPU tensor only. The SE gate is taken in float64 from the exact integer sum
-of ``yq - d_zp`` and rounded to fp32 once, on both sides, so kernel and plain
-version agree bit for bit whatever order each sums in; the JAX kernel takes
-it in fp32 from an fp32 mean, which differs from both by ulps of ``g``.
+CPU tensor only; ``expand_dw_plan`` chooses the first launch's tiles. The
+SE gate is taken in float64 from the exact integer sum of ``yq - d_zp`` and
+rounded to fp32 once, on both sides, so kernel and plain version agree bit
+for bit whatever order each sums in; the JAX kernel takes it in fp32 from an
+fp32 mean, which differs from both by ulps of ``g``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -72,6 +74,10 @@ def to_device_packed(packed_np: Dict, device) -> Dict:
     for k in ("we", "wp"):
         if k in packed_np:
             out[k] = pack_weight(torch.from_numpy(np.array(packed_np[k], np.int8)).to(device))
+    wdw = np.asarray(packed_np["wdw"], np.float32)
+    if not (np.array_equal(wdw, np.rint(wdw)) and np.abs(wdw).max(initial=0) <= 128):
+        # the kernel's depthwise sums are exact in any order only for int8 weights
+        raise ValueError("the depthwise weights must be int8 values")
     for k in _VEC_KEYS:
         if k in packed_np:
             v = np.array(packed_np[k], np.float32)
@@ -133,6 +139,70 @@ def fused_mbconv_block_plain(x_s8: torch.Tensor, packed: Dict, *, kernel: int, s
     if x_res is not None:
         yp = yp + (x_res.float() - sc[RES_ZP_S]) * sc[RES_SCALE]
     return (_requant_q(yp, sc[INV_O], sc[O_ZP]) - 128.0).to(torch.int8)
+
+
+# the first launch's tile plan (csrc/fused_mbconv.cu checks it and lays out its
+# shared memory by the same formula as expand_dw_smem)
+DW_SMEM_LIMIT = 232_448   # shared memory one block may take (227 KB)
+DW_MAP_LIMIT = 56 * 1024  # the byte map of one tile: three blocks fit on an SM
+DW_P = 4                  # adjacent outputs along x per depthwise thread
+MAP_PAD = 4               # bytes after the channel tile in a map row
+CHANNEL_TILES = (32, 48)
+
+
+def expand_dw_smem(r: int, ct: int, kc: int, kernel: int, expand: bool) -> int:
+    """Dynamic shared memory of one expand_dw block (``DwLayout``): the byte
+    map (``r`` region pixels of ``ct + 4`` bytes, rounded up to 16), the
+    expand's weight tile (``ct`` rows of ``kc + 16`` bytes), the depthwise
+    weights (k*k x ct fp32), four ct-vectors of scales and the pool sums."""
+    return (-(-r * (ct + MAP_PAD) // 16) * 16 + (ct * (kc + 16) if expand else 0)
+            + kernel * kernel * ct * 4 + 4 * ct * 4 + ct * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpandDwPlan:
+    """Tiles of the first launch: ``ct`` expanded channels per block, output
+    tiles of ``th`` x ``tw`` whose halo'd input regions are ``rh`` x ``rw``
+    pixels, on a (``tiles_y * tiles_x``, ``ctiles``, N) grid; ``kc`` is the
+    expand's K (Cin rounded up to the mma's 32; 0 without expand)."""
+
+    ct: int
+    th: int
+    tw: int
+    rh: int
+    rw: int
+    tiles_y: int
+    tiles_x: int
+    ctiles: int
+    kc: int
+    smem: int
+
+
+def expand_dw_plan(h: int, w: int, cin: int, ce: int, kernel: int, stride: int,
+                   expand: bool) -> ExpandDwPlan:
+    """The channel tile that pads Ce least (32 on a tie), then the square
+    output tile (clipped to the map) whose expand-plus-depthwise work is
+    least: every region pixel costs an expand epilogue per channel (~30
+    instructions, or a copy without expand), every output slot of the
+    tiles, ragged edges included, a depthwise conv and its epilogue; the
+    map must fit in ``DW_MAP_LIMIT``. The larger tile wins a tie."""
+    _, ho, wo = _out_hw(h, w, kernel, stride)
+    ct = min(CHANNEL_TILES, key=lambda c: (-(-ce // c) * c, c))
+    kc = -(-cin // 32) * 32 if expand else 0
+    best = None
+    for t in range(1, max(ho, wo) + 1):
+        th, tw = min(t, ho), min(t, wo)
+        rh, rw = (th - 1) * stride + kernel, (tw - 1) * stride + kernel
+        if rh * rw * (ct + MAP_PAD) > DW_MAP_LIMIT:
+            break
+        tiles = -(-ho // th) * -(-wo // tw)
+        cost = tiles * (rh * rw * (30 if expand else 2)
+                        + th * -(-tw // DW_P) * DW_P * (kernel * kernel + 30))
+        if best is None or cost <= best[0]:
+            best = (cost, th, tw, rh, rw)
+    _, th, tw, rh, rw = best
+    return ExpandDwPlan(ct, th, tw, rh, rw, -(-ho // th), -(-wo // tw), -(-ce // ct), kc,
+                        expand_dw_smem(rh * rw, ct, kc, kernel, expand))
 
 
 def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
@@ -197,6 +267,10 @@ def fused_mbconv_block(
         raise ValueError("the block's tensors exceed the kernels' int32 indexing")
 
     sc = packed["scal"]
+    # the byte of a hidden zero in the first launch's map
+    map_zp = sc[E_ZP] if has_expand else sc[ZP_S_IN] + 128.0
+    if not (float(map_zp).is_integer() and 0 <= map_zp <= 255):
+        raise ValueError(f"the hidden zero point must be an integer in [0, 255], got {map_zp}")
     out = torch.empty((n, ho, wo, co), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
@@ -204,12 +278,13 @@ def fused_mbconv_block(
     yq = torch.empty((n, ho, wo, ce), dtype=torch.int8, device=dev)
     pool = torch.zeros((n, ce), dtype=torch.int32, device=dev) if has_se else None
     we = packed["we"] if has_expand else None
+    plan = expand_dw_plan(h, w, cin, ce, kernel, stride, has_expand)
     rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_expand_dw")(
         x_s8.data_ptr(), we.wt.data_ptr() if we else None, we.wt.shape[1] if we else 0,
         packed["ve"].data_ptr() if we else None, wdw.data_ptr(), packed["vdw"].data_ptr(),
         yq.data_ptr(), pool.data_ptr() if has_se else None,
-        n, h, w, cin, ce, ho, wo, kernel, stride, _ACTS[act],
-        sc[ZP_S_IN], sc[INV_E], sc[E_ZP], sc[INV_D], sc[D_ZP], stream,
+        n, h, w, cin, ce, ho, wo, kernel, stride, _ACTS[act], plan.ct, plan.th, plan.tw,
+        map_zp, sc[INV_E], sc[INV_D], sc[D_ZP], stream,
     )
     _lib.check("fused_mbconv_block", rc)
     g = None

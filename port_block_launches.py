@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Device time of kernel C's three launches at every EfficientNet-B0 block.
+
+Run from the repository root: ``python3 port_block_launches.py [--root DIR]``.
+It serves nothing: it loads the committed static-INT8 EfficientNet-B0
+(``testdata/effnet_b0_int8``) on the GPU, feeds each fused MBConv block int8
+activations at batch 256 spread around the block's input zero point (from a
+seed), and times ``fused_mbconv_block`` per launch (expand + depthwise, SE
+gate, project) as device time by ``torch.profiler``.
+``--root`` takes the port package from another checkout (for example the
+parent commit unpacked with ``git archive``), so two versions can be timed
+in one run on one card. Prints one JSON object. ``chip_smoke.py`` uses
+``launch_ms`` for its own per-block rows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+LAUNCHES = ("expand_dw", "se_gate", "project")
+
+
+def launch_ms(call, runs: int = 10) -> dict:
+    """Device ms per call of each of kernel C's launches (by kernel name),
+    averaged over ``runs`` calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(LAUNCHES, 0.0)
+    for e in prof.key_averages():
+        for k in LAUNCHES:
+            if f"{k}_kernel" in e.key:
+                out[k] += e.self_device_time_total / 1e3 / runs
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="checkout whose port package to time")
+    ap.add_argument("--batch", type=int, default=256)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_block_launches: no CUDA device", file=sys.stderr)
+        return 1
+    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
+        block_plan,
+        load_static_int8_fused,
+    )
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv_block
+
+    artifact = os.path.join(os.path.abspath(args.root), "inference_efficient_vision_models_tpu_torch",
+                            "testdata", "effnet_b0_int8")
+    model = load_static_int8_fused(artifact, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    h = model.q["stem"]["e"].shape[1]
+    blocks = {}
+    for name, k, stride, residual in block_plan(model.spec):
+        packed = model.qf[name]
+        cin = packed["we"].k if "we" in packed else packed["wdw"].shape[-1]
+        zp = int(packed["scal"][0]) + 128
+        x = (torch.randn((args.batch, h, h, cin), generator=gen, device="cuda") * 30
+             + (zp - 118)).round().clamp(-128, 127).to(torch.int8)
+        kw = dict(kernel=k, stride=stride, act="silu", x_res=x if residual else None)
+        blocks[name] = launch_ms(lambda: fused_mbconv_block(x, packed, **kw))
+        h = (h - 1) // stride + 1
+    total = {k: sum(b[k] for b in blocks.values()) for k in LAUNCHES}
+    print(json.dumps({"root": os.path.abspath(args.root), "batch": args.batch,
+                      "device": torch.cuda.get_device_name(0), "blocks": blocks, "total": total}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
