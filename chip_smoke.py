@@ -10,8 +10,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (a) holds each kernel against its plain PyTorch version on the card, at
    every shape the served model gives it (batch 256, and batch 1 for kernel
    A) and at odd shapes (kernel A over K 13..4104, N 6..1280, its 36
-   input/activation/output routes, offset views and rounding ties); kernel
-   A must equal its plain version bit for bit, kernel B within a quantum;
+   input/activation/output routes, offset views and rounding ties; kernel B
+   over C 3..456, ragged M and O, with and without the residual epilogue
+   that ends a basic block, and its requant at rounding ties); kernels A and
+   B must equal their plain versions bit for bit;
    serves the artifact through ``Predictor.from_artifact`` (requests of 1, 8
    and 2x256 images) with the launch counters set to 0 just before and read
    just after, and checks (d) 13 direct-3x3 and 8 int8-matmul launches per
@@ -249,17 +251,21 @@ def main_path_calls(model, b: int):
             inner = c1["w"].n
             rq = dict(relu=True, out_scale=c1["out_scale"], out_zp=c1["out_zp"])
             tag = f"layer{s + 1}.{bi}"
+            if "down" in blk:
+                calls.append(("int8_matmul_requant", f"{tag}.down", (b * ho * ho, cin),
+                              torch.int8, blk["down"], dict(in_scale=in_s, in_zp=in_z)))
             if stride == 1:
                 calls.append(("conv3x3_s1_int8", f"{tag}.conv1", (b, h, h, cin), torch.int8, c1,
                               dict(in_scale=in_s, in_zp=in_z, **rq)))
             else:
                 calls.append(("int8_matmul_requant", f"{tag}.conv1", (b * ho * ho, 9 * cin),
                               torch.int8, c1, dict(in_scale=in_s, in_zp=in_z, **rq)))
+            # conv2 ends the block: its residual is the downsample's fp32 output
+            # or the block's int8 input (made a tensor by with_residual)
+            res = ("float32",) if "down" in blk else ("int8", in_s, in_z)
             calls.append(("conv3x3_s1_int8", f"{tag}.conv2", (b, ho, ho, inner), torch.int8, c2,
-                          dict(in_scale=c1["out_scale"], in_zp=c1["out_zp"])))
-            if "down" in blk:
-                calls.append(("int8_matmul_requant", f"{tag}.down", (b * ho * ho, cin),
-                              torch.int8, blk["down"], dict(in_scale=in_s, in_zp=in_z)))
+                          dict(in_scale=c1["out_scale"], in_zp=c1["out_zp"], residual=res,
+                               out_scale=blk["out_scale"], out_zp=blk["out_zp"])))
             h, cin, in_s, in_z = ho, spec.stage_widths[s], blk["out_scale"], blk["out_zp"]
     fc = q["fc"]
     calls.append(("int8_matmul_requant", "fc", (b, fc["w"].k), torch.float32, fc,
@@ -275,9 +281,25 @@ def make_input(shape, dtype, in_zp: int, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device="cuda").abs() * 2
 
 
+def with_residual(kw, shape, n: int, gen: torch.Generator):
+    """``kw`` with a conv2 call's residual spec made a tensor of the output's
+    shape: the block's int8 input around its zero point, or an fp32
+    downsample output spread over the block's requant range."""
+    spec = kw.get("residual")
+    if spec is None:
+        return kw
+    rshape = (*shape[:3], n)
+    if spec[0] == "int8":
+        _, scale, zp = spec
+        return dict(kw, residual=("int8", make_input(rshape, torch.int8, zp, gen), scale, zp))
+    return dict(kw, residual=torch.randn(rshape, generator=gen, device="cuda")
+                * (30 * kw["out_scale"]))
+
+
 def cost(kernel: str, x: torch.Tensor, leaf, kw):
-    """(bytes, int8 ops) the call must move and do: each input read once,
-    each output written once; 2 ops per multiply-add of the GEMM."""
+    """(bytes, int8 ops) the call must move and do: each input read once (a
+    residual's identity too), each output written once; 2 ops per
+    multiply-add of the GEMM."""
     n = leaf["w"].n
     if kernel == "conv3x3_s1_int8":
         m, k = x.numel() // x.shape[-1], 9 * x.shape[-1]
@@ -285,7 +307,9 @@ def cost(kernel: str, x: torch.Tensor, leaf, kw):
         m, k = x.shape
     out_bytes = 1 if kw.get("out_scale") is not None else \
         torch.empty((), dtype=kw.get("out_dtype", torch.float32)).element_size()
-    nbytes = x.numel() * x.element_size() + k * n + 3 * 4 * n + m * n * out_bytes
+    res = kw.get("residual")
+    res_bytes = 0 if res is None else m * n * (4 if isinstance(res, torch.Tensor) else 1)
+    nbytes = x.numel() * x.element_size() + k * n + 3 * 4 * n + m * n * out_bytes + res_bytes
     return nbytes, 2 * m * k * n
 
 
@@ -351,8 +375,13 @@ A_ROUTES = [(xd, act, out) for xd in (torch.int8, torch.float32, torch.bfloat16)
             for out in (torch.int8, torch.float32, torch.bfloat16)]
 
 
-# kernel A is held bit-exact; kernel B within one quantum (compare)
-CHECK = {"int8_matmul_requant": compare_exact, "conv3x3_s1_int8": compare}
+# kernels A and B are held bit-exact
+CHECK = {"int8_matmul_requant": compare_exact, "conv3x3_s1_int8": compare_exact}
+# kernel B's odd shapes (N, H, W, C, O): every load width (C 3, 8, 16, 40, 72,
+# 112, 456), ragged M and O, O not a multiple of 4, a window-streamed K
+B_ODD_SHAPES = [(2, 12, 14, 8, 72), (3, 7, 9, 72, 56), (2, 5, 6, 3, 8), (2, 5, 6, 3, 6),
+                (2, 9, 10, 16, 40), (3, 11, 9, 40, 112), (2, 13, 13, 112, 224),
+                (1, 7, 7, 456, 456)]
 
 
 def a_kwargs(act, out):
@@ -360,12 +389,25 @@ def a_kwargs(act, out):
     return dict(kw, out_scale=0.04, out_zp=120) if out == torch.int8 else dict(kw, out_dtype=out)
 
 
+def residual_ties(s_out: float, count: int) -> torch.Tensor:
+    """``count`` fp32 values t >= 0 whose t / s_out is a half-integer, or one
+    float above or below one, and a few extremes (zeros, a denormal, huge)."""
+    s = torch.tensor(s_out, device="cuda")
+    ties = ((torch.arange(0, 300, device="cuda", dtype=torch.float32) + 0.5) * s).float()
+    vals = torch.cat([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1),
+                      torch.tensor([0.0, -0.0, 1e-40, 3e38], device="cuda")])
+    return vals.repeat(-(-count // vals.numel()))[:count]
+
+
 def check_odd_shapes(gen: torch.Generator):
     """(a) at shapes off the served path. Kernel A, bit-exact: K from 13 to
     4104 (element, 4-byte, contiguous-row and vector loads; whole panel and
     windows) by N from 6 to 1280, M in {1, 197, 1000}, the 36 routes between
-    them; activations at odd offsets; quotients at rint's ties. Kernel B:
-    ragged M/N, C not a multiple of 4, within one quantum."""
+    them; activations at odd offsets; quotients at rint's ties. Kernel B,
+    bit-exact: C of 3, 8, 16, 40, 72, 112 and 456 (every load width), ragged
+    M and O (O not a multiple of 4), fp32 out, requant + ReLU, and both
+    residual kinds; its residual requant at rint's ties (zero weights, so the
+    quotient is the identity's over s_out)."""
     errs, fails = {k: 0.0 for k in KERNEL}, []
 
     def leaf(shape):
@@ -403,13 +445,28 @@ def check_odd_shapes(gen: torch.Generator):
     for xd in (torch.float32, torch.bfloat16):
         cases.append(("int8_matmul_requant", "rounding ties", ties.reshape(-1, 64).to(xd), lf,
                       dict(in_scale=0.05, in_zp=128)))
-    for (n, h, w, c, o) in [(2, 12, 14, 8, 72), (3, 7, 9, 72, 56), (2, 5, 6, 3, 8)]:
+    for (n, h, w, c, o) in B_ODD_SHAPES:
         lf = leaf((3, 3, c, o))
         x = torch.randint(-128, 128, (n, h, w, c), generator=gen, device="cuda",
                           dtype=torch.int8)
-        for kw in [dict(), dict(relu=True, out_scale=0.05, out_zp=110)]:
+        ident = torch.randint(-128, 128, (n, h, w, o), generator=gen, device="cuda",
+                              dtype=torch.int8)
+        down = torch.randn((n, h, w, o), generator=gen, device="cuda") * 2
+        rq = dict(out_scale=0.05, out_zp=100)
+        for kw in [dict(), dict(relu=True, out_scale=0.05, out_zp=110),
+                   dict(residual=("int8", ident, 0.04, 120), **rq), dict(residual=down, **rq)]:
             cases.append(("conv3x3_s1_int8", f"{n}x{h}x{w}x{c}->{o}", x, lf,
                           dict(in_scale=0.03, in_zp=150, **kw)))
+    for o in (30, 32):  # the residual requant's quotient on and beside rint's ties
+        zero = {"w": pack_weight(torch.zeros((3, 3, 8, o), dtype=torch.int8, device="cuda")),
+                "w_scale": torch.full((o,), 0.01, device="cuda"),
+                "bias": torch.zeros(o, device="cuda"),
+                "w_sum": torch.zeros(o, dtype=torch.int32, device="cuda")}
+        for s_out in (0.05, 0.0123):
+            t = residual_ties(s_out, 2 * 5 * 6 * o).reshape(2, 5, 6, o)
+            cases.append(("conv3x3_s1_int8", f"residual ties s_out {s_out} O {o}",
+                          torch.zeros((2, 5, 6, 8), dtype=torch.int8, device="cuda"), zero,
+                          dict(in_scale=0.03, in_zp=150, residual=t, out_scale=s_out, out_zp=3)))
     for kernel, label, x, lf, kw in cases:
         args = (x, lf["w"], lf["w_scale"], lf["bias"], lf["w_sum"])
         ok, err = CHECK[kernel](KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
@@ -439,22 +496,30 @@ def check_and_time_main_shapes(model, gen: torch.Generator):
             fails += f
             emit({"phase": "a_main_shape", **row})
             continue
+        n = leaf["w"].n
+        kw = with_residual(kw, shape, n, gen)
         args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
-        ok, err = compare(KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
+        ok, err = compare_exact(KERNEL[kernel](*args, **kw), PLAIN[kernel](*args, **kw))
         if not ok:
             fails.append(f"{kernel} {label} {tuple(shape)}: max abs err {err}")
         nbytes, ops = cost(kernel, x, leaf, kw)
+        m, k = x.numel() // shape[-1], 9 * shape[-1]
+        lib, lib_note = int_mm_ms(make_input((m, k), torch.int8, kw["in_zp"], gen), leaf)
+        res = kw.get("residual")
         rows.append({
             "path": "resnet18", "kernel": kernel, "call": label, "batch": BATCH, "x": list(shape),
-            "n": leaf["w"].n, "max_abs_err": err,
+            "n": n, "max_abs_err": err,
+            "residual": None if res is None else ("float32" if isinstance(res, torch.Tensor)
+                                                  else "int8"),
             "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
             "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
             "bytes": nbytes, "ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
-            "library_ms": None,
+            "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
+            "library": "torch._int_mm at (M, 9C, O): the GEMM only, no patch matrix",
         })
         emit({"phase": "a_main_shape", **rows[-1]})
-        del x, args
+        del x, args, kw
     # the stem's patch matrix, built outside the kernel (plain data movement)
     st = model.q["stem"]
     h = st["e4"].shape[1]
@@ -1109,7 +1174,9 @@ def kernels_line(rows, launches_by_path):
     notes = {
         "fused_mbconv_block": "no PyTorch call computes a fused int8 MBConv block, and PyTorch "
                               "has no int8 convolution on CUDA",
-        "conv3x3_s1_int8": "PyTorch has no int8 convolution on CUDA",
+        "conv3x3_s1_int8": "torch._int_mm at each call's (M, 9C, O): the GEMM only, the patch "
+                           "matrix neither built nor timed (PyTorch has no int8 convolution on "
+                           "CUDA)",
         "dense_gelu": "torch.addmm + F.gelu(approximate='none') in bf16 (two launches)",
     }
     kernels = []

@@ -6,6 +6,8 @@ shifted quint8 (int8 ``q - 128``) in NHWC, weights per-channel symmetric
 int8. Every conv runs through a hand-written kernel:
 
 * 3x3 stride-1 convs -> ``conv3x3_s1_int8`` (direct, halo padded in-kernel);
+  a basic block's conv2 also adds the identity, applies the ReLU and
+  requantizes in its epilogue, so the block's fp32 sum never exists;
 * the s2d stem, 3x3 stride-2 convs, 1x1 convs and the fc ->
   ``int8_matmul_requant`` (through im2col for the convs).
 
@@ -197,6 +199,26 @@ def _conv_q(x_s, zp, in_scale, qc, stride, padding, *, relu, requant, impl):
                             relu=relu, backend=impl, **rq)
 
 
+def basic_block(blk: Dict, x_in: torch.Tensor, in_scale: float, in_zp: int, stride: int, *,
+                impl: str = "kernel") -> torch.Tensor:
+    """One basic block -> its int8 output. conv1 (+ ReLU, requant), then
+    conv2, whose epilogue adds the identity (the downsample's fp32 output, or
+    the block's own int8 input dequantized), applies the ReLU and requantizes
+    by division: the JAX executor's ``requant(relu(h + identity))``, with the
+    block's fp32 sum never written out."""
+    if "down" in blk:
+        identity = _conv_q(x_in, in_zp, in_scale, blk["down"], stride, 0,
+                           relu=False, requant=False, impl=impl)
+    else:
+        identity = ("int8", x_in, in_scale, in_zp)
+    c1, c2 = blk["conv1"], blk["conv2"]
+    a_q = _conv_q(x_in, in_zp, in_scale, c1, stride, 1, relu=True, requant=True, impl=impl)
+    conv = conv3x3_s1_int8 if impl == "kernel" else conv3x3_s1_int8_plain
+    return conv(a_q, c2["w"], c2["w_scale"], c2["bias"], c2["w_sum"],
+                in_scale=c1["out_scale"], in_zp=c1["out_zp"], residual=identity,
+                out_scale=blk["out_scale"], out_zp=blk["out_zp"])
+
+
 def apply_int8(spec: ResNetSpec, q: Dict, x: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
     """Static-INT8 inference -> fp32 logits (B, num_classes).
 
@@ -225,25 +247,22 @@ def apply_int8(spec: ResNetSpec, q: Dict, x: torch.Tensor, *, impl: str = "kerne
         for b in range(depth):
             blk = q[f"layer{s + 1}"][str(b)]
             stride = spec.block_stride(s, b)
-            x_in, in_s, in_z = cur, cur_scale, cur_zp
             if spec.block == "basic":
-                a_q = _conv_q(x_in, in_z, in_s, blk["conv1"], stride, 1,
-                              relu=True, requant=True, impl=impl)
-                h = _conv_q(a_q, blk["conv1"]["out_zp"], blk["conv1"]["out_scale"],
-                            blk["conv2"], 1, 1, relu=False, requant=False, impl=impl)
+                cur = basic_block(blk, cur, cur_scale, cur_zp, stride, impl=impl)
             else:
+                x_in, in_s, in_z = cur, cur_scale, cur_zp
                 a_q = _conv_q(x_in, in_z, in_s, blk["conv1"], 1, 0,
                               relu=True, requant=True, impl=impl)
                 b_q = _conv_q(a_q, blk["conv1"]["out_zp"], blk["conv1"]["out_scale"],
                               blk["conv2"], stride, 1, relu=True, requant=True, impl=impl)
                 h = _conv_q(b_q, blk["conv2"]["out_zp"], blk["conv2"]["out_scale"],
                             blk["conv3"], 1, 0, relu=False, requant=False, impl=impl)
-            if "down" in blk:
-                identity = _conv_q(x_in, in_z, in_s, blk["down"], stride, 0,
-                                   relu=False, requant=False, impl=impl)
-            else:
-                identity = dequantize_affine_shifted(x_in, in_s, in_z)
-            cur = _requant(torch.relu(h + identity), blk["out_scale"], blk["out_zp"])
+                if "down" in blk:
+                    identity = _conv_q(x_in, in_z, in_s, blk["down"], stride, 0,
+                                       relu=False, requant=False, impl=impl)
+                else:
+                    identity = dequantize_affine_shifted(x_in, in_s, in_z)
+                cur = _requant(torch.relu(h + identity), blk["out_scale"], blk["out_zp"])
             cur_scale, cur_zp = blk["out_scale"], blk["out_zp"]
 
     feats = dequantize_affine_shifted(cur, cur_scale, cur_zp).mean(dim=(1, 2))

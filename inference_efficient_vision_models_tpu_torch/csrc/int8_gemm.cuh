@@ -1,8 +1,7 @@
-// Shared core of the int8 kernels: the affine-int8 epilogue of the JAX
-// package's Pallas kernels (epilogue_y / requant_i8, used by every int8
-// kernel; fused_mbconv.cu brings its own stores) and, for the direct 3x3 conv
-// and the fused MBConv block, a shared-memory tiled int8 GEMM on mma.sync
-// m16n8k32 (int8 x int8 -> int32):
+// Shared core of the int8 kernels: the scalar affine-int8 epilogue of the
+// JAX package's Pallas kernels (affine_y, act_t, requant_u8; every int8
+// kernel takes it) and, for the fused MBConv block's project launch, a
+// shared-memory tiled int8 GEMM on mma.sync m16n8k32 (int8 x int8 -> int32):
 //
 //   acc  = X_s . W_q                      (int32, exact)
 //   acc -= zp_s * sum_k W_q[k, n]         (affine-input correction)
@@ -15,12 +14,12 @@
 // the plain PyTorch versions then agree with the kernels bit for bit on the
 // integer paths. Build without --use_fast_math.
 //
-// Tiling: a block computes a BM x BN output tile with 8 warps (4 along M,
-// 2 along N, 32 x 32 each), stepping K in BK-byte slices through shared
-// memory; the next slice is loaded into registers while the current one is
-// multiplied. The A operand comes through a loader (plain rows, rows quantized
-// from float, or implicit 3x3 im2col), B from weights packed once at load time
-// as (Np, Kp) int8, K contiguous per output column, zero-padded to the tiles.
+// Tiling of gemm_tile: a block computes a BM x BN output tile with 8 warps (4
+// along M, 2 along N, 32 x 32 each), stepping K in BK-byte slices through
+// shared memory; the next slice is loaded into registers while the current
+// one is multiplied. The A operand comes through the caller's loader, B from
+// weights packed once at load time as (Np, Kp) int8, K contiguous per output
+// column, zero-padded to the tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,19 +37,6 @@ constexpr int A_WORDS = BM * BK / 4 / THREADS;  // 8 four-byte A words per threa
 
 enum OutKind { OUT_I8 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_GELU_TANH = 3 };
-
-struct Epilogue {
-  const float* w_scale;
-  const float* bias;
-  const int* w_sum;
-  void* out;
-  int out_kind;
-  int act;
-  int zp_s;
-  int out_zp;
-  float in_scale;
-  float inv_out;
-};
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -168,31 +154,6 @@ __device__ __forceinline__ float act_t(float y) {
   return y;
 }
 
-template <int ACT>
-__device__ __forceinline__ float epilogue_y_t(int a, float scale, float bias) {
-  return act_t<ACT>(affine_y(a, scale, bias));
-}
-
-__device__ __forceinline__ float epilogue_y(int a, float scale, float bias, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return epilogue_y_t<ACT_RELU>(a, scale, bias);
-    case ACT_GELU:
-      return epilogue_y_t<ACT_GELU>(a, scale, bias);
-    case ACT_GELU_TANH:
-      return epilogue_y_t<ACT_GELU_TANH>(a, scale, bias);
-    default:
-      return epilogue_y_t<ACT_NONE>(a, scale, bias);
-  }
-}
-
-// clip(rint(y * (1/s_y)) + zp_y, 0, 255) - 128
-__device__ __forceinline__ int8_t requant_i8(float y, float inv_out, int out_zp) {
-  float q = __fadd_rn(rintf(__fmul_rn(y, inv_out)), (float)out_zp);
-  q = fminf(fmaxf(q, 0.f), 255.f);
-  return (int8_t)((int)q - 128);
-}
-
 constexpr float RINT_MAGIC = 12582912.f;  // 1.5 * 2^23: q + M - M = rint(q) for |q| < 2^22
 
 // v an integer-valued float (or +-inf): clip(v, 0, 255) as a byte, without a
@@ -207,19 +168,6 @@ __device__ __forceinline__ uint32_t clip_u8(float v) {
 // and beyond that it stays past the clip on the same side. zpm = M - zp.
 __device__ __forceinline__ uint32_t requant_u8(float y, float inv, float zpm) {
   return clip_u8(__fsub_rn(__fadd_rn(__fmul_rn(y, inv), RINT_MAGIC), zpm));
-}
-
-__device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, int N, int acc) {
-  const float y = epilogue_y(acc - e.zp_s * e.w_sum[n], __fmul_rn(e.in_scale, e.w_scale[n]),
-                             e.bias[n], e.act);
-  size_t idx = (size_t)m * N + n;
-  if (e.out_kind == OUT_I8) {
-    static_cast<int8_t*>(e.out)[idx] = requant_i8(y, e.inv_out, e.out_zp);
-  } else if (e.out_kind == OUT_F32) {
-    static_cast<float*>(e.out)[idx] = y;
-  } else {
-    static_cast<__nv_bfloat16*>(e.out)[idx] = __float2bfloat16_rn(y);
-  }
 }
 
 // Thread t loads A words (row (t >> 4) + 16 j, bytes 4 (t & 15) .. +3) of each
@@ -297,19 +245,6 @@ __device__ __forceinline__ void gemm_tile(ALoader& al, const int8_t* __restrict_
         const int n = bn + wn * 32 + nt * 8 + tig * 2 + (r & 1);
         if (m < M && n < N) st(m, n, acc[mt][nt][r]);
       }
-}
-
-struct EpilogueStore {
-  const Epilogue& e;
-  int N;
-  __device__ __forceinline__ void operator()(int m, int n, int acc) const { store_out(e, m, n, N, acc); }
-};
-
-// The block's output tile at (blockIdx.x, blockIdx.y) through the shared epilogue.
-template <class ALoader>
-__device__ __forceinline__ void gemm_block(ALoader& al, const int8_t* __restrict__ wt, int Kp, int M,
-                                           int N, const Epilogue& e) {
-  gemm_tile(al, wt, Kp, M, N, (int)blockIdx.x * BM, (int)blockIdx.y * BN, EpilogueStore{e, N});
 }
 
 }  // namespace ievm

@@ -56,66 +56,20 @@
 //   staged in shared memory, GELU and the conversion to int8 or bf16 run as
 //   a second pass over it, and full rows leave with 16-byte stores where N
 //   allows.
-// The tile plan (BN, N groups, ring depth, panel or windows, grid) is chosen
-// by ops/int8_matmul.py:tile_plan and checked here.
+// The pipeline (blocks, rings, wgmma, persistent slices, staged epilogue) is
+// panel_gemm.cuh's, shared with the direct 3x3 conv; this file holds the
+// panel loaders of a matrix X and the epilogue's second pass. The tile plan
+// is chosen by ops/int8_matmul.py:tile_plan and checked here (plan_ok).
 #include <string.h>
 
-#include "int8_gemm.cuh"
-#include "sm90.cuh"
+#include "panel_gemm.cuh"
 
 namespace ievm {
 
-using namespace sm90;
-
-constexpr int A_THREADS = 384;   // warpgroups 0 and 1 consume, warpgroup 2 produces
-constexpr int CONSUMERS = 256;
-constexpr int KS = 128;          // K bytes per ring stage and per panel chunk
-constexpr int CHUNK = BM * KS;   // one panel chunk: 128 rows x 128 bytes
-constexpr int MAX_STAGES = 6;
-constexpr int SMEM_LIMIT = 232448;  // the most shared memory a block may take
-constexpr int BAR_WG0 = 1;       // named barriers 1, 2: one per consumer warpgroup
-constexpr int BAR_STAGGER = 3;   // warpgroup 0 -> warpgroup 1, once
-
-__host__ __device__ constexpr int out_bytes(int kind) {
-  return kind == OUT_I8 ? 1 : (kind == OUT_F32 ? 4 : 2);
-}
-// a staged row: 64 output columns and padding that spreads a warp's writes over the banks
-__host__ __device__ constexpr int stage_row(int kind) {
-  return 64 * out_bytes(kind) + (kind == OUT_F32 ? 32 : 16);
-}
-
-// A staged slice: 64 rows of 64 fp32 values y = acc * scale + bias, each row
-// padded to 288 bytes so that a warp's pair stores hit distinct banks; for an
-// int8 or bf16 output a second area holds the converted rows (stage_row).
-constexpr int FROW = 288;
-__host__ __device__ constexpr int wg_stage_bytes(int kind) {
-  return 64 * FROW + (kind == OUT_F32 ? 0 : 64 * stage_row(kind));
-}
-
-// Byte offsets in the (1024-aligned) dynamic shared memory; ops/int8_matmul.py:smem_bytes
-// computes the same total.
-struct Layout {
-  int ring, staging, params, bars, total;
-  __host__ __device__ Layout(int bn, int stages, int window, int out_kind, int group_cols)
-      : ring(window * CHUNK),
-        staging(ring + stages * bn * KS),
-        params(staging + 2 * wg_stage_bytes(out_kind)),
-        bars(params + 3 * 4 * group_cols),
-        total(bars + 2 * MAX_STAGES * 8 + 1024) {}
-};
-
-struct MatmulArgs {
+struct MatmulArgs : GemmArgs {
   const void* x;
-  const float* w_scale;
-  const float* bias;
-  const int* w_sum;
-  void* out;
-  int M, K, N;
   int vec;  // elements per load (int8 16/4/1, 0 contiguous rows; fp32 4/1; bf16 8/2/1)
-  int out_kind, act, zp_s, out_zp;
-  float in_scale, inv_out;
   double inv_in;  // RN_f64(1 / in_scale), for div_rn_by
-  int tiles_per_group, stages, window, nchunks;
 };
 
 // What the panel loaders read, held in registers: read from the kernel's
@@ -127,29 +81,6 @@ struct PanelSrc {
   double inv_in;  // RN_f64(1 / in_scale)
   float rs;       // RN_f32(inv_in)
 };
-
-// v an integer-valued float (or +-inf, NaN): clip(v, 0, 255) - 128 as a
-// byte, without a conversion instruction (int8_gemm.cuh clip_u8).
-__device__ __forceinline__ uint32_t clip_byte(float v) { return clip_u8(v) ^ 0x80u; }
-
-// The quantized byte of x, clip(rint(x / s) + zp, 0, 255) - 128, with the
-// quotient correctly rounded: one double product (div_rn_by).
-__device__ __forceinline__ uint32_t quant_byte_exact(float x, double inv_s, float zp) {
-  return clip_byte(__fadd_rn(rintf(div_rn_by(x, inv_s)), zp));
-}
-
-// The same byte from q = RN_f32(x * rs), which lies within |q| 2^-23 (1 +
-// 2^-20) of x / s: where no half-integer is within |q| 2^-20 of q, rint(q)
-// equals rint(x / s) (q - rint(q) and |.| - 0.5 are exact). Sets `redo`
-// where that does not hold (about one value in 10^4, and |q| >= 2^21, inf,
-// NaN): the caller then takes quant_byte_exact.
-__device__ __forceinline__ uint32_t quant_byte(float x, float rs, float zp, bool& redo) {
-  const float q = __fmul_rn(x, rs);
-  const float r = __fsub_rn(__fadd_rn(q, RINT_MAGIC), RINT_MAGIC);
-  const float tie = fabsf(__fsub_rn(fabsf(__fsub_rn(q, r)), 0.5f));
-  redo = !(fabsf(q) < 0x1p21f) || tie <= __fmul_rn(fabsf(q), 0x1p-20f);
-  return clip_byte(__fadd_rn(r, zp));
-}
 
 // E <= 16 values val(0..E-1) quantized into the first E / 4 words of o,
 // bytes at k0 + e >= K or in a dead row zero. The rare values quant_byte cannot settle are redone
@@ -408,49 +339,6 @@ __device__ __forceinline__ void load_panel(const PanelSrc& a, uint8_t* half, uin
   }
 }
 
-// requant_i8 as a byte (int8_gemm.cuh requant_u8, shifted). zpm = RINT_MAGIC - zp.
-__device__ __forceinline__ uint32_t requant_byte(float y, float inv_out, float zpm) {
-  return requant_u8(y, inv_out, zpm) ^ 0x80u;
-}
-
-// act_t for four values, the erf-GELU's reciprocal by rcp_ge1_fast (int8_gemm.cuh gelu4).
-template <int ACT>
-__device__ __forceinline__ float4 act4(float4 v) {
-  if constexpr (ACT == ACT_GELU) {
-    return gelu4(v);
-  } else {
-    return make_float4(act_t<ACT>(v.x), act_t<ACT>(v.y), act_t<ACT>(v.z), act_t<ACT>(v.w));
-  }
-}
-
-// act and the output conversion over a staged 64 x 64 slice, 4 values per
-// step: a short loop, so the per-element code stays in the instruction cache.
-template <int ACT, int OUT>
-__device__ __noinline__ void finish_slice(const float inv_out, const float zpm, const uint8_t* fst,
-                                          uint8_t* ost) {
-  constexpr int esz = out_bytes(OUT), row_b = stage_row(OUT);
-#pragma unroll 2
-  for (int g = threadIdx.x & 127; g < 64 * 16; g += 128) {
-    const int row = g >> 4, c = (g & 15) * 4;
-    const float4 v = act4<ACT>(*reinterpret_cast<const float4*>(fst + row * FROW + c * 4));
-    const float y0 = v.x, y1 = v.y, y2 = v.z, y3 = v.w;
-    uint8_t* o = ost + row * row_b + c * esz;
-    if constexpr (OUT == OUT_I8) {
-      *reinterpret_cast<uint32_t*>(o) = requant_byte(y0, inv_out, zpm) |
-                                        requant_byte(y1, inv_out, zpm) << 8 |
-                                        requant_byte(y2, inv_out, zpm) << 16 |
-                                        requant_byte(y3, inv_out, zpm) << 24;
-    } else if constexpr (OUT == OUT_F32) {
-      *reinterpret_cast<float4*>(o) = make_float4(y0, y1, y2, y3);
-    } else {
-      const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
-      const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(y2), __float2bfloat16_rn(y3));
-      *reinterpret_cast<uint2*>(o) =
-          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-    }
-  }
-}
-
 // The second pass of a slice: the GELUs and every int8 or bf16 conversion.
 // None is left for an fp32 output without GELU (ReLU is the first pass's).
 template <int OUT>
@@ -464,231 +352,73 @@ __device__ __forceinline__ void finish_slice_act(const MatmulArgs& a, float zpm,
     finish_slice<ACT_NONE, OUT>(a.inv_out, zpm, fst, ost);
 }
 
-// `bytes` (a multiple of vw) from shared to global memory, vw bytes at a time.
-__device__ __forceinline__ void copy_out(uint8_t* g, const uint8_t* s, int bytes, int vw) {
-  for (int e = 0; e < bytes; e += vw) {
-    if (vw == 16)
-      *reinterpret_cast<uint4*>(g + e) = *reinterpret_cast<const uint4*>(s + e);
-    else if (vw == 8)
-      *reinterpret_cast<uint2*>(g + e) = *reinterpret_cast<const uint2*>(s + e);
-    else if (vw == 4)
-      *reinterpret_cast<uint32_t*>(g + e) = *reinterpret_cast<const uint32_t*>(s + e);
-    else if (vw == 2)
-      *reinterpret_cast<uint16_t*>(g + e) = *reinterpret_cast<const uint16_t*>(s + e);
-    else
-      g[e] = s[e];
-  }
-}
+// A consumer thread's side of kernel A: the panel loader of its XK and the
+// second pass of the epilogue (panel_gemm's Job).
+template <int XK>
+struct MatmulJob {
+  static constexpr bool STAGED_Y = true;   // GELU and conversions run as a second pass
+  static constexpr bool RESIDENT = false;  // the ring streams the weights for every slice
+  static constexpr bool OVERLAP = false;   // each chunk's wgmmas finish before the next
+  const MatmulArgs& a;
+  const PanelSrc src;
+  uint4 run[4];  // XK_FLAT: the next slice's rows, loaded while this one is multiplied and stored
 
-__device__ __forceinline__ float relu_if(bool relu, float y) { return relu ? fmaxf(y, 0.f) : y; }
+  // src.rs = RN_f32(inv_in): a device conversion rounds to nearest
+  __device__ __forceinline__ explicit MatmulJob(const MatmulArgs& args)
+      : a(args),
+        src{static_cast<const uint8_t*>(args.x), args.M, args.K, args.vec, (float)(args.zp_s + 128),
+            args.inv_in, static_cast<float>(args.inv_in)} {}
 
-// One warpgroup's 64 x TN accumulators -> out rows m0w.., columns n0.., in
-// 64-column slices: y = acc * scale + bias (and ReLU) into the staging rows,
-// then GELU and conversion (finish_slice), then full rows out. ps/pb/pc hold
-// the tile's epilogue vectors.
-template <int TN>
-__device__ __forceinline__ void store_tile(const MatmulArgs& a, const int (&acc)[TN / 2],
-                                           uint8_t* stg, const float* ps, const float* pb,
-                                           const int* pc, int m0w, int n0) {
-  const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
-  const int esz = out_bytes(a.out_kind), row_b = stage_row(a.out_kind);
-  uint8_t* ost = a.out_kind == OUT_F32 ? stg : stg + 64 * FROW;
-  const int ush = a.out_kind == OUT_I8 ? 2 : (a.out_kind == OUT_F32 ? 4 : 3);  // log2 16-byte units a row
-  const int ob = (a.N * esz) & 15;
-  const int vw = ob == 0 ? 16 : (ob & 7) == 0 ? 8 : (ob & 3) == 0 ? 4 : (ob & 1) == 0 ? 2 : 1;
-  const int bar = BAR_WG0 + (threadIdx.x >> 7);
-  const bool relu = a.act == ACT_RELU;
-  const bool second = a.out_kind != OUT_F32 || a.act == ACT_GELU || a.act == ACT_GELU_TANH;
-  const float zpm = RINT_MAGIC - (float)a.out_zp;
-#pragma unroll
-  for (int j = 0; j < TN / 64; ++j) {
-    const int nc0 = n0 + 64 * j;
-    if (nc0 >= a.N) break;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      if (64 * j + (i >> 2) * 8 >= a.N - n0) break;  // 8-column groups past N: nothing to store
-      const int col = (i >> 2) * 8 + (lane & 3) * 2, c = 64 * j + col;
-      const int row = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
-      *reinterpret_cast<float2*>(stg + row * FROW + col * 4) =
-          make_float2(relu_if(relu, affine_y(acc[32 * j + i] - pc[c], ps[c], pb[c])),
-                      relu_if(relu, affine_y(acc[32 * j + i + 1] - pc[c + 1], ps[c + 1], pb[c + 1])));
-    }
-    named_bar(bar, 128);
-    if (second) {
-      if (a.out_kind == OUT_I8)
-        finish_slice_act<OUT_I8>(a, zpm, stg, ost);
-      else if (a.out_kind == OUT_F32)
-        finish_slice_act<OUT_F32>(a, zpm, stg, ost);
-      else
-        finish_slice_act<OUT_BF16>(a, zpm, stg, ost);
-      named_bar(bar, 128);
-    }
-    uint8_t* out = static_cast<uint8_t*>(a.out) + ((size_t)m0w * a.N + nc0) * esz;
-    const int ncols = min(64, a.N - nc0), nbytes = ncols * esz;
-    if (vw == 16 && nbytes % 16 == 0 && m0w + 64 <= a.M) {  // whole rows of 16-byte units
-      for (int u = lt; u < 64 << ush; u += 128) {
-        const int r = u >> ush, cb = (u & ((1 << ush) - 1)) * 16;
-        if (cb < nbytes)
-          *reinterpret_cast<uint4*>(out + (size_t)r * a.N * esz + cb) =
-              *reinterpret_cast<const uint4*>(ost + r * row_b + cb);
-      }
-    } else {
-      for (int u = lt; u < 64 << ush; u += 128) {
-        const int r = u >> ush, cb = (u & ((1 << ush) - 1)) * 16;
-        const int bytes = min(16, nbytes - cb);
-        if (m0w + r < a.M && bytes > 0)
-          copy_out(out + (size_t)r * a.N * esz + cb, ost + r * row_b + cb, bytes, vw);
-      }
-    }
-    named_bar(bar, 128);
-  }
-}
-
-// Blocks per SM and the consumers' registers after setmaxnreg (the producer
-// keeps 40): a 64-wide tile leaves room for two blocks per SM.
-template <int TN>
-struct Occupancy {
-  static constexpr int blocks = TN == 64 ? 2 : 1;
-  static constexpr int consumer_regs = TN == 64 ? 96 : 232;
-};
-
-template <int TN, int XK>
-__global__ void __launch_bounds__(A_THREADS, Occupancy<TN>::blocks)
-    matmul_sm90_kernel(const __grid_constant__ CUtensorMap wmap, const MatmulArgs a) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int t0 = (int)blockIdx.y * a.tiles_per_group;
-  const int ntiles = min(a.tiles_per_group, (a.N + TN - 1) / TN - t0);
-  const int mblocks = (a.M + BM - 1) / BM;
-  const int gcols = a.tiles_per_group * TN;
-  const Layout L(TN, a.stages, a.window, a.out_kind, gcols);
-  uint8_t* panel = smem;
-  uint8_t* ring = smem + L.ring;
-  float* ps = reinterpret_cast<float*>(smem + L.params);
-  float* pb = ps + gcols;
-  int* pc = reinterpret_cast<int*>(pb + gcols);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
-  uint64_t* empty = full + MAX_STAGES;
-  const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    for (int s = 0; s < a.stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS / 32);
-    }
-    fence_mbar_init();
-  }
-  for (int i = tid; i < gcols; i += A_THREADS) {  // the group's epilogue vectors, once
-    const int n = t0 * TN + i;
-    const bool ok = n < a.N;
-    ps[i] = ok ? __fmul_rn(a.in_scale, a.w_scale[n]) : 0.f;
-    pb[i] = ok ? a.bias[n] : 0.f;
-    pc[i] = ok ? a.zp_s * a.w_sum[n] : 0;
-  }
-  __syncthreads();
-
-  if (tid >= CONSUMERS) {  // producer: weight tiles, in the order the consumers take them
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid == CONSUMERS) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int mb = blockIdx.x; mb < mblocks; mb += gridDim.x) {
-        for (int t = 0; t < ntiles; ++t) {
-          for (int c = 0; c < a.nchunks; ++c) {
-            mbar_wait(&empty[stage], phase ^ 1);
-            mbar_arrive_expect_tx(&full[stage], TN * KS);
-            uint8_t* dst = ring + stage * TN * KS;
-            for (int r = 0; r < TN; r += 64)
-              tma_load_2d(dst + r * KS, &wmap, &full[stage], c * KS, (t0 + t) * TN + r);
-            if (++stage == a.stages) {
-              stage = 0;
-              phase ^= 1;
-            }
-          }
-        }
-      }
-    }
-  } else {  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each slice
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Occupancy<TN>::consumer_regs) : "memory");
-    const int wg = tid >> 7, lane = tid & 31;
-    const int bar = BAR_WG0 + wg;
-    uint8_t* half = panel + wg * 64 * KS;
-    uint8_t* stg = smem + L.staging + wg * wg_stage_bytes(a.out_kind);
-    const bool stream = a.window < a.nchunks;
-    const PanelSrc src{static_cast<const uint8_t*>(a.x), a.M, a.K, a.vec,
-                       (float)(a.zp_s + 128), a.inv_in, __double2float_rn(a.inv_in)};
-    int stage = 0;
-    uint32_t phase = 0;
-    int acc[TN / 2];
-    uint4 run[4];  // XK_FLAT: the next slice's rows, loaded while this one is multiplied and stored
+  __device__ __forceinline__ void begin(uint8_t* half, int m0w) {
     if constexpr (XK == XK_FLAT) {
-      flat_fetch(src, blockIdx.x * BM + wg * 64, run);
-      for (int i = (tid & 127) * 16; i < 64 * KS; i += 128 * 16)
+      flat_fetch(src, m0w, run);
+      for (int i = (threadIdx.x & 127) * 16; i < 64 * KS; i += 128 * 16)
         *reinterpret_cast<uint4*>(half + i) = make_uint4(0u, 0u, 0u, 0u);
     }
-    // With more than one slice per block, warpgroup 1 starts once warpgroup 0
-    // has its first panel, so that one loads while the other multiplies and stores.
-    const bool stagger = (int)(blockIdx.x + gridDim.x) < mblocks;
-    if (stagger && wg == 1) named_bar(BAR_STAGGER, CONSUMERS);
-    for (int mb = blockIdx.x; mb < mblocks; mb += gridDim.x) {
-      const int m0w = mb * BM + wg * 64;
-      for (int t = 0; t < ntiles; ++t) {
-        for (int c0 = 0; c0 < a.nchunks; c0 += a.window) {
-          const int nc = min(a.window, a.nchunks - c0);
-          if (stream || t == 0) {  // every wgmma on the old panel has completed (wait 0)
-            if constexpr (XK == XK_FLAT) {
-              flat_store(src, half, stg, m0w, run);
-              flat_fetch(src, m0w + (int)gridDim.x * BM, run);
-            } else {
-              load_panel<XK>(src, half, stg, m0w, c0, nc);
-            }
-            fence_proxy_async();
-            named_bar(bar, 128);
-            if (stagger && wg == 0 && mb == blockIdx.x && t == 0 && c0 == 0)
-              named_bar_arrive(BAR_STAGGER, CONSUMERS);
-          }
-          if (c0 == 0) {
-#pragma unroll
-            for (int i = 0; i < TN / 2; ++i) acc[i] = 0;
-          }
-          for (int c = 0; c < nc; ++c) {
-            mbar_wait(&full[stage], phase);
-            const uint8_t* pa = half + c * CHUNK;
-            const uint8_t* pw = ring + stage * TN * KS;
-            fence_regs(acc);
-            wgmma_fence();
-            const int kend = a.K - (c0 + c) * KS;  // past K both operands hold zeros: skip them
-#pragma unroll
-            for (int kk = 0; kk < KS / 32; ++kk)
-              if (kk * 32 < kend) WgmmaS8<TN>::mma(acc, desc_sw128(pa + kk * 32), desc_sw128(pw + kk * 32));
-            wgmma_commit();
-            wgmma_wait0();
-            fence_regs(acc);
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&empty[stage]);
-            if (++stage == a.stages) {
-              stage = 0;
-              phase ^= 1;
-            }
-          }
-        }
-        store_tile<TN>(a, acc, stg, ps + t * TN, pb + t * TN, pc + t * TN, m0w, (t0 + t) * TN);
-      }
+  }
+
+  __device__ __forceinline__ void load(uint8_t* half, uint8_t* scratch, int m0w, int c0, int nc) {
+    if constexpr (XK == XK_FLAT) {
+      flat_store(src, half, scratch, m0w, run);
+      flat_fetch(src, m0w + (int)gridDim.x * BM, run);
+    } else {
+      load_panel<XK>(src, half, scratch, m0w, c0, nc);
     }
   }
+
+  __device__ __forceinline__ void tile(int, int) {}
+  __device__ __forceinline__ void wait() {}
+
+  template <int TN>
+  __device__ __forceinline__ void store(const int (&acc)[TN / 2], uint8_t* stg, const float* ps,
+                                        const float* pb, const int* pc, int m0w, int n0) {
+    const bool second = a.out_kind != OUT_F32 || a.act == ACT_GELU || a.act == ACT_GELU_TANH;
+    store_tile<TN>(a, acc, stg, ps, pb, pc, m0w, n0, second,
+                   [&](float zpm, const uint8_t* fst, uint8_t* ost, int, int) {
+                     if (a.out_kind == OUT_I8)
+                       finish_slice_act<OUT_I8>(a, zpm, fst, ost);
+                     else if (a.out_kind == OUT_F32)
+                       finish_slice_act<OUT_F32>(a, zpm, fst, ost);
+                     else
+                       finish_slice_act<OUT_BF16>(a, zpm, fst, ost);
+                   });
+  }
+};
+
+// a 64-wide tile leaves room for two blocks per SM (tile_plan)
+template <int TN>
+constexpr int matmul_blocks = TN == 64 ? 2 : 1;
+
+template <int TN, int XK>
+__global__ void __launch_bounds__(A_THREADS, matmul_blocks<TN>)
+    matmul_sm90_kernel(const __grid_constant__ CUtensorMap wmap, const MatmulArgs a) {
+  panel_gemm<TN, matmul_blocks<TN>, MatmulJob<XK>>(wmap, a);
 }
 
 template <int TN, int XK>
 int launch(const CUtensorMap& map, const MatmulArgs& a, dim3 grid, int smem, cudaStream_t s) {
   static bool attr_set = false;  // the opt-in to more than 48 KB, once per kernel
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        matmul_sm90_kernel<TN, XK>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  matmul_sm90_kernel<TN, XK><<<grid, A_THREADS, smem, s>>>(map, a);
-  return (int)cudaGetLastError();
+  return launch_panel_gemm(matmul_sm90_kernel<TN, XK>, attr_set, map, a, grid, smem, s);
 }
 
 template <int TN>
@@ -742,16 +472,10 @@ extern "C" int ievm_int8_matmul_requant(const void* x, int x_kind, const void* w
                                         int grid_m, int groups, int tiles_per_group, int stages,
                                         int window, void* stream) {
   using namespace ievm;
-  const int nchunks = K > 0 ? (K + KS - 1) / KS : 0;
-  const int tiles = bn > 0 ? (N + bn - 1) / bn : 0;
-  if (M <= 0 || N <= 0 || K <= 0 || x_kind < 0 || x_kind > 2 || out_kind < 0 || out_kind > 2 ||
-      act < 0 || act > 3 || (bn != 64 && bn != 128 && bn != 192 && bn != 256) || stages < 2 ||
-      stages > MAX_STAGES || window < 1 || window > nchunks || groups < 1 || groups > 65535 ||
-      grid_m < 1 || grid_m > (M + BM - 1) / BM || tiles_per_group < 1 ||
-      (long long)groups * tiles_per_group < tiles || (groups - 1) * tiles_per_group >= tiles)
+  int smem;
+  if (x_kind < 0 || x_kind > 2 || act < 0 || act > 3 ||
+      !plan_ok(M, K, N, out_kind, true, bn, grid_m, groups, tiles_per_group, stages, window, &smem))
     return (int)cudaErrorInvalidValue;
-  const Layout L(bn, stages, window, out_kind, tiles_per_group * bn);
-  if (L.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const uintptr_t xp = reinterpret_cast<uintptr_t>(x);
   int vec;  // 0: int8 rows read as one contiguous run (flat_fetch)
   if (x_kind == 0)
@@ -764,20 +488,21 @@ extern "C" int ievm_int8_matmul_requant(const void* x, int x_kind, const void* w
     vec = (K % 8 == 0 && xp % 16 == 0) ? 8 : (K % 2 == 0 && xp % 4 == 0) ? 2 : 1;
   CUtensorMap map;
   memcpy(&map, wmap, sizeof(map));
-  const MatmulArgs a{x, static_cast<const float*>(w_scale), static_cast<const float*>(bias),
-                     static_cast<const int*>(w_sum), out, M, K, N, vec, out_kind, act, zp_s,
-                     out_zp, in_scale, inv_out, inv_in, tiles_per_group, stages, window, nchunks};
+  const MatmulArgs a{{static_cast<const float*>(w_scale), static_cast<const float*>(bias),
+                      static_cast<const int*>(w_sum), out, M, K, N, out_kind, act, zp_s, out_zp,
+                      in_scale, inv_out, tiles_per_group, stages, window, (K + KS - 1) / KS},
+                     x, vec, inv_in};
   const dim3 grid(grid_m, groups);
   const int xk = x_kind == 0 && vec == 0 ? XK_FLAT : x_kind;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 64:
-      return launch_xk<64>(xk, map, a, grid, L.total, s);
+      return launch_xk<64>(xk, map, a, grid, smem, s);
     case 128:
-      return launch_xk<128>(xk, map, a, grid, L.total, s);
+      return launch_xk<128>(xk, map, a, grid, smem, s);
     case 192:
-      return launch_xk<192>(xk, map, a, grid, L.total, s);
+      return launch_xk<192>(xk, map, a, grid, smem, s);
     default:
-      return launch_xk<256>(xk, map, a, grid, L.total, s);
+      return launch_xk<256>(xk, map, a, grid, smem, s);
   }
 }

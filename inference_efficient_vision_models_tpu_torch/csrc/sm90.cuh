@@ -126,6 +126,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "r"(src_bytes)
                : "memory");
 }
+// BYTES (4, 8 or 16) global -> shared, asynchronously and through L1 (cp.async.ca).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src), "n"(BYTES)
+               : "memory");
+}
+// Asks for `bytes` (a multiple of 16, from a 16-byte-aligned address) to be
+// brought into L2 ahead of their loads; nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -158,6 +169,9 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving accumulator reads/writes across wgmma.

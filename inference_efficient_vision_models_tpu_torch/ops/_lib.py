@@ -28,8 +28,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# Tile sizes the packed weight layout must pad to (csrc/int8_gemm.cuh BN, BK; the
-# TMA loads of csrc/int8_matmul.cu need only Kp % 16 == 0).
+# Tile sizes the packed weight layout must pad to (csrc/int8_gemm.cuh BN, BK, for
+# kernel C's project launch; the TMA loads of kernels A and B need only Kp % 16 == 0).
 TILE_N = 64
 TILE_K = 64
 
@@ -53,7 +53,7 @@ KERNELS = {
     }),
     "conv3x3_s1_int8": ("conv3x3", {
         "ievm_conv3x3_s1_int8":
-            [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+            [_P] * 6 + [_I] * 9 + [_F, _F, _P, _I, _I, _F, _D] + [_I] * 6 + [_P],
     }),
     "fused_mbconv_block": ("fused_mbconv", {
         "ievm_fused_mbconv_expand_dw":

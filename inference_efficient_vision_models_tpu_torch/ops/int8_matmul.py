@@ -201,14 +201,17 @@ class TilePlan:
         return self.window < self.nchunks
 
 
-def smem_bytes(bn: int, stages: int, window: int, out_kind: int, group_cols: int) -> int:
+def smem_bytes(bn: int, stages: int, window: int, out_kind: int, group_cols: int,
+               staged_y: bool = True) -> int:
     """Dynamic shared memory of one block: panel, ring, the two warpgroups'
     staged 64-column output slices (fp32 rows of 288 bytes, and for an int8
-    or bf16 output the converted rows), the group's epilogue vectors (scale,
-    bias, zero-point correction), mbarriers and 1024 bytes of alignment
-    slack (csrc/int8_matmul.cu ``Layout``)."""
+    or bf16 output the converted rows; only the output rows where the kernel
+    converts in registers, ``staged_y`` false), the group's epilogue vectors
+    (scale, bias, zero-point correction), mbarriers and 1024 bytes of
+    alignment slack (csrc/panel_gemm.cuh ``Layout``)."""
     e = _OUT_BYTES[out_kind]
-    staged = 64 * 288 + (0 if e == 4 else 64 * (64 * e + 16))
+    out_rows = 64 * (64 * e + (32 if e == 4 else 16))
+    staged = (64 * 288 + (0 if e == 4 else out_rows)) if staged_y else out_rows
     return (window * PANEL_ROWS * K_CHUNK + stages * bn * K_CHUNK + 2 * staged
             + 12 * group_cols + 2 * MAX_STAGES * 8 + 1024)
 
@@ -221,7 +224,7 @@ MAX_GROUP_COLS = 1280    # epilogue vectors a block keeps (15 KB)
 
 
 def tile_plan(m: int, k: int, n: int, out_kind: int, act: int = 0,
-              sms: int = NUM_SMS) -> TilePlan:
+              sms: int = NUM_SMS, staged_y: bool = True) -> TilePlan:
     """The tiles for out (m, n) = act(X (m, k) . W (k, n)):
 
     - ``bn``: of the wgmma widths 64..256 (64..192 under a GELU, whose
@@ -234,7 +237,8 @@ def tile_plan(m: int, k: int, n: int, out_kind: int, act: int = 0,
     - persistent blocks: one per SM along M when there is one group;
     - the whole A panel if it fits beside a ring of 6, 4, 3 or 2 stages (at
       ``bn`` 64 within half the SM's shared memory if it can, for two blocks
-      per SM), else a ring of 3 and A in windows of as many chunks as fit."""
+      per SM), else a ring of 3 and A in windows of as many chunks as fit
+      (``staged_y``: the staging layout, ``smem_bytes``)."""
     mblocks = _cdiv(m, PANEL_ROWS)
     widest = 192 if act >= _ACTS["gelu"] else 256
     widths = sorted(range(64, widest + 1, 64), key=lambda b: (_cdiv(n, b) * b, -b))
@@ -247,16 +251,17 @@ def tile_plan(m: int, k: int, n: int, out_kind: int, act: int = 0,
     cols = per * bn
     for limit in ((SMEM_LIMIT // 2, SMEM_LIMIT) if bn == 64 else (SMEM_LIMIT,)):
         for stages in (6, 4, 3, 2):
-            smem = smem_bytes(bn, stages, nchunks, out_kind, cols)
+            smem = smem_bytes(bn, stages, nchunks, out_kind, cols, staged_y)
             if smem <= limit:
                 if limit < SMEM_LIMIT and groups == 1:
                     grid_m = min(mblocks, 2 * sms)
                 return TilePlan(bn, tiles, groups, per, mblocks, grid_m, nchunks, stages, nchunks,
                                 smem)
     stages = 3
-    window = (SMEM_LIMIT - smem_bytes(bn, stages, 0, out_kind, cols)) // (PANEL_ROWS * K_CHUNK)
+    window = (SMEM_LIMIT - smem_bytes(bn, stages, 0, out_kind, cols, staged_y)) // (
+        PANEL_ROWS * K_CHUNK)
     return TilePlan(bn, tiles, groups, per, mblocks, grid_m, nchunks, stages, window,
-                    smem_bytes(bn, stages, window, out_kind, cols))
+                    smem_bytes(bn, stages, window, out_kind, cols, staged_y))
 
 
 def _check_vec(name: str, t: torch.Tensor, n: int, dtype, device) -> None:

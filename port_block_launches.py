@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Device time of kernel C's three launches at every EfficientNet-B0 block.
+"""Device time of kernel C's three launches at every EfficientNet-B0 block,
+or (``--resnet``) of kernel B's calls and the whole ResNet18 forward by kernel.
 
-Run from the repository root: ``python3 port_block_launches.py [--root DIR]``.
-It serves nothing: it loads the committed static-INT8 EfficientNet-B0
-(``testdata/effnet_b0_int8``) on the GPU, feeds each fused MBConv block int8
-activations at batch 256 spread around the block's input zero point (from a
-seed), and times ``fused_mbconv_block`` per launch (expand + depthwise, SE
-gate, project) as device time by ``torch.profiler``.
-``--root`` takes the port package from another checkout (for example the
-parent commit unpacked with ``git archive``), so two versions can be timed
-in one run on one card. Prints one JSON object. ``chip_smoke.py`` uses
-``launch_ms`` for its own per-block rows.
+Run from the repository root: ``python3 port_block_launches.py [--root DIR]
+[--resnet]``. It serves nothing. By default it loads the committed
+static-INT8 EfficientNet-B0 (``testdata/effnet_b0_int8``) on the GPU, feeds
+each fused MBConv block int8 activations at batch 256 spread around the
+block's input zero point (from a seed), and times ``fused_mbconv_block`` per
+launch (expand + depthwise, SE gate, project) as device time by
+``torch.profiler``. With ``--resnet`` it loads the committed pruned ResNet18
+(``artifacts/bench/quantization/r2/fold_0``), times every
+``conv3x3_s1_int8`` call of a batch-256 forward as that checkout's
+``chip_smoke.py`` makes it (CUDA events, the device alone), and profiles
+three forwards: device ms and calls per forward of every kernel by name.
+``--root`` takes the port package (and, with ``--resnet``, its
+``chip_smoke.py``) from another checkout (for example the parent commit
+unpacked with ``git archive``), so two versions can be timed in one run on
+one card. Prints one JSON object. ``chip_smoke.py`` uses ``launch_ms`` for
+its own per-block rows.
 """
 
 from __future__ import annotations
@@ -43,11 +50,65 @@ def launch_ms(call, runs: int = 10) -> dict:
     return out
 
 
+def kernels_by_name(fn, iters: int = 3) -> dict:
+    """Device ms and calls per call of ``fn`` of every kernel it launches, by
+    name (``torch.profiler``, ``iters`` calls after one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {e.key: {"ms": e.self_device_time_total / 1e3 / iters, "calls": e.count / iters}
+          for e in sorted(ks, key=lambda e: -e.self_device_time_total)}
+    return {"device_ms": sum(v["ms"] for v in by.values()),
+            "launches": sum(v["calls"] for v in by.values()), "kernels": by}
+
+
+def resnet(root: str, batch: int) -> dict:
+    """Kernel B per call and the forward by kernel, for the checkout at ``root``."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
+        load_static_int8,
+    )
+    from inference_efficient_vision_models_tpu_torch.ops import conv3x3_s1_int8
+
+    model = load_static_int8(os.path.join(root, "artifacts", "bench", "quantization", "r2",
+                                          "fold_0"), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    calls = {}
+    for kernel, label, shape, dtype, leaf, kw in cs.main_path_calls(model, batch):
+        if kernel != "conv3x3_s1_int8":
+            continue
+        x = cs.make_input(shape, dtype, kw["in_zp"], gen)
+        if hasattr(cs, "with_residual"):
+            kw = cs.with_residual(kw, shape, leaf["w"].n, gen)
+        args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
+        calls[label] = cs.time_ms(lambda: conv3x3_s1_int8(*args, **kw), spin=True)
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (batch, 224, 224, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        forward_ms = cs.time_ms(lambda: model(x))
+        prof = kernels_by_name(lambda: model(x))
+    return {"conv3x3_ms": calls, "conv3x3_total_ms": sum(calls.values()),
+            "forward_ms": forward_ms, "profile": prof}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="checkout whose port package to time")
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--resnet", action="store_true",
+                    help="kernel B's calls and the ResNet18 forward by kernel")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -55,6 +116,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("port_block_launches: no CUDA device", file=sys.stderr)
         return 1
+    if args.resnet:
+        print(json.dumps({"root": os.path.abspath(args.root), "batch": args.batch,
+                          "device": torch.cuda.get_device_name(0),
+                          **resnet(os.path.abspath(args.root), args.batch)}))
+        return 0
     from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
         block_plan,
         load_static_int8_fused,

@@ -164,19 +164,70 @@ def test_int8_matmul_quantize_exact_at_rounding_ties(cuda, in_scale):
                                      ((2, 7, 7, 456), 456), ((2, 5, 6, 3), 8)])
 @pytest.mark.parametrize("requant", [False, True])
 def test_conv3x3_kernel_matches_plain(cuda, shape, o, requant):
+    """Kernel B equals its plain version bit for bit (fp32 out, requant + ReLU)."""
     rng = np.random.default_rng(sum(shape) + o)
     w, ws, b, wsum = _leaf(rng, (3, 3, shape[-1], o), cuda)
     x = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(cuda)
     kw = dict(in_scale=0.03, in_zp=150, relu=requant,
               out_scale=0.5 if requant else None, out_zp=110 if requant else None)
+    before = _lib.launches["conv3x3_s1_int8"]
     got = conv3x3_s1_int8(x, w, ws, b, wsum, **kw)
     ref = conv3x3_s1_int8_plain(x, w, ws, b, wsum, **kw)
     torch.cuda.synchronize()
-    d = (got.float() - ref.float()).abs()
-    if requant:
-        assert d.max() <= 1 and (d == 0).float().mean() >= 0.99
-    else:
-        assert torch.allclose(got, ref, rtol=1e-5, atol=1e-3)
+    assert _lib.launches["conv3x3_s1_int8"] == before + 1
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+def _identity(rng, kind, shape, dev):
+    if kind == "int8":
+        return ("int8", torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev),
+                0.04, 120)
+    return torch.from_numpy((rng.standard_normal(shape) * 2).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape,o", [((256, 56, 56, 56), 56), ((256, 28, 28, 112), 112),
+                                     ((256, 14, 14, 224), 224), ((256, 7, 7, 456), 456),
+                                     ((2, 12, 14, 8), 72), ((3, 7, 9, 40), 56),
+                                     ((2, 5, 6, 3), 6)])
+@pytest.mark.parametrize("kind", ["int8", "float32"])
+def test_conv3x3_residual_kernel_matches_plain(cuda, shape, o, kind):
+    """The residual epilogue (conv + identity, ReLU, requant by division)
+    equals its plain version bit for bit at the four served widths (batch
+    256) and at odd shapes (C 3 and 40, O not a multiple of 4)."""
+    rng = np.random.default_rng(sum(shape) + o)
+    w, ws, b, wsum = _leaf(rng, (3, 3, shape[-1], o), cuda)
+    x = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(cuda)
+    kw = dict(in_scale=0.03, in_zp=150, out_scale=0.07, out_zp=100,
+              residual=_identity(rng, kind, (*shape[:3], o), cuda))
+    before = _lib.launches["conv3x3_s1_int8"]
+    got = conv3x3_s1_int8(x, w, ws, b, wsum, **kw)
+    ref = conv3x3_s1_int8_plain(x, w, ws, b, wsum, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["conv3x3_s1_int8"] == before + 1
+    assert got.dtype == torch.int8 and torch.equal(got, ref)
+    assert got.float().std() > 2  # the requant lands mid-range, not on a clip
+
+
+@pytest.mark.parametrize("out_scale", [0.05, 0.1, 0.0123, 1 / 255])
+@pytest.mark.parametrize("o", [30, 32])
+def test_conv3x3_residual_requant_exact_at_rounding_ties(cuda, out_scale, o):
+    """With zero weights and bias the block's sum is the identity itself, so
+    its quotients by s_out sit on rint's ties, one float beside them, at 0,
+    a denormal and near overflow: the kernel divides as the plain version."""
+    s = torch.tensor(out_scale, dtype=torch.float32, device=cuda)
+    ties = ((torch.arange(0, 300, device=cuda, dtype=torch.float32) + 0.5) * s).float()
+    vals = torch.cat([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1),
+                      torch.tensor([0.0, -0.0, 1e-40, 3e38], device=cuda)])
+    ident = vals.repeat(-(-2 * 5 * 6 * o // vals.numel()))[: 2 * 5 * 6 * o].reshape(2, 5, 6, o)
+    w = pack_weight(torch.zeros((3, 3, 8, o), dtype=torch.int8, device=cuda))
+    ws, b = torch.full((o,), 0.01, device=cuda), torch.zeros(o, device=cuda)
+    wsum = torch.zeros(o, dtype=torch.int32, device=cuda)
+    x = torch.zeros((2, 5, 6, 8), dtype=torch.int8, device=cuda)
+    kw = dict(in_scale=0.03, in_zp=150, residual=ident, out_scale=out_scale, out_zp=3)
+    got = conv3x3_s1_int8(x, w, ws, b, wsum, **kw)
+    ref = conv3x3_s1_int8_plain(x, w, ws, b, wsum, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def test_served_forward_kernel_path_matches_plain_path(cuda):
@@ -191,6 +242,7 @@ def test_served_forward_kernel_path_matches_plain_path(cuda):
     assert counts == {"int8_matmul_requant": 8, "conv3x3_s1_int8": 13}
     assert torch.equal(got.argmax(1), ref.argmax(1))
     assert torch.allclose(got, ref, rtol=0.02, atol=0.02)
+    assert torch.equal(got, ref)  # both kernels are bit-exact, so is the forward
 
 
 @pytest.mark.parametrize("n,h,w,cin,ce,co,se,k,stride,expand,act,residual", [
