@@ -40,7 +40,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    fused mlp1 + GELU with (d) 12 kernel-D launches per forward; (b) kernel
    path against plain path on 32 images and (c) against the JAX golden of
    each route;
-5. times each kernel at its serving shapes beside its plain version, its
+5. stages 1-2 (the float ResNet and its training; cuDNN and cuBLAS, no
+   custom kernel): rebuilds the r2 held-out split from the artifact's data
+   protocol (sha256 against ``testdata``), evaluates the committed pruned
+   fp32 ResNet18 through ``load_stage_model`` in fp32 (TF32 off) and bf16
+   against the JAX goldens, and beside the int8 path; holds one fp32 CE step
+   of ResNet50 and one KD step of ResNet18 against a JAX golden; profiles the
+   bf16 teacher and KD steps; trains a ResNet50 teacher (bf16, batch 64, fold
+   0, one epoch) and distills a ResNet18 from it (batch 32) through the
+   port's stage CLIs, reads both checkpoints back and re-evaluates them with
+   ``choice=2``;
+6. times each kernel at its serving shapes beside its plain version, its
    bound and a library call where one exists, and each forward at batch 1
    and 256 with CUDA events (median of 25 runs after warm-up), and profiles
    a batch-256 forward of each path with ``torch.profiler``.
@@ -126,6 +136,27 @@ TAU_C = 0.26
 # 1e-5); kernel path against plain path on the card, 0.05
 VIT_TAU = {"int8_f32": 0.04, "int8_bf16_pair": 0.07, "float_f32": 1e-5, "float_bf16": 0.015}
 VIT_TAU_B = 0.05
+# stages 1-2 (the float ResNet and its training; no custom kernel on this path)
+PRUNED = os.path.join(ROOT, "artifacts", "bench", "pruning", "r2", "fold_0")
+FLOAT_GOLDEN = os.path.join(TESTDATA, "r2_fold0_float_jax_logits.npz")
+SPLIT_SHA = os.path.join(TESTDATA, "r2_fold0_test_split.sha256")
+TRAIN_GOLDEN = os.path.join(TESTDATA, "resnet_train_step_jax.npz")
+# the pruned fp32 ResNet18 on the r2 split, the same rule as the ViT's: fp32
+# tau 1e-3 (TF32 off); bf16 twice the 8.11e-4 the CPU measures
+# (tests/test_torch_port_resnet_float.py)
+R2_TAU = {"fp32": 1e-3, "bf16": 0.00163}
+# one fp32 CE step of ResNet50 and one KD step of ResNet18 against it, batch 8
+TRAIN_STEP = dict(teacher="resnet50", student="resnet18", seed=0, batch=8, size=224,
+                  image_seed=0, alpha=0.5, temperature=4.0)
+# twice the largest deviation the CPU measures between the port and the golden
+# over both roles (``python tests/test_torch_port_train.py``: loss 1.61e-6,
+# logits 4.66e-5 of the scale, a gradient leaf's norm 6.15e-3, a BN statistic's
+# sum 3.72e-7 of its sum of magnitudes). The gradient norms are the ill-conditioned
+# part: BatchNorm's scale and bias gradients in ResNet50's early layers are sums
+# over 8 x 56 x 56 values that cancel, and the JAX golden itself is 0.98% off the
+# fp64 value on one of them (layer1/1/bn2/bias)
+TRAIN_LIMITS = {"loss_rel": 3.3e-6, "logits_over_scale": 9.4e-5, "grad_norm_rel": 0.0123,
+                "bn_sum_over_abs_sum": 7.5e-7}
 
 
 class SmokeFailure(RuntimeError):
@@ -172,6 +203,54 @@ def vit_params_from_seed(spec, seed: int) -> dict:
             "ln2": ln(d), "mlp1": linear(d, hidden), "mlp2": linear(hidden, d),
         }
     return params
+
+
+def resnet_params_from_seed(spec, seed: int):
+    """ResNet (params, BN state) in the JAX layout (HWIO convs, (in, out) fc):
+    nested dicts of fp32 numpy arrays drawn leaf by leaf, in the JAX init's
+    order, from ``np.random.default_rng(seed)``: convs N(0, 2 / fan_out)
+    (Kaiming, fan_out), BN scale 1 + 0.1 N, bias 0.1 N, running mean 0.1 N,
+    running var 1 + 0.1 |N|, the fc weight and bias U(±1/sqrt(in))."""
+    rng = np.random.default_rng(seed)
+
+    def conv(kh, kw, cin, cout):
+        std = (2.0 / (kh * kw * cout)) ** 0.5
+        return {"w": (rng.standard_normal((kh, kw, cin, cout)) * std).astype(np.float32)}
+
+    def bn(c):
+        def n():
+            return rng.standard_normal(c)
+        p = {"scale": (1 + 0.1 * n()).astype(np.float32), "bias": (0.1 * n()).astype(np.float32)}
+        s = {"mean": (0.1 * n()).astype(np.float32),
+             "var": (1 + 0.1 * np.abs(n())).astype(np.float32)}
+        return p, s
+
+    params, state = {"conv1": conv(7, 7, spec.in_chans, spec.stem_width)}, {}
+    params["bn1"], state["bn1"] = bn(spec.stem_width)
+    for si, depth in enumerate(spec.depths):
+        lp, ls = {}, {}
+        for b in range(depth):
+            cin, cout = spec.block_in_width(si, b), spec.stage_widths[si]
+            inner = spec.inner_widths[si][b]
+            bp, bs = {}, {}
+            if spec.block == "basic":
+                shapes = [(3, 3, cin, inner[0]), (3, 3, inner[0], cout)]
+            else:
+                shapes = [(1, 1, cin, inner[0]), (3, 3, inner[0] // spec.groups, inner[1]),
+                          (1, 1, inner[1], cout)]
+            for c, shape in enumerate(shapes, 1):
+                bp[f"conv{c}"] = conv(*shape)
+                bp[f"bn{c}"], bs[f"bn{c}"] = bn(shape[-1])
+            if spec.has_downsample(si, b):
+                bp["down_conv"] = conv(1, 1, cin, cout)
+                bp["down_bn"], bs["down_bn"] = bn(cout)
+            lp[str(b)], ls[str(b)] = bp, bs
+        params[f"layer{si + 1}"], state[f"layer{si + 1}"] = lp, ls
+    cin = spec.stage_widths[-1]
+    bound = cin ** -0.5
+    params["fc"] = {"w": rng.uniform(-bound, bound, (cin, spec.num_classes)).astype(np.float32),
+                    "b": rng.uniform(-bound, bound, spec.num_classes).astype(np.float32)}
+    return params, state
 
 
 def leaf_sums(tree) -> np.ndarray:
@@ -1166,6 +1245,336 @@ def run_vit(gen: torch.Generator):
 
 
 
+# --------------------------------------------------------------------------
+# stages 1-2: the float ResNet, a training step against the JAX golden, and
+# the teacher and KD stage CLIs (cuDNN convs and cuBLAS GEMMs: no custom kernel)
+# --------------------------------------------------------------------------
+
+
+def train_step_batch():
+    """The train-step golden's batch: uint8 images from a seed, labels 0..5."""
+    rng = np.random.default_rng(TRAIN_STEP["image_seed"])
+    b, size = TRAIN_STEP["batch"], TRAIN_STEP["size"]
+    return (rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8),
+            (np.arange(b) % 6).astype(np.int32), np.ones(b, np.float32))
+
+
+def _flat_sorted(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_sorted(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree, np.float64)}
+
+
+def train_step_metrics(role: str, loss, logits, grads, new_state) -> dict:
+    """What the train-step golden keeps of one step (trees in the JAX layout):
+    the loss, the logits, each gradient leaf's L2 norm, and each BatchNorm
+    running statistic's sum beside its sum of magnitudes (the scale it is
+    held to); leaves in sorted-path order."""
+    g, st = _flat_sorted(grads), _flat_sorted(new_state)
+    return {f"{role}_loss": np.float64(loss), f"{role}_logits": np.asarray(logits, np.float32),
+            f"{role}_grad_names": np.array(list(g)),
+            f"{role}_grad_norms": np.array([np.linalg.norm(v) for v in g.values()]),
+            f"{role}_bn_names": np.array(list(st)),
+            f"{role}_bn_sums": np.array([v.sum() for v in st.values()]),
+            f"{role}_bn_abs_sums": np.array([np.abs(v).sum() for v in st.values()])}
+
+
+def port_train_step(weights: dict, batch, device) -> dict:
+    """The port's fp32 CE step of the teacher, and KD step of the student
+    against the (not updated) teacher in eval mode, without the AdamW update:
+    {role: (loss, logits, grads, new BN state)}, trees in the JAX layout."""
+    from inference_efficient_vision_models_tpu_torch.models.registry import (
+        make_spec, params_from_jax, params_to_jax)
+    from inference_efficient_vision_models_tpu_torch.train.optim import tree_like
+    from inference_efficient_vision_models_tpu_torch.train.steps import (
+        ce_loss_and_grads, kd_loss_and_grads)
+
+    imgs, labels, mask = batch
+    b = (torch.from_numpy(imgs).to(device), torch.from_numpy(labels.astype(np.int64)).to(device),
+         torch.from_numpy(mask).to(device))
+    specs = {r: make_spec(TRAIN_STEP[r], 6) for r in ("teacher", "student")}
+    m = {r: tuple(params_from_jax(specs[r], t, device) for t in weights[r]) for r in specs}
+    out = {}
+    loss, logits, ns, grads = ce_loss_and_grads(specs["teacher"], *m["teacher"], b,
+                                                compute_dtype="float32")
+    out["teacher"] = (float(loss), logits.cpu().numpy(),
+                      params_to_jax(specs["teacher"], tree_like(m["teacher"][0], grads)),
+                      params_to_jax(specs["teacher"], ns))
+    loss, _, logits, ns, grads = kd_loss_and_grads(
+        specs["student"], specs["teacher"], *m["student"], *m["teacher"], b,
+        alpha=TRAIN_STEP["alpha"], temperature=TRAIN_STEP["temperature"], compute_dtype="float32")
+    out["student"] = (float(loss), logits.cpu().numpy(),
+                      params_to_jax(specs["student"], tree_like(m["student"][0], grads)),
+                      params_to_jax(specs["student"], ns))
+    return out
+
+
+def compare_train_step(role: str, got, golden, limits=None) -> dict:
+    """One role's step against the golden: the loss's relative deviation, the
+    logits' over the logit scale, the largest relative deviation of a
+    gradient leaf's norm and of a BN statistic's sum (over its sum of
+    magnitudes); with ``limits`` also whether each holds."""
+    mine = train_step_metrics(role, *got)
+    for k in ("grad_names", "bn_names"):
+        if list(mine[f"{role}_{k}"]) != list(golden[f"{role}_{k}"]):
+            raise SmokeFailure(f"{role}: the {k} differ from the golden's")
+    ref_g = golden[f"{role}_grad_norms"]
+    dev = {
+        "loss_rel": float(abs(mine[f"{role}_loss"] - golden[f"{role}_loss"])
+                          / abs(golden[f"{role}_loss"])),
+        "logits_over_scale": float(np.abs(mine[f"{role}_logits"] - golden[f"{role}_logits"]).max()
+                                   / np.abs(golden[f"{role}_logits"]).max()),
+        "grad_norm_rel": float((np.abs(mine[f"{role}_grad_norms"] - ref_g)
+                                / np.maximum(ref_g, 1e-30)).max()),
+        "bn_sum_over_abs_sum": float((np.abs(mine[f"{role}_bn_sums"] - golden[f"{role}_bn_sums"])
+                                      / golden[f"{role}_bn_abs_sums"]).max()),
+    }
+    if limits is not None:
+        dev["ok"] = all(dev[k] <= limits[k] for k in limits)
+    return dev
+
+
+def _stage_card(dev) -> dict:
+    return {"card": dev["nvidia_smi"], "power_limit": dev["power_limit"]}
+
+
+def run_float_r2_eval(dev):
+    """The committed pruned fp32 ResNet18 through ``load_stage_model`` on the
+    r2 held-out split, which the port rebuilds from the artifact's data
+    protocol: fp32 (TF32 off) and bf16 logits against the JAX goldens, the
+    forward times, and the int8 path's argmax agreement with fp32."""
+    import hashlib
+    import tempfile
+
+    from inference_efficient_vision_models_tpu_torch.cli.teacher import load_stage_model
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
+        load_static_int8)
+    from inference_efficient_vision_models_tpu_torch.core.config import TeacherConfig
+    from inference_efficient_vision_models_tpu_torch.data.neudet import load_dataset
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+    from inference_efficient_vision_models_tpu_torch.models import resnet
+
+    with open(os.path.join(ARTIFACT, "provenance.json")) as f:
+        data = json.load(f)["data"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TeacherConfig(artifacts_root=tmp, **{
+            k: tuple(v) if k == "image_size" else v for k, v in data.items()})
+        imgs, labels = load_dataset(cfg)["test"]
+    sha = hashlib.sha256(np.ascontiguousarray(imgs).tobytes()
+                         + np.asarray(labels, np.int32).tobytes()).hexdigest()
+    with open(SPLIT_SHA) as f:
+        if sha != f.read().split()[0]:
+            raise SmokeFailure(f"float_r2_eval: the rebuilt r2 split hashes to {sha}")
+    golden = np.load(FLOAT_GOLDEN)
+    spec, params, state = load_stage_model(PRUNED, "best", "cuda")
+    x = torch.from_numpy(imgs).cuda()
+
+    def forward(dtype):
+        return lambda u8: resnet.apply(spec, params, state, normalize_images(u8, dtype),
+                                       compute_dtype=dtype)[0]
+
+    out = {"phase": "float_r2_eval", **_stage_card(dev), "images": len(labels),
+           "split_sha256": sha, "batch": BATCH}
+    logits = {}
+    with torch.no_grad():
+        for key, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            fwd = forward(dtype)
+            got = torch.cat([fwd(x[i : i + BATCH]) for i in range(0, len(x), BATCH)]).cpu().numpy()
+            logits[key] = got
+            ok, err, atol = logits_close(got, golden[key], R2_TAU[key])
+            acc = float((got.argmax(1) == labels).mean())
+            out[key] = {"max_abs_err": err, "atol": atol, "tau": R2_TAU[key],
+                        "max_abs_err_over_scale": err / float(np.abs(golden[key]).max()),
+                        "argmax_identical": bool((got.argmax(1) == golden[key].argmax(1)).all()),
+                        "acc": acc, "golden_acc": float(golden[f"{key}_acc"]),
+                        "ms_b256": time_ms(lambda: fwd(x[:BATCH]))}
+            if not ok or (key == "fp32" and (acc != float(golden["fp32_acc"])
+                                             or not out[key]["argmax_identical"])):
+                emit(out)
+                raise SmokeFailure(f"float_r2_eval {key}: {out[key]}")
+            emit({"phase": "float_r2_profile_b256", **_stage_card(dev), "dtype": key,
+                  **profile_forward(fwd, x[:BATCH], 2)})
+        int8 = load_static_int8(ARTIFACT, device="cuda")
+        q = torch.cat([int8(x[i : i + BATCH]) for i in range(0, len(x), BATCH)]).cpu().numpy()
+    out["int8_vs_fp32_argmax_agreement"] = float((q.argmax(1) == logits["fp32"].argmax(1)).mean())
+    out["int8_acc"] = float((q.argmax(1) == labels).mean())
+    out["fp32_images_per_s"] = BATCH / out["fp32"]["ms_b256"] * 1e3
+    out["bf16_images_per_s"] = BATCH / out["bf16"]["ms_b256"] * 1e3
+    emit(out)
+
+
+def run_train_step_golden(dev):
+    """One fp32 CE step of ResNet50 and one KD step of ResNet18 against it
+    (batch 8 at 224, TF32 off), from the seeded weights, against the JAX
+    package's golden."""
+    from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
+
+    golden = np.load(TRAIN_GOLDEN)
+    weights = {}
+    for role in ("teacher", "student"):
+        weights[role] = resnet_params_from_seed(make_spec(TRAIN_STEP[role], 6), TRAIN_STEP["seed"])
+        if not (np.array_equal(leaf_sums(weights[role][0]), golden[f"{role}_param_sums"])
+                and np.array_equal(leaf_sums(weights[role][1]), golden[f"{role}_state_sums"])):
+            raise SmokeFailure("resnet_params_from_seed no longer gives the golden's weights")
+    got = port_train_step(weights, train_step_batch(), "cuda")
+    fails = []
+    for role in ("teacher", "student"):
+        d = compare_train_step(role, got[role], golden, TRAIN_LIMITS)
+        emit({"phase": "train_step_golden", **_stage_card(dev), "role": role,
+              "model": TRAIN_STEP[role], "loss": got[role][0], "limits": TRAIN_LIMITS, **d})
+        if not d["ok"]:
+            fails.append(role)
+    if fails:
+        raise SmokeFailure(f"train_step_golden: {fails} outside the limits")
+
+
+def run_train_step_profile(dev):
+    """A profile of the bf16 teacher step (ResNet50, batch 64) and of the KD
+    step (ResNet18 from it, batch 32) as the stage CLIs run them (the
+    train-loop steps, seeded weights, random images, after 3 warm-up steps):
+    device busy time and idle share, launches per step, the top kernels."""
+    from inference_efficient_vision_models_tpu_torch.models.registry import (
+        make_spec, params_from_jax)
+    from inference_efficient_vision_models_tpu_torch.train.optim import adamw_init
+    from inference_efficient_vision_models_tpu_torch.train.steps import (
+        make_kd_train_step, make_train_step)
+
+    specs = {r: make_spec(TRAIN_STEP[r], 6) for r in ("teacher", "student")}
+    m = {}
+    for r, spec in specs.items():
+        p, s = (params_from_jax(spec, t, "cuda") for t in resnet_params_from_seed(spec, 0))
+        m[r] = [p, s, adamw_init(p)]
+    rng = np.random.default_rng(3)
+
+    def batch(b):
+        return (torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda(),
+                torch.from_numpy(rng.integers(0, 6, b)).cuda(), torch.ones(b, device="cuda"))
+
+    t_step = make_train_step(specs["teacher"], learning_rate=1e-4, compute_dtype="bfloat16")
+    k_step = make_kd_train_step(specs["student"], specs["teacher"], alpha=TRAIN_STEP["alpha"],
+                                temperature=TRAIN_STEP["temperature"], learning_rate=1e-4,
+                                compute_dtype="bfloat16")
+
+    def teacher_step(b):
+        m["teacher"][:] = t_step(*m["teacher"], b)[:3]
+
+    def kd_step(b):
+        m["student"][:] = k_step(*m["student"], *m["teacher"][:2], b)[:3]
+
+    for name, fn, b in (("teacher", teacher_step, batch(64)), ("kd", kd_step, batch(32))):
+        for _ in range(3):
+            fn(b)
+        prof = profile_forward(fn, b, 3)
+        emit({"phase": f"{name}_step_profile", **_stage_card(dev), "batch": len(b[1]),
+              "compute_dtype": "bfloat16", "steps": prof["forwards"],
+              "wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+              "idle_share": prof["idle_share"],
+              "launches_per_step": prof["launches_per_forward"],
+              "top": [{"kernel": t["kernel"], "ms_per_step": t["ms_per_forward"],
+                       "calls_per_step": t["calls_per_forward"]} for t in prof["top"]]})
+
+
+def run_stage_clis(dev):
+    """The stage CLIs in a process of their own, as a user runs them: their
+    steps are bound by the host's launches, so this process's state after
+    the earlier phases (their profiles, allocations, objects) would be timed
+    with them."""
+    import multiprocessing
+
+    proc = multiprocessing.get_context("spawn").Process(target=stage_clis, args=(dev,))
+    proc.start()
+    proc.join()
+    if proc.exitcode != 0:
+        raise SmokeFailure(f"the stage CLIs failed (exit code {proc.exitcode})")
+
+
+def stage_clis(dev):
+    """Stage 1 then stage 2 through the port's CLIs on the card, into a
+    temporary artifacts root: ResNet50 teacher (bf16, batch 64, fold 0, one
+    epoch), ResNet18 student distilled from it (batch 32, alpha 0.5, T 4), then
+    ``choice=2`` for both. Stage logs go to stderr."""
+    import contextlib
+    import tempfile
+
+    from inference_efficient_vision_models_tpu_torch.cli import kd, teacher
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
+
+    stages = [("teacher_cli", teacher, "teacher_training", "resnet50", 64,
+               ["model_name='resnet50'"]),
+              ("kd_cli", kd, "knowledge_distillation", "resnet18", 32,
+               ["student_model='resnet18'", "teacher_exp_name='smoke'", "alpha=0.5",
+                "temperature=4.0"])]
+    with tempfile.TemporaryDirectory() as tmp:
+        common = [f"artifacts_root={tmp!r}", "experiment_name='smoke'", "folds=(0,)",
+                  "epochs=1", "synthetic_size=600", "pretrained=False",
+                  "compute_dtype='bfloat16'"]
+        for phase, mod, stage, model, bs, args in stages:
+            argv = common + args + [f"batch_size={bs}"]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                first = mod.main(argv)
+                wall = time.perf_counter() - t0
+                second = mod.main(argv + ["choice=2"])
+            fold_dir = os.path.join(tmp, stage, "smoke", "fold_0")
+            hist = artifacts.load_training_log(fold_dir)
+            step_ms = hist["step_ms"][0]
+            steady = step_ms[2:]
+            losses = hist["train_loss"] + hist["val_loss"] + [r["test_loss"] for r in first + second]
+            spec = make_spec(model, 6)
+            ref_p, ref_s = resnet_params_from_seed(spec, 0)
+            best = artifacts.load_checkpoint_raw(fold_dir, artifacts.BEST)
+            last = artifacts.load_checkpoint_raw(fold_dir, artifacts.LAST)
+            checks = {
+                "losses_finite": bool(np.isfinite(losses).all()),
+                # one epoch: model_best and model_last hold the same weights
+                "best_equals_last": all(_same_values(best[k], last[k]) for k in ("params", "state")),
+                "jax_layout": _same_shapes(best["params"], ref_p)
+                              and _same_shapes(best["state"], ref_s)
+                              and _same_shapes(last["opt"]["mu"], ref_p),
+                "bytes_round_trip": _reserializes(fold_dir),
+                "opt_step": int(last["opt"]["step"]) == len(step_ms),
+                "choice2_test_acc_equal": [r["test_acc"] for r in second]
+                                          == [r["test_acc"] for r in first],
+            }
+            med = float(np.median(steady))
+            emit({"phase": phase, **_stage_card(dev), "model": model, "batch": bs,
+                  "compute_dtype": "bfloat16", "train_steps": len(step_ms),
+                  "step_ms": step_ms, "step_ms_median_steady": med,
+                  "images_per_s": bs / med * 1e3, "train_wall_s": wall,
+                  "epoch_time_s": hist["epoch_time"][0], "train_loss": hist["train_loss"][0],
+                  "val_acc": hist["val_acc"][0], "test_acc": first[0]["test_acc"],
+                  "test_acc_choice2": second[0]["test_acc"], "checks": checks})
+            if not all(checks.values()):
+                raise SmokeFailure(f"{phase}: {checks}")
+
+
+def _same_shapes(tree, ref) -> bool:
+    a, b = _flat_sorted(tree), _flat_sorted(ref)
+    return a.keys() == b.keys() and all(a[k].shape == b[k].shape for k in a)
+
+
+def _same_values(tree, ref) -> bool:
+    a, b = _flat_sorted(tree), _flat_sorted(ref)
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _reserializes(fold_dir: str) -> bool:
+    """Each checkpoint read by the port's reader and written again by its
+    writer gives the file's bytes."""
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+
+    for which in (artifacts.BEST, artifacts.LAST):
+        with open(os.path.join(fold_dir, f"model_{which}.msgpack"), "rb") as f:
+            data = f.read()
+        if artifacts.msgpack_serialize(artifacts.msgpack_restore(data)) != data:
+            return False
+    return True
+
+
 def kernels_line(rows, launches_by_path):
     """One entry per kernel: time, plain time, bound and library time summed
     over its calls in one batch-256 forward of every path that runs it (a row
@@ -1295,6 +1704,10 @@ def main() -> int:
 
     eff_rows, eff_launches = run_efficientnet(gen)
     vit_rows, vit_launches = run_vit(gen)
+    run_float_r2_eval(dev)
+    run_train_step_golden(dev)
+    run_train_step_profile(dev)
+    run_stage_clis(dev)
     emit({"kernels": kernels_line(rows + eff_rows + vit_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
                                    **vit_launches})})

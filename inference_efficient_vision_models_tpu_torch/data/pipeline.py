@@ -1,6 +1,18 @@
-"""Data constants the quantized stem folds in, and the float models' input
-normalization."""
+"""Batch order and input normalization, as the JAX package's
+``data/pipeline.py``.
 
+``Batches`` gives the same static-shape batches: the order is reshuffled
+per epoch from ``default_rng(seed + epoch)``, the last batch is padded to
+the full size and carries a validity mask. ``epoch_plan`` gives one epoch's
+whole index matrix at once, so a device loop uploads it in one copy and
+gathers every batch on the device without a host sync.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Tuple
+
+import numpy as np
 import torch
 
 # ImageNet normalization constants (reference `teacher_training/dataset.py:20`)
@@ -14,3 +26,57 @@ def normalize_images(batch_u8: torch.Tensor, dtype=torch.float32) -> torch.Tenso
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=batch_u8.device) * 255.0
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=batch_u8.device) * 255.0
     return ((batch_u8.float() - mean) / std).to(dtype)
+
+
+class Batches:
+    """Iterate (images_u8, labels, mask) in static-shape batches.
+
+    ``mask`` is 1.0 for real samples, 0.0 for padding in the final batch.
+    During training (``shuffle=True``) the padding is made of distinct real
+    samples (the epoch's order from its start), so train-mode BatchNorm
+    statistics see real images; the mask still zeroes their loss and
+    accuracy. Otherwise the padding repeats sample 0. ``images`` and
+    ``labels`` are numpy arrays (labels become int32, as in JAX) or tensors
+    (``train.loop.device_batches``), kept as given."""
+
+    def __init__(self, images, labels, batch_size: int, *, shuffle: bool = False,
+                 seed: int = 0):
+        if len(images) != len(labels):
+            raise ValueError(f"{len(images)} images but {len(labels)} labels")
+        self.images = images
+        self.labels = labels if isinstance(labels, torch.Tensor) else \
+            np.asarray(labels, dtype=np.int32)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return -(-len(self.labels) // self.batch_size)
+
+    def epoch_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (idx int64 (batches, batch_size), mask float32 (batches,
+        batch_size)) for the next epoch, and advance the epoch."""
+        n, bs = len(self.labels), self.batch_size
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        self.epoch += 1
+        idx = np.empty((len(self), bs), dtype=np.int64)
+        mask = np.ones((len(self), bs), dtype=np.float32)
+        for i, start in enumerate(range(0, n, bs)):
+            part = order[start : start + bs]
+            idx[i, : len(part)] = part
+            pad = bs - len(part)
+            if pad:
+                mask[i, len(part):] = 0.0
+                if self.shuffle and n > 1:
+                    idx[i, len(part):] = np.resize(order[: max(n - len(part), 1)], pad)
+                else:
+                    idx[i, len(part):] = 0
+        return idx, mask
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        idx, mask = self.epoch_plan()
+        for i in range(len(idx)):
+            yield self.images[idx[i]], self.labels[idx[i]], mask[i]

@@ -3,8 +3,9 @@ passes ``device="cpu"``, and never fall back to the CPU on their own."""
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
-from typing import Dict, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
@@ -21,6 +22,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def exact_fp32() -> Iterator[None]:
+    """Run fp32 convs and matmuls in full fp32: turn TF32 off for cuDNN and
+    cuBLAS (PyTorch leaves it on for cuDNN convs, which rounds their inputs
+    to 10 mantissa bits), and restore both settings after."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 def describe_device() -> Dict[str, Optional[str]]:
