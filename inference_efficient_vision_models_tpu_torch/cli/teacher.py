@@ -13,9 +13,10 @@ from ..core import artifacts
 from ..core.config import TeacherConfig
 from ..core.prng import generator_for
 from ..core.provenance import stage_record, write_provenance
+from ..data.pipeline import Batches
 from ..metrics.report import summarize_folds
 from ..models.registry import create_model, params_from_jax, spec_from_dict
-from ..train.loop import device_batches, evaluate, train_classifier
+from ..train.loop import evaluate, train_classifier
 from ..train.steps import make_eval_step
 from ..utils.device import DeviceLike
 from .common import fold_arrays, iter_folds, make_config, setup_stage, stage_device
@@ -37,7 +38,7 @@ def evaluate_fold(cfg, spec, params, state, test_d, device, logger, fold: int):
     """Evaluate on the held-out split -> the fold's result row."""
     eval_step = make_eval_step(spec, compute_dtype=cfg.compute_dtype)
     test = evaluate(eval_step, params, state,
-                    device_batches(*test_d, cfg.batch_size, device), cfg.DEBUG_MODE)
+                    Batches(*test_d, cfg.batch_size, device), cfg.DEBUG_MODE)
     logger.info("fold %d test: loss %.4f acc %.2f%%", fold, test["loss"], test["acc"] * 100)
     return {"fold": fold, "test_loss": test["loss"], "test_acc": test["acc"]}
 

@@ -3,9 +3,9 @@
 
 ``Batches`` gives the same static-shape batches: the order is reshuffled
 per epoch from ``default_rng(seed + epoch)``, the last batch is padded to
-the full size and carries a validity mask. ``epoch_plan`` gives one epoch's
-whole index matrix at once, so a device loop uploads it in one copy and
-gathers every batch on the device without a host sync.
+the full size and carries a validity mask. The split lives on the device:
+it is uploaded once, each epoch's index matrix in one copy, and every batch
+is gathered there, so iterating never waits for the device.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from typing import Iterator, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.device import DeviceLike, resolve_device
 
 # ImageNet normalization constants (reference `teacher_training/dataset.py:20`)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -29,23 +31,23 @@ def normalize_images(batch_u8: torch.Tensor, dtype=torch.float32) -> torch.Tenso
 
 
 class Batches:
-    """Iterate (images_u8, labels, mask) in static-shape batches.
+    """Iterate (images_u8, labels, mask) in static-shape batches on ``device``
+    (the GPU unless ``device="cpu"``).
 
     ``mask`` is 1.0 for real samples, 0.0 for padding in the final batch.
     During training (``shuffle=True``) the padding is made of distinct real
     samples (the epoch's order from its start), so train-mode BatchNorm
     statistics see real images; the mask still zeroes their loss and
-    accuracy. Otherwise the padding repeats sample 0. ``images`` and
-    ``labels`` are numpy arrays (labels become int32, as in JAX) or tensors
-    (``train.loop.device_batches``), kept as given."""
+    accuracy. Otherwise the padding repeats sample 0. ``images`` (uint8
+    NHWC) and ``labels`` are numpy arrays; the labels become int64."""
 
-    def __init__(self, images, labels, batch_size: int, *, shuffle: bool = False,
-                 seed: int = 0):
+    def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int,
+                 device: DeviceLike = None, *, shuffle: bool = False, seed: int = 0):
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
-        self.images = images
-        self.labels = labels if isinstance(labels, torch.Tensor) else \
-            np.asarray(labels, dtype=np.int32)
+        dev = resolve_device(device)
+        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+        self.labels = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -54,7 +56,7 @@ class Batches:
     def __len__(self) -> int:
         return -(-len(self.labels) // self.batch_size)
 
-    def epoch_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+    def _plan(self) -> Tuple[np.ndarray, np.ndarray]:
         """-> (idx int64 (batches, batch_size), mask float32 (batches,
         batch_size)) for the next epoch, and advance the epoch."""
         n, bs = len(self.labels), self.batch_size
@@ -76,7 +78,9 @@ class Batches:
                     idx[i, len(part):] = 0
         return idx, mask
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        idx, mask = self.epoch_plan()
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        idx, mask = self._plan()
+        dev = self.images.device
+        idx, mask = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
         for i in range(len(idx)):
             yield self.images[idx[i]], self.labels[idx[i]], mask[i]

@@ -3,10 +3,9 @@
 a resumable ``model_last``, the ``training_log.json`` history and
 DEBUG_MODE's two-batch epochs.
 
-The data live on the device: each split is uploaded once, each epoch's
-index matrix in one copy, and every batch is gathered on the device. Steps
-return their metrics as device tensors, read once after the epoch, so the
-step loop never waits for the device. On a GPU each step is bracketed by
+The data live on the device (``data.pipeline.Batches``). Steps return
+their metrics as device tensors, read once after the epoch, so the step
+loop never waits for the device. On a GPU each step is bracketed by
 CUDA events; ``history["step_ms"]`` keeps every epoch's per-step device
 times (empty on the CPU, where no device time exists).
 """
@@ -14,9 +13,8 @@ times (empty on the CPU, where no device time exists).
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from ..core import artifacts
@@ -27,30 +25,13 @@ from . import steps as steps_mod
 from .optim import AdamWState, adamw_init, make_lr_schedule, opt_to_jax
 
 
-def device_batches(images: np.ndarray, labels: np.ndarray, batch_size: int,
-                   device: torch.device, *, shuffle: bool = False, seed: int = 0) -> Batches:
-    """``Batches`` over a split uploaded to ``device`` (uint8 images, int64 labels)."""
-    return Batches(torch.from_numpy(np.ascontiguousarray(images)).to(device),
-                   torch.from_numpy(np.asarray(labels, np.int64)).to(device),
-                   batch_size, shuffle=shuffle, seed=seed)
-
-
-def _epoch(loader: Batches) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """One epoch of (images, labels, mask) gathered on the loader's device."""
-    idx, mask = loader.epoch_plan()
-    dev = loader.images.device
-    idx, mask = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
-    for i in range(len(idx)):
-        yield loader.images[idx[i]], loader.labels[idx[i]], mask[i]
-
-
 def _run_epoch(step_fn, carry, loader: Batches, extra_args=(), debug_mode=False):
     """Drive one epoch -> (carry, mean loss, mean acc, seconds, per-step ms)."""
     t0 = time.time()
     timed = loader.images.device.type == "cuda"
     events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
     device_metrics = []
-    for i, batch in enumerate(_epoch(loader)):
+    for i, batch in enumerate(loader):
         if debug_mode and i == 2:
             break
         if timed:
@@ -75,7 +56,7 @@ def _run_epoch(step_fn, carry, loader: Batches, extra_args=(), debug_mode=False)
 def evaluate(eval_step, params, state, loader: Batches, debug_mode=False) -> Dict[str, float]:
     """Returns {'loss', 'acc', 'n'} (fractions, not percents)."""
     outs = []
-    for i, batch in enumerate(_epoch(loader)):
+    for i, batch in enumerate(loader):
         if debug_mode and i == 2:
             break
         out = eval_step(params, state, batch)
@@ -98,49 +79,42 @@ def train_classifier(
     logger,
     *,
     teacher=None,  # (teacher_spec, teacher_params, teacher_state) -> KD mode
-    epochs: Optional[int] = None,
-    learning_rate: Optional[float] = None,
-    save: bool = True,
-    resume: Optional[bool] = None,
     device: DeviceLike = None,
 ):
     """Train with best-val tracking; returns (params, state, history) of the
     best epoch, on ``device`` (the GPU unless ``device="cpu"``).
 
     ``teacher`` switches the step to knowledge distillation with cfg.alpha /
-    cfg.temperature / cfg.sp_weight. ``resume`` (or cfg.resume) continues an
+    cfg.temperature / cfg.sp_weight. ``cfg.resume`` continues an
     interrupted run from ``model_last``, optimizer state and batch order
     included. Checkpoints are written in the JAX layout."""
     dev = resolve_device(device)
-    epochs = epochs if epochs is not None else cfg.epochs
-    lr = learning_rate if learning_rate is not None else cfg.learning_rate
-    resume = getattr(cfg, "resume", False) if resume is None else resume
-    if getattr(cfg, "augment", False):
+    epochs, resume = cfg.epochs, cfg.resume
+    if cfg.augment:
         raise NotImplementedError("train-time augmentation (data/augment.py) is not ported yet "
                                   "(ROADMAP queue 1: augment.py)")
 
-    train_loader = device_batches(*train_data, cfg.batch_size, dev, shuffle=True, seed=cfg.seed)
-    val_loader = device_batches(*val_data, cfg.batch_size, dev)
+    train_loader = Batches(*train_data, cfg.batch_size, dev, shuffle=True, seed=cfg.seed)
+    val_loader = Batches(*val_data, cfg.batch_size, dev)
 
     schedule = None
-    if getattr(cfg, "lr_schedule", "constant") != "constant":
+    if cfg.lr_schedule != "constant":
         schedule = make_lr_schedule(
-            cfg.lr_schedule, lr, epochs * len(train_loader),
-            warmup_steps=getattr(cfg, "warmup_steps", 0),
-            min_fraction=getattr(cfg, "lr_min_fraction", 0.0),
+            cfg.lr_schedule, cfg.learning_rate, epochs * len(train_loader),
+            warmup_steps=cfg.warmup_steps, min_fraction=cfg.lr_min_fraction,
         )
         logger.info("lr schedule: %s over %d steps", cfg.lr_schedule, epochs * len(train_loader))
 
     if teacher is None:
-        step = steps_mod.make_train_step(spec, learning_rate=lr, compute_dtype=cfg.compute_dtype,
-                                         lr_schedule=schedule)
+        step = steps_mod.make_train_step(spec, learning_rate=cfg.learning_rate,
+                                         compute_dtype=cfg.compute_dtype, lr_schedule=schedule)
         extra = ()
     else:
         t_spec, t_params, t_state = teacher
         step = steps_mod.make_kd_train_step(
-            spec, t_spec, alpha=cfg.alpha, temperature=cfg.temperature, learning_rate=lr,
-            compute_dtype=cfg.compute_dtype, lr_schedule=schedule,
-            sp_weight=float(getattr(cfg, "sp_weight", 0.0)))
+            spec, t_spec, alpha=cfg.alpha, temperature=cfg.temperature,
+            learning_rate=cfg.learning_rate, compute_dtype=cfg.compute_dtype,
+            lr_schedule=schedule, sp_weight=float(cfg.sp_weight))
         extra = (t_params, t_state)
     eval_step = steps_mod.make_eval_step(spec, compute_dtype=cfg.compute_dtype)
 
@@ -188,15 +162,13 @@ def train_classifier(
         if val["acc"] > best_acc:
             best_acc = val["acc"]
             best = (to_jax(carry[0]), to_jax(carry[1]))
-            if save:
-                artifacts.save_checkpoint(fold_dir, artifacts.BEST, best[0], best[1], spec)
-                logger.info("new best val acc %.2f%% → model_best", best_acc * 100)
-        if save:
-            artifacts.save_checkpoint(
-                fold_dir, artifacts.LAST, to_jax(carry[0]), to_jax(carry[1]), spec,
-                opt=opt_to_jax(carry[2], to_jax), meta={"epoch": epoch, "best_acc": best_acc},
-            )
-            artifacts.save_training_log(fold_dir, history)
+            artifacts.save_checkpoint(fold_dir, artifacts.BEST, best[0], best[1], spec)
+            logger.info("new best val acc %.2f%% → model_best", best_acc * 100)
+        artifacts.save_checkpoint(
+            fold_dir, artifacts.LAST, to_jax(carry[0]), to_jax(carry[1]), spec,
+            opt=opt_to_jax(carry[2], to_jax), meta={"epoch": epoch, "best_acc": best_acc},
+        )
+        artifacts.save_training_log(fold_dir, history)
 
     if best is None:  # epochs == 0 or resumed past the best epoch
         if resume and best_acc >= 0 and artifacts.checkpoint_exists(fold_dir, artifacts.BEST):

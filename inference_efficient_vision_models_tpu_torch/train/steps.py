@@ -129,18 +129,16 @@ def make_kd_train_step(student_spec, teacher_spec, *, alpha, temperature, learni
     return step
 
 
-def make_eval_step(spec, *, compute_dtype="float32", apply_fn=None):
+def make_eval_step(spec, *, compute_dtype="float32"):
     """Eval step (params, state, batch) -> per-batch {"sum_loss", "sum_correct",
-    "n"} as 0-d device tensors. ``apply_fn(params, state, x) -> logits`` lets
-    other forwards reuse the harness."""
+    "n"} as 0-d device tensors."""
     cdt = compute_dtype_of(compute_dtype)
-    fwd = apply_fn or (lambda params, state, x: apply_model(
-        spec, params, state, x, train=False, compute_dtype=cdt)[0])
 
     def step(params, state, batch) -> Dict[str, torch.Tensor]:
         imgs_u8, labels, mask = batch
         with torch.no_grad(), exact_fp32():
-            logits = fwd(params, state, normalize_images(imgs_u8, cdt)).float()
+            x = normalize_images(imgs_u8, cdt)
+            logits = apply_model(spec, params, state, x, train=False, compute_dtype=cdt)[0].float()
             logp = torch.log_softmax(logits, dim=-1)
             nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
             correct = (logits.argmax(dim=-1) == labels.long()).float()

@@ -129,13 +129,12 @@ def test_resume_continues_the_same_trajectory(tmp_path):
     tspec = treg.spec_from_dict(STUDENT)
     ends = {}
     for name, plan in (("straight", [2]), ("resumed", [1, 2])):
-        cfg = TeacherConfig(artifacts_root=str(tmp_path / name), batch_size=4,
-                            compute_dtype="float32")
-        fold = cfg.fold_dir(0)
         for epochs in plan:
+            cfg = TeacherConfig(artifacts_root=str(tmp_path / name), batch_size=4,
+                                compute_dtype="float32", epochs=epochs, resume=epochs > 1)
+            fold = cfg.fold_dir(0)
             p, s = tr.params_from_jax(p0, "cpu"), tr.params_from_jax(s0, "cpu")
-            train_classifier(cfg, tspec, p, s, train, val, fold, log, epochs=epochs,
-                             resume=epochs > 1, device="cpu")
+            train_classifier(cfg, tspec, p, s, train, val, fold, log, device="cpu")
         ends[name] = tart.load_checkpoint_raw(fold, "last")
         ends[name]["hist"] = tart.load_training_log(fold)
     a, b = ends["straight"], ends["resumed"]

@@ -6,10 +6,10 @@ steps, the three learning-rate schedules, the losses, and ``evaluate``.
 
 Running this file as a script rewrites ``testdata/resnet_train_step_jax.npz``,
 the JAX package's fp32 CE step of a full-width ResNet50 and KD step of a
-full-width ResNet18 against it (batch 8 at 224 x 224, weights from
-``chip_smoke.resnet_params_from_seed``), which ``chip_smoke.py`` holds the
-GPU against, and prints the port's deviation from it on the CPU (the source
-of chip_smoke's limits; ~3 min):
+full-width ResNet18 against it, AdamW update included (batch 8 at
+224 x 224, weights from ``chip_smoke.resnet_params_from_seed``), which
+``chip_smoke.py`` holds the GPU against, and prints the port's deviation
+from it on the CPU (the source of chip_smoke's limits; ~5 min):
 ``JAX_PLATFORMS=cpu python tests/test_torch_port_train.py``.
 """
 
@@ -26,8 +26,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import (TRAIN_GOLDEN, TRAIN_STEP, leaf_sums, resnet_params_from_seed,
-                        train_step_batch, train_step_metrics)
+from chip_smoke import (TRAIN_GOLDEN, TRAIN_STEP, UPDATE_LEAF_MAX, _flat_sorted, leaf_sums,
+                        resnet_params_from_seed, train_step_batch, train_step_metrics)
 from inference_efficient_vision_models_tpu.data.pipeline import Batches as JBatches
 from inference_efficient_vision_models_tpu.data.pipeline import normalize_images as j_norm
 from inference_efficient_vision_models_tpu.models import registry as jreg
@@ -36,12 +36,12 @@ from inference_efficient_vision_models_tpu.train import losses as jl
 from inference_efficient_vision_models_tpu.train import optim as jo
 from inference_efficient_vision_models_tpu.train import steps as js
 from inference_efficient_vision_models_tpu.train.loop import evaluate as j_evaluate
+from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches as TBatches
 from inference_efficient_vision_models_tpu_torch.models import registry as treg
 from inference_efficient_vision_models_tpu_torch.models import resnet as tr
 from inference_efficient_vision_models_tpu_torch.train import losses as tl
 from inference_efficient_vision_models_tpu_torch.train import optim as to
 from inference_efficient_vision_models_tpu_torch.train import steps as ts
-from inference_efficient_vision_models_tpu_torch.train.loop import device_batches
 from inference_efficient_vision_models_tpu_torch.train.loop import evaluate as t_evaluate
 
 try:
@@ -303,7 +303,7 @@ def test_evaluate_sums_match_jax():
                      JBatches(imgs, labels, 4))
     spec_t, tp, tst = port_model(d, p, s)
     got = t_evaluate(ts.make_eval_step(spec_t, compute_dtype="float32"), tp, tst,
-                     device_batches(imgs, labels, 4, torch.device("cpu")))
+                     TBatches(imgs, labels, 4, "cpu"))
     assert got["n"] == ref["n"] == 11.0
     assert got["acc"] == ref["acc"]
     assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
@@ -318,6 +318,8 @@ def test_train_step_golden_weights_are_current():
         p, s = resnet_params_from_seed(spec, TRAIN_STEP["seed"])
         np.testing.assert_array_equal(leaf_sums(p), golden[f"{role}_param_sums"])
         np.testing.assert_array_equal(leaf_sums(s), golden[f"{role}_state_sums"])
+        kept = [k for k, v in _flat_sorted(p).items() if v.size <= UPDATE_LEAF_MAX]
+        assert list(golden[f"{role}_update_names"]) == kept
     imgs, labels, mask = train_step_batch()
     assert int(golden["image_sum"]) == int(imgs.sum(dtype=np.int64))
     np.testing.assert_array_equal(golden["labels"], labels)
@@ -326,7 +328,10 @@ def test_train_step_golden_weights_are_current():
 def write_train_step_golden() -> None:
     """The JAX package's fp32 CE step (ResNet50) and KD step (ResNet18 against
     that ResNet50 in eval mode) on the CPU, reduced to what chip_smoke.py
-    compares; then the port's deviation from it on the CPU."""
+    compares: loss, logits, gradients and BN statistics from the loss's
+    value and gradient, the update and moments from one call of
+    ``make_train_step`` / ``make_kd_train_step``; then the port's deviation
+    from it on the CPU."""
     imgs, labels, mask = train_step_batch()
     b = (jnp.asarray(imgs), jnp.asarray(labels), jnp.asarray(mask))
     specs = {r: jreg.make_spec(TRAIN_STEP[r], 6) for r in ("teacher", "student")}
@@ -335,12 +340,20 @@ def write_train_step_golden() -> None:
     for r in specs:
         out[f"{r}_param_sums"] = leaf_sums(weights[r][0])
         out[f"{r}_state_sums"] = leaf_sums(weights[r][1])
-    loss, logits, ns, g = jax_ce(specs["teacher"], *weights["teacher"], b)
-    out.update(train_step_metrics("teacher", loss, logits, g, ns))
-    loss, parts, logits, ns, g = jax_kd(specs["student"], specs["teacher"], *weights["student"],
-                                        *weights["teacher"], b, alpha=TRAIN_STEP["alpha"],
-                                        temperature=TRAIN_STEP["temperature"])
-    out.update(train_step_metrics("student", loss, logits, g, ns))
+    kd = dict(alpha=TRAIN_STEP["alpha"], temperature=TRAIN_STEP["temperature"])
+    p, s = weights["teacher"]
+    loss, logits, ns, g = jax_ce(specs["teacher"], p, s, b)
+    step = js.make_train_step(specs["teacher"], learning_rate=TRAIN_STEP["lr"],
+                              compute_dtype="float32")
+    p2, _, opt, _ = jax.device_get(step(p, s, jo.adamw_init(p), b))
+    out.update(train_step_metrics("teacher", loss, logits, g, ns, p, p2, opt.mu, opt.nu))
+    p, s = weights["student"]
+    loss, _, logits, ns, g = jax_kd(specs["student"], specs["teacher"], p, s,
+                                    *weights["teacher"], b, **kd)
+    step = js.make_kd_train_step(specs["student"], specs["teacher"],
+                                 learning_rate=TRAIN_STEP["lr"], compute_dtype="float32", **kd)
+    p2, _, opt, _ = jax.device_get(step(p, s, jo.adamw_init(p), *weights["teacher"], b))
+    out.update(train_step_metrics("student", loss, logits, g, ns, p, p2, opt.mu, opt.nu))
     np.savez_compressed(TRAIN_GOLDEN, **out)
     print(f"wrote {TRAIN_GOLDEN}")
 
