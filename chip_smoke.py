@@ -51,7 +51,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (bf16, batch 64, fold 0, one epoch) and distills a ResNet18 from it
    (batch 32) through the port's stage CLIs, reads both checkpoints back
    and re-evaluates them with ``choice=2``, and profiles both steps;
-6. times each kernel at its serving shapes beside its plain version, its
+6. stages 3-4: in the same process and artifacts root, prunes the student
+   (l2, ratio 0.11, round_to 8, one fine-tune epoch) and quantizes it (the
+   default four methods, 256 calibration images) through the port's stage
+   CLIs, then ``choice=2`` of each; the kernel launch counts are set to 0
+   before the stage chain and read after it (kernels A and B must have run);
+   the chain's INT8 ResNet18 is held against its plain path bit for bit on
+   32 images and, in the main process, at each kernel call of its forward.
+   ``convert_r2`` folds, calibrates and converts the committed pruned r2
+   checkpoint on the card against the JAX package's CPU conversion
+   (``testdata/r2_convert_jax.json``), records how far each fp32
+   calibration lies from an fp64 one, and serves both artifacts on the r2
+   held-out split;
+7. times each kernel at its serving shapes beside its plain version, its
    bound and a library call where one exists, and each forward at batch 1
    and 256 with CUDA events (median of 25 runs after warm-up), and profiles
    a batch-256 forward of each path with ``torch.profiler``.
@@ -66,7 +78,9 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -170,6 +184,16 @@ UPDATE_LEAF_MAX = 16384
 TRAIN_LIMITS = {"loss_rel": 3.3e-6, "logits_over_scale": 9.4e-5, "grad_norm_rel": 0.0123,
                 "bn_sum_over_abs_sum": 7.5e-7, "mu_norm_rel": 0.0128, "nu_norm_rel": 0.035,
                 "update_dev_over_lr": 2.0}
+# stages 3-4: the JAX package's CPU conversion of the committed pruned r2
+# checkpoint (minmax, the first 256 images of fold 0's train split, batch 32):
+# activation qparams by value, every other leaf by sha256
+# (``JAX_PLATFORMS=cpu python tests/test_torch_port_quant.py`` writes it)
+CONVERT_GOLDEN = os.path.join(TESTDATA, "r2_convert_jax.json")
+# a scale within twice the port's CPU deviation from that golden (5.375e-7
+# relative, layer1/0/conv1/out_scale: the fp32 convs of the calibration
+# forwards sum in another order in oneDNN than in XLA, and the EMA of the
+# tap's max carries it); every other leaf equal
+CONVERT_LIMITS = {"scale_rtol": 1.075e-6}
 
 
 class SmokeFailure(RuntimeError):
@@ -272,6 +296,80 @@ def leaf_sums(tree) -> np.ndarray:
     if isinstance(tree, dict):
         return np.concatenate([leaf_sums(v) for v in tree.values()])
     return np.array([np.sum(np.asarray(tree), dtype=np.float64)])
+
+
+def flat_raw(tree, prefix=""):
+    """A nested dict of arrays -> {"/a/b": numpy array}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_raw(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+_ACT_QPARAMS = ("out_scale", "out_zp", "in_scale", "in_zp")
+
+
+def conversion_record(qmodel, observers=None) -> dict:
+    """A static-int8 conversion's record: every activation qparam by value,
+    every other leaf by dtype, shape and sha256 (and the observers' ranges)."""
+    import hashlib
+
+    qparams, leaves = {}, {}
+    for k, v in flat_raw(qmodel).items():
+        if k.split("/")[-1] in _ACT_QPARAMS or k in ("/input/scale", "/input/zp"):
+            qparams[k] = float(v) if v.dtype.kind == "f" else int(v)
+        else:
+            leaves[k] = {"dtype": v.dtype.name, "shape": list(v.shape),
+                         "sha256": hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()}
+    rec = {"qparams": qparams, "leaves": leaves}
+    if observers is not None:
+        rec["observers"] = {k: [float(o.min), float(o.max)] for k, o in observers.items()}
+    return rec
+
+
+def _tap_of(path: str) -> str:
+    """The calibration tap whose range sets an activation qparam."""
+    parts = path.strip("/").split("/")
+    if parts[0] in ("input", "stem"):
+        return parts[0]
+    if parts[0] == "fc":
+        return "feat"
+    s, b = int(parts[0][5:]) - 1, parts[1]
+    if parts[2] in ("conv1", "conv2"):
+        return f"l{s}b{b}i{int(parts[2][4:]) - 1}"
+    return f"l{s}b{b}o"
+
+
+def compare_conversion(qmodel, ref: dict, limits=CONVERT_LIMITS) -> dict:
+    """A conversion (``serializable`` tree) against a reference record: every
+    non-activation leaf equal, every scale within ``scale_rtol``, every zero
+    point equal or one apart where the reference's -min/scale lies within
+    that limit of a rounding edge (k + 1/2)."""
+    got = conversion_record(qmodel)
+    rt = limits["scale_rtol"]
+    unequal = sorted(k for k in ref["leaves"] if got["leaves"].get(k) != ref["leaves"][k])
+    extra = sorted(set(got["leaves"]) - set(ref["leaves"]))
+    rel, worst, zp_edge, zp_bad = 0.0, None, [], []
+    for k, r in ref["qparams"].items():
+        g = got["qparams"].get(k)
+        if g is None:
+            zp_bad.append(k)
+        elif isinstance(r, float):
+            d = abs(g - r) / max(abs(r), 1e-30)
+            if d > rel:
+                rel, worst = d, k
+        elif g != r:
+            lo = min(ref["observers"][_tap_of(k)][0], 0.0)
+            scale = ref["qparams"][k.replace("zp", "scale")]
+            frac = -lo / scale
+            edge = abs(frac - (np.floor(frac) + 0.5)) <= rt * max(abs(frac), 1.0)
+            (zp_edge if abs(g - r) == 1 and edge else zp_bad).append(k)
+    return {"ok": not unequal and not extra and not zp_bad and rel <= rt,
+            "leaves": len(ref["leaves"]), "leaves_unequal": unequal + extra,
+            "qparams": len(ref["qparams"]), "max_scale_rel": rel, "worst_scale": worst,
+            "zp_one_apart_on_edge": zp_edge, "zp_bad": zp_bad, "scale_rtol": rt}
 
 
 def emit(obj) -> None:
@@ -569,13 +667,13 @@ def check_odd_shapes(gen: torch.Generator):
     return fails
 
 
-def check_and_time_main_shapes(model, gen: torch.Generator):
+def check_and_time_main_shapes(model, gen: torch.Generator, path: str = "resnet18"):
     """(a) at every served shape (batch 256; kernel A at batch 1 too), then
-    the timings."""
+    the timings; ``path`` names the model's path in the rows."""
     rows, fails = [], []
     for kernel, label, shape, dtype, leaf, kw in main_path_calls(model, 1):
         if kernel == "int8_matmul_requant":
-            row, f = kernel_a_row("resnet18", label, make_input(shape, dtype, kw["in_zp"], gen),
+            row, f = kernel_a_row(path, label, make_input(shape, dtype, kw["in_zp"], gen),
                                   leaf, kw, batch=1)
             rows.append(row)
             fails += f
@@ -583,7 +681,7 @@ def check_and_time_main_shapes(model, gen: torch.Generator):
     for kernel, label, shape, dtype, leaf, kw in main_path_calls(model, BATCH):
         x = make_input(shape, dtype, kw["in_zp"], gen)
         if kernel == "int8_matmul_requant":
-            row, f = kernel_a_row("resnet18", label, x, leaf, kw)
+            row, f = kernel_a_row(path, label, x, leaf, kw)
             rows.append(row)
             fails += f
             emit({"phase": "a_main_shape", **row})
@@ -599,7 +697,7 @@ def check_and_time_main_shapes(model, gen: torch.Generator):
         lib, lib_note = int_mm_ms(make_input((m, k), torch.int8, kw["in_zp"], gen), leaf)
         res = kw.get("residual")
         rows.append({
-            "path": "resnet18", "kernel": kernel, "call": label, "batch": BATCH, "x": list(shape),
+            "path": path, "kernel": kernel, "call": label, "batch": BATCH, "x": list(shape),
             "n": n, "max_abs_err": err,
             "residual": None if res is None else ("float32" if isinstance(res, torch.Tensor)
                                                   else "int8"),
@@ -616,7 +714,7 @@ def check_and_time_main_shapes(model, gen: torch.Generator):
     st = model.q["stem"]
     h = st["e4"].shape[1]
     xp = torch.zeros((BATCH, h + 3, h + 3, st["w"].shape[2]), dtype=torch.int8, device="cuda")
-    emit({"phase": "stem_im2col",
+    emit({"phase": "stem_im2col", "path": path,
           "ms": time_ms(lambda: extract_patches_nhwc(xp, 4, 4, 1, 0, 0), spin=True)})
     del xp
     return rows, fails
@@ -1396,28 +1494,39 @@ def _stage_card(dev) -> dict:
     return {"card": dev["nvidia_smi"], "power_limit": dev["power_limit"]}
 
 
-def run_float_r2_eval(dev):
-    """The committed pruned fp32 ResNet18 through ``load_stage_model`` on the
-    r2 held-out split, which the port rebuilds from the artifact's data
-    protocol: fp32 (TF32 off) and bf16 logits against the JAX goldens, the
-    forward times, and the int8 path's argmax agreement with fp32."""
-    import hashlib
-    import tempfile
-
-    from inference_efficient_vision_models_tpu_torch.cli.teacher import load_stage_model
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
-        load_static_int8)
+def r2_data():
+    """The r2 data the port rebuilds from the artifact's data protocol:
+    (the first 256 images of fold 0's train split, the held-out split), each
+    (uint8 images, labels)."""
     from inference_efficient_vision_models_tpu_torch.core.config import TeacherConfig
     from inference_efficient_vision_models_tpu_torch.data.neudet import load_dataset
-    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
-    from inference_efficient_vision_models_tpu_torch.models import resnet
+    from inference_efficient_vision_models_tpu_torch.data.splits import create_fold_split_idx
 
     with open(os.path.join(ARTIFACT, "provenance.json")) as f:
         data = json.load(f)["data"]
     with tempfile.TemporaryDirectory() as tmp:
         cfg = TeacherConfig(artifacts_root=tmp, **{
             k: tuple(v) if k == "image_size" else v for k, v in data.items()})
-        imgs, labels = load_dataset(cfg)["test"]
+        d = load_dataset(cfg)
+    imgs, labels = d["train"]
+    tr = np.asarray(create_fold_split_idx(data["num_folds"], labels, data["seed"])[0]["train"])
+    return (imgs[tr][:256], labels[tr][:256]), d["test"]
+
+
+def run_float_r2_eval(dev, test):
+    """The committed pruned fp32 ResNet18 through ``load_stage_model`` on the
+    r2 held-out split ``test``: fp32 (TF32 off) and bf16 logits against the
+    JAX goldens, the forward times, and the int8 path's argmax agreement
+    with fp32."""
+    import hashlib
+
+    from inference_efficient_vision_models_tpu_torch.cli.teacher import load_stage_model
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
+        load_static_int8)
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+    from inference_efficient_vision_models_tpu_torch.models import resnet
+
+    imgs, labels = test
     sha = hashlib.sha256(np.ascontiguousarray(imgs).tobytes()
                          + np.asarray(labels, np.int32).tobytes()).hexdigest()
     with open(SPLIT_SHA) as f:
@@ -1484,6 +1593,97 @@ def run_train_step_golden(dev):
             fails.append(role)
     if fails:
         raise SmokeFailure(f"train_step_golden: {fails} outside the limits")
+
+
+def _ema_ranges(spec, folded, imgs: np.ndarray, dtype, cudnn: bool) -> dict:
+    """minmax-EMA tap ranges of the calibration set (batches of 32) from one
+    forward per batch in ``dtype``, with or without cuDNN: tap -> (min, max)."""
+    import contextlib
+
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.compress.quant.observers import (
+        ObserverState)
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+
+    f = qresnet.place_folded(folded, "cuda", dtype)
+    x = torch.from_numpy(imgs).cuda()
+    flags = contextlib.nullcontext() if cudnn else torch.backends.cudnn.flags(enabled=False)
+    obs = {}
+    with torch.no_grad(), flags:
+        for i in range(0, len(x), 32):
+            taps = qresnet.apply_folded(spec, f, normalize_images(x[i : i + 32]).to(dtype),
+                                        with_taps=True)[1]
+            for name, t in taps.items():
+                obs[name] = obs.get(name, ObserverState.fresh()).update(float(t.min()),
+                                                                       float(t.max()))
+    return {k: (o.min, o.max) for k, o in obs.items()}
+
+
+def calibration_error(spec, folded, imgs, obs, golden) -> dict:
+    """How far each fp32 calibration's tap ranges lie from an fp64 forward's
+    (largest relative deviation of a range end over the taps): the port's
+    (``obs``, cuDNN off), cuDNN's fp32 algorithms (TF32 off), and the JAX
+    golden's (XLA on the CPU)."""
+    exact = _ema_ranges(spec, folded, imgs, torch.float64, cudnn=True)
+
+    def dev(ranges):
+        return max(abs(float(ranges[k][i]) - exact[k][i]) / max(abs(exact[k][i]), 1e-30)
+                   for k in exact for i in (0, 1))
+
+    return {"port_fp32_no_cudnn_vs_fp64": dev({k: (o.min, o.max) for k, o in obs.items()}),
+            "cudnn_fp32_vs_fp64": dev(_ema_ranges(spec, folded, imgs, torch.float32, True)),
+            "jax_cpu_fp32_vs_fp64": dev(golden["observers"])}
+
+
+def run_convert_r2(dev, calib, test):
+    """Stage 4 on the committed pruned r2 checkpoint, on the card: fold,
+    calibrate (minmax, ``calib``: the first 256 images of fold 0's train
+    split, batch 32) and convert, held to the JAX package's CPU conversion
+    (``CONVERT_GOLDEN``, ``CONVERT_LIMITS``); then the fresh artifact, written
+    and read back as stage 4 writes it, and the committed JAX artifact served
+    through ``Predictor`` on the held-out split ``test``."""
+    from inference_efficient_vision_models_tpu_torch.cli.quantize import _save_qmodel
+    from inference_efficient_vision_models_tpu_torch.cli.teacher import load_stage_model
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+    from inference_efficient_vision_models_tpu_torch.models.registry import params_to_jax
+
+    with open(CONVERT_GOLDEN) as f:
+        golden = json.load(f)
+    spec, params, state = load_stage_model(PRUNED, "best", "cuda")
+    t0 = time.perf_counter()
+    folded = qresnet.fold(spec, params_to_jax(spec, params), params_to_jax(spec, state))
+    t_fold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obs = qresnet.calibrate(spec, qresnet.place_folded(folded, "cuda"),
+                            Batches(*calib, 32, "cuda"), max_images=256)
+    torch.cuda.synchronize()
+    t_calib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qmodel = qresnet.convert_static_int8(spec, folded, obs, image_size=(224, 224))
+    t_convert = time.perf_counter() - t0
+    report = compare_conversion(qresnet.serializable(qmodel), golden)
+    out = {"phase": "convert_r2", **_stage_card(dev), "fold_s": t_fold, "calibrate_s": t_calib,
+           "convert_s": t_convert, "calibration_images": 256, "batch": 32, **report,
+           "calibration_error": calibration_error(spec, folded, calib[0], obs, golden)}
+    if not report["ok"]:
+        emit(out)
+        raise SmokeFailure(f"convert_r2: the port's conversion is outside the limits: {report}")
+    imgs, labels = test
+    logits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_qmodel(tmp, "static_int8", qmodel, spec)
+        for name, where in (("port", tmp), ("jax", ARTIFACT)):
+            pred = Predictor.from_artifact(where, "static_int8", device="cuda", batch_size=BATCH)
+            logits[name] = pred.predict_logits(imgs)
+            if logits[name].shape != (len(labels), spec.num_classes) or \
+                    not np.isfinite(logits[name]).all():
+                raise SmokeFailure(f"convert_r2: {name} logits {logits[name].shape}")
+            out[f"{name}_acc"] = float((logits[name].argmax(1) == labels).mean())
+    out["images"] = len(labels)
+    out["argmax_agreement"] = float((logits["port"].argmax(1) == logits["jax"].argmax(1)).mean())
+    out["max_abs_logit_diff"] = float(np.abs(logits["port"] - logits["jax"]).max())
+    emit(out)
 
 
 def bf16_train_steps():
@@ -1560,88 +1760,236 @@ def profile_train_steps(dev, steps):
                        "calls_per_step": t["calls_per_forward"]} for t in prof["top"]]})
 
 
-def run_training(dev):
-    """The training phases in a process of their own, as a user runs the
-    stage CLIs: their steps are bound by the host's launches, so this
-    process's state after the earlier phases (their profiles, allocations,
-    objects) would be timed with them."""
+def run_training(dev, root=None):
+    """The training phases and the stage chain in a process of their own, as
+    a user runs the stage CLIs: their steps are bound by the host's
+    launches, so this process's state after the earlier phases (their
+    profiles, allocations, objects) would be timed with them. The chain
+    writes under ``root`` (a temporary directory if None) -> the kernel
+    launches of the chain's stage 4 and the quantize stage's fold dir."""
     import multiprocessing
-
-    proc = multiprocessing.get_context("spawn").Process(target=training, args=(dev,))
-    proc.start()
-    proc.join()
-    if proc.exitcode != 0:
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = ctx.Process(target=training, args=(dev, root or tmp, q))
+        proc.start()
+        result = None
+        while True:  # a child that dies without a word must not leave this waiting
+            try:
+                result = q.get(timeout=5)
+                break
+            except queue.Empty:
+                if not proc.is_alive():
+                    break
+        proc.join()
+    if proc.exitcode != 0 or result is None:
         raise SmokeFailure(f"the training phases failed (exit code {proc.exitcode})")
+    return result
 
 
-def training(dev):
-    """The bf16 steps timed, the stage CLIs, then the steps profiled: the
-    profiler's window comes after everything this process times."""
-    steps = bf16_train_steps()
-    time_train_steps(dev, steps)
-    stage_clis(dev)
-    profile_train_steps(dev, steps)
+def training(dev, root, q):
+    """The bf16 steps timed, the stage chain, then the steps profiled: the
+    profiler's window comes after everything this process times. Puts the
+    chain's result on ``q`` (None if anything failed)."""
+    result = None
+    try:
+        steps = bf16_train_steps()
+        time_train_steps(dev, steps)
+        result = stage_clis(dev, root)
+        profile_train_steps(dev, steps)
+    finally:
+        q.put(result)
 
 
-def stage_clis(dev):
-    """Stage 1 then stage 2 through the port's CLIs on the card, into a
-    temporary artifacts root: ResNet50 teacher (bf16, batch 64, fold 0, one
-    epoch), ResNet18 student distilled from it (batch 32, alpha 0.5, T 4), then
-    ``choice=2`` for both. Stage logs go to stderr."""
+def stage_clis(dev, root):
+    """Stages 1-4 through the port's CLIs on the card, into ``root``:
+    ResNet50 teacher (bf16, batch 64, fold 0, one epoch), ResNet18 student
+    distilled from it (batch 32, alpha 0.5, T 4), the student pruned (l2,
+    ratio 0.11, round_to 8, one fine-tune epoch) and quantized (the default
+    four methods, 256 calibration images), ``choice=2`` after each. The
+    kernel launch counts are set to 0 before the chain and read after stage
+    4's ``choice=2``; then the fresh INT8 model's kernel path is held to its
+    plain path, bit for bit, on 32 images. Stage logs go to stderr.
+    -> {"launches", "quant_dir"}."""
     import contextlib
-    import tempfile
 
-    from inference_efficient_vision_models_tpu_torch.cli import kd, teacher
+    from inference_efficient_vision_models_tpu_torch.cli import kd, prune, quantize, teacher
     from inference_efficient_vision_models_tpu_torch.core import artifacts
-    from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
 
+    common = [f"artifacts_root={root!r}", "experiment_name='smoke'", "folds=(0,)",
+              "synthetic_size=600", "pretrained=False"]
+    train_args = common + ["epochs=1", "compute_dtype='bfloat16'"]
     stages = [("teacher_cli", teacher, "teacher_training", "resnet50", 64,
                ["model_name='resnet50'"]),
               ("kd_cli", kd, "knowledge_distillation", "resnet18", 32,
                ["student_model='resnet18'", "teacher_exp_name='smoke'", "alpha=0.5",
                 "temperature=4.0"])]
-    with tempfile.TemporaryDirectory() as tmp:
-        common = [f"artifacts_root={tmp!r}", "experiment_name='smoke'", "folds=(0,)",
-                  "epochs=1", "synthetic_size=600", "pretrained=False",
-                  "compute_dtype='bfloat16'"]
-        for phase, mod, stage, model, bs, args in stages:
-            argv = common + args + [f"batch_size={bs}"]
+    _lib.reset_launch_counts()
+    for phase, mod, stage, model, bs, args in stages:
+        argv = train_args + args + [f"batch_size={bs}"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            first = mod.main(argv)
+            wall = time.perf_counter() - t0
+            second = mod.main(argv + ["choice=2"])
+        fold_dir = os.path.join(root, stage, "smoke", "fold_0")
+        hist = artifacts.load_training_log(fold_dir)
+        step_ms = hist["step_ms"][0]
+        steady = step_ms[2:]
+        losses = hist["train_loss"] + hist["val_loss"] + [r["test_loss"] for r in first + second]
+        best = artifacts.load_checkpoint_raw(fold_dir, artifacts.BEST)
+        last = artifacts.load_checkpoint_raw(fold_dir, artifacts.LAST)
+        ref_p, ref_s = _seeded_shapes(fold_dir)
+        checks = {
+            "losses_finite": bool(np.isfinite(losses).all()),
+            # one epoch: model_best and model_last hold the same weights
+            "best_equals_last": all(_same_values(best[k], last[k]) for k in ("params", "state")),
+            "jax_layout": _same_shapes(best["params"], ref_p)
+                          and _same_shapes(best["state"], ref_s)
+                          and _same_shapes(last["opt"]["mu"], ref_p),
+            "bytes_round_trip": _reserializes(fold_dir),
+            "opt_step": int(last["opt"]["step"]) == len(step_ms),
+            "choice2_test_acc_equal": [r["test_acc"] for r in second]
+                                      == [r["test_acc"] for r in first],
+        }
+        med = float(np.median(steady))
+        emit({"phase": phase, **_stage_card(dev), "model": model, "batch": bs,
+              "compute_dtype": "bfloat16", "train_steps": len(step_ms),
+              "step_ms": step_ms, "step_ms_median_steady": med,
+              "images_per_s": bs / med * 1e3, "train_wall_s": wall,
+              "epoch_time_s": hist["epoch_time"][0], "train_loss": hist["train_loss"][0],
+              "val_acc": hist["val_acc"][0], "test_acc": first[0]["test_acc"],
+              "test_acc_choice2": second[0]["test_acc"], "checks": checks})
+        if not all(checks.values()):
+            raise SmokeFailure(f"{phase}: {checks}")
+    prune_cli(dev, root, common)
+    return quantize_cli(dev, root, common)
+
+
+def _seeded_shapes(fold_dir: str):
+    """Seeded weights of the checkpoint's own spec: the JAX layout's shapes."""
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
+
+    return resnet_params_from_seed(spec_from_dict(artifacts.load_spec_dict(fold_dir)), 0)
+
+
+def prune_cli(dev, root, common):
+    """Stage 3 through ``cli/prune.py`` (l2, ratio 0.11, round_to 8, one
+    fine-tune epoch; batch 64 and bf16, the stage's defaults) and its
+    ``choice=2``."""
+    import contextlib
+
+    from inference_efficient_vision_models_tpu_torch.cli import prune
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
+
+    argv = common + ["source_exp_name='smoke'", "pruning_method='l2'", "pruning_ratio=0.11",
+                     "round_to=8", "finetune_epochs=1", "compute_dtype='bfloat16'"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        first = prune.main(argv)
+        wall = time.perf_counter() - t0
+        second = prune.main(argv + ["choice=2"])
+    fold_dir = os.path.join(root, "pruning", "smoke", "fold_0")
+    hist = artifacts.load_training_log(fold_dir)
+    spec = spec_from_dict(artifacts.load_spec_dict(fold_dir))
+    best = artifacts.load_checkpoint_raw(fold_dir, artifacts.BEST)
+    ref_p, ref_s = _seeded_shapes(fold_dir)
+    rows = {r["phase"]: r for r in first}
+    checks = {
+        "losses_finite": bool(np.isfinite(hist["train_loss"] + hist["val_loss"]).all()),
+        "phases": list(rows) == ["baseline", "pruned", "pruned+ft"],
+        "jax_layout_at_spec_widths": _same_shapes(best["params"], ref_p)
+                                     and _same_shapes(best["state"], ref_s),
+        "pruned": spec.stage_widths != (64, 128, 256, 512)
+                  and all(w % 8 == 0 for w in spec.stage_widths),
+        "bytes_round_trip": _reserializes(fold_dir),
+        "choice2_acc_equal": second[0]["Accuracy"] == rows["pruned+ft"]["Accuracy"],
+    }
+    step_ms = hist["step_ms"][0]
+    emit({"phase": "prune_cli", **_stage_card(dev), "model": "resnet18", "batch": 64,
+          "stem_width": spec.stem_width, "stage_widths": list(spec.stage_widths),
+          "prune_wall_s": wall, "finetune_steps": len(step_ms), "finetune_step_ms": step_ms,
+          "finetune_step_ms_median_steady": float(np.median(step_ms[2:])),
+          "finetune_epoch_s": hist["epoch_time"][0], "rows": first, "choice2": second,
+          "checks": checks})
+    if not all(checks.values()):
+        raise SmokeFailure(f"prune_cli: {checks}")
+
+
+def quantize_cli(dev, root, common):
+    """Stage 4 through ``cli/quantize.py`` on the pruned model (the default
+    methods, 256 calibration images, batch 32) and its ``choice=2``; the
+    calibration and conversion timed by wrapping the family module's two
+    functions in this process. Fails when a requested method has no summary
+    row or no artifact, or its ``choice=2`` accuracy differs."""
+    import contextlib
+
+    from inference_efficient_vision_models_tpu_torch.cli import quantize
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
+        load_static_int8)
+    from inference_efficient_vision_models_tpu_torch.core.config import QuantConfig
+
+    methods = QuantConfig(artifacts_root=root).methods
+    timed = {}
+
+    def timer(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(sys.stderr):
-                first = mod.main(argv)
-                wall = time.perf_counter() - t0
-                second = mod.main(argv + ["choice=2"])
-            fold_dir = os.path.join(tmp, stage, "smoke", "fold_0")
-            hist = artifacts.load_training_log(fold_dir)
-            step_ms = hist["step_ms"][0]
-            steady = step_ms[2:]
-            losses = hist["train_loss"] + hist["val_loss"] + [r["test_loss"] for r in first + second]
-            spec = make_spec(model, 6)
-            ref_p, ref_s = resnet_params_from_seed(spec, 0)
-            best = artifacts.load_checkpoint_raw(fold_dir, artifacts.BEST)
-            last = artifacts.load_checkpoint_raw(fold_dir, artifacts.LAST)
-            checks = {
-                "losses_finite": bool(np.isfinite(losses).all()),
-                # one epoch: model_best and model_last hold the same weights
-                "best_equals_last": all(_same_values(best[k], last[k]) for k in ("params", "state")),
-                "jax_layout": _same_shapes(best["params"], ref_p)
-                              and _same_shapes(best["state"], ref_s)
-                              and _same_shapes(last["opt"]["mu"], ref_p),
-                "bytes_round_trip": _reserializes(fold_dir),
-                "opt_step": int(last["opt"]["step"]) == len(step_ms),
-                "choice2_test_acc_equal": [r["test_acc"] for r in second]
-                                          == [r["test_acc"] for r in first],
-            }
-            med = float(np.median(steady))
-            emit({"phase": phase, **_stage_card(dev), "model": model, "batch": bs,
-                  "compute_dtype": "bfloat16", "train_steps": len(step_ms),
-                  "step_ms": step_ms, "step_ms_median_steady": med,
-                  "images_per_s": bs / med * 1e3, "train_wall_s": wall,
-                  "epoch_time_s": hist["epoch_time"][0], "train_loss": hist["train_loss"][0],
-                  "val_acc": hist["val_acc"][0], "test_acc": first[0]["test_acc"],
-                  "test_acc_choice2": second[0]["test_acc"], "checks": checks})
-            if not all(checks.values()):
-                raise SmokeFailure(f"{phase}: {checks}")
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timed[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    argv = common + ["model_type='pruned'", "pruning_exp_name='smoke'",
+                     "calibration_images=256"]
+    calibrate, convert = qresnet.calibrate, qresnet.convert_static_int8
+    qresnet.calibrate = timer("calibrate_s", calibrate)
+    qresnet.convert_static_int8 = timer("convert_s", convert)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            first = quantize.main(argv)
+            wall = time.perf_counter() - t0
+            second = quantize.main(argv + ["choice=2"])
+    finally:
+        qresnet.calibrate, qresnet.convert_static_int8 = calibrate, convert
+    torch.cuda.synchronize()
+    launches = dict(_lib.launches)
+    fold_dir = os.path.join(root, "quantization", "smoke", "fold_0")
+    rows = {r["method"]: r for r in first}
+    reload = {r["method"]: r for r in second}
+    checks = {m: {"row": m in rows, "artifact": os.path.exists(
+                      os.path.join(fold_dir, f"model_{m}.msgpack")),
+                  "restored": m in reload,
+                  "choice2_acc_equal": m in reload and m in rows
+                                       and reload[m]["Accuracy"] == rows[m]["Accuracy"]}
+              for m in methods}
+    checks["fp32"] = {"row": "fp32" in rows}
+    model = load_static_int8(fold_dir, "cuda")
+    hw = 2 * model.q["stem"]["e4"].shape[1]  # the image size it was converted for
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (32, hw, hw, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        kernel, plain = model(x), model(x, impl="plain")
+    exact = bool(torch.equal(kernel, plain))
+    emit({"phase": "quantize_cli", **_stage_card(dev), "model": "resnet18 (pruned)",
+          "methods": list(methods), "quantize_wall_s": wall, **timed, "rows": first,
+          "choice2": second, "launches": launches,
+          "int8_kernel_vs_plain": {"images": 32, "equal": exact,
+                                   "max_abs_err": float((kernel - plain).abs().max())},
+          "checks": checks})
+    bad = {m: c for m, c in checks.items() if not all(c.values())}
+    if bad or not exact:
+        raise SmokeFailure(f"quantize_cli: {bad}, kernel path equal to plain: {exact}")
+    for k in ("int8_matmul_requant", "conv3x3_s1_int8"):
+        if not launches.get(k):
+            raise SmokeFailure(f"quantize_cli: {k} was not launched by the stage chain")
+    return {"launches": launches, "quant_dir": fold_dir}
 
 
 def _same_shapes(tree, ref) -> bool:
@@ -1796,12 +2144,23 @@ def main() -> int:
 
     eff_rows, eff_launches = run_efficientnet(gen)
     vit_rows, vit_launches = run_vit(gen)
-    run_float_r2_eval(dev)
+    calib, test = r2_data()
+    run_float_r2_eval(dev, test)
+    run_convert_r2(dev, calib, test)
     run_train_step_golden(dev)
-    run_training(dev)
-    emit({"kernels": kernels_line(rows + eff_rows + vit_rows,
+    with tempfile.TemporaryDirectory() as root:
+        chain = run_training(dev, root)
+        # the INT8 ResNet18 the chain made: each kernel call of its forward
+        # against the plain version, bit for bit, and timed
+        fresh = load_static_int8(chain["quant_dir"], device="cuda")
+        pipe_rows, fails = check_and_time_main_shapes(fresh, gen, "resnet18_pipeline")
+        if fails:
+            raise SmokeFailure("(a) kernels disagree with their plain versions on the stage "
+                               "chain's model:\n" + "\n".join(fails))
+        del fresh
+    emit({"kernels": kernels_line(rows + eff_rows + vit_rows + pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
-                                   **vit_launches})})
+                                   "resnet18_pipeline": chain["launches"], **vit_launches})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

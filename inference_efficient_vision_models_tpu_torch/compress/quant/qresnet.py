@@ -1,7 +1,16 @@
-"""Static-INT8 ResNet forward on the two int8 kernels.
+"""Quantized ResNet: the folded float forward with its calibration taps, the
+static-INT8 conversion, and the int8 forward on the two int8 kernels.
 
-The port of the JAX package's ``compress/quant/qresnet.py`` executor
-(``restore_stem_offsets``, ``apply_int8`` and its helpers). Activations are
+The port of the JAX package's ``compress/quant/qresnet.py``:
+
+* ``apply_folded``: the fp32 (or fp16/bf16) forward of the BN-folded model,
+  with the activation taps the conversion consumes (what the reference's
+  ``prepare_fx`` observers record);
+* ``convert_static_int8``: weights -> per-channel symmetric int8,
+  activations -> quint8 affine qparams from the observers, the ImageNet
+  normalization folded into the stem; numpy on the host, as the JAX package
+  converts, so the integer leaves are the JAX package's;
+* ``apply_int8``: the static-INT8 forward. Activations are
 shifted quint8 (int8 ``q - 128``) in NHWC, weights per-channel symmetric
 int8. Every conv runs through a hand-written kernel:
 
@@ -34,13 +43,118 @@ import torch.nn.functional as F
 from ...core.artifacts import load_checkpoint_raw
 from ...data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ...models.registry import spec_from_dict
+from ...models.resnet import _conv_w, place
 from ...models.widths import ResNetSpec
 from ...ops.conv3x3 import conv3x3_s1_int8, conv3x3_s1_int8_plain
 from ...ops.im2col import conv_int8_im2col
 from ...ops.int8_matmul import int8_matmul_requant, int8_matmul_requant_plain, pack_weight
 from ...ops.space_to_depth import remap_stem_weights_s2d, space_to_depth_device
-from ...utils.device import DeviceLike, resolve_device
-from .observers import dequantize_affine_shifted
+from ...utils.device import DeviceLike, exact_fp32, resolve_device
+from .fold import fold_conv_bn as fold  # noqa: F401  (the family-module API)
+from .observers import (
+    ObserverState,
+    dequantize_affine_shifted,
+    minmax_qparams_affine,
+    quantize_weight_per_channel,
+)
+
+
+# --------------------------------------------------------------------------
+# the folded float forward and its taps
+# --------------------------------------------------------------------------
+
+
+def place_folded(folded: Dict, device: DeviceLike = None, dtype=None) -> Dict:
+    """A folded tree in the JAX layout (numpy or CPU tensors, HWIO kernels)
+    -> the tree ``apply_folded`` takes: tensors on ``device`` (the GPU unless
+    ``device="cpu"``), OIHW kernels, floating leaves cast to ``dtype`` if given."""
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.array(tree))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.permute(3, 2, 0, 1) if t.ndim == 4 else t
+
+    return place(conv(folded), device)
+
+
+def _conv_f(x, leaf, stride: int, padding: int, relu: bool, groups: int = 1):
+    y = F.conv2d(x, leaf["w"], leaf["b"], stride=stride, padding=padding, groups=groups)
+    return F.relu(y) if relu else y
+
+
+def apply_folded(spec: ResNetSpec, folded: Dict, x, *, with_taps: bool = False,
+                 return_features: bool = False, tap_fn=None, stem_out=None):
+    """Forward of the folded model (``place_folded``) on NHWC float images in
+    the model's dtype -> logits, or the pooled features (pre-classifier), or
+    (logits, taps) with ``with_taps``.
+
+    The taps are the quantization points the conversion consumes, NHWC as
+    the JAX package's (views on the GPU, whose activations are channels-last).
+    ``tap_fn(name, t) -> t'`` intercepts each and its return re-enters the
+    flow; ``stem_out`` (the NHWC pre-max-pool stem activation) skips the
+    stem, and ``x`` is then ignored. fp32 runs with TF32 off."""
+    taps: Dict[str, torch.Tensor] = {}
+
+    def tap(name, t):
+        nhwc = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
+        taps[name] = nhwc
+        if tap_fn is None:
+            return t
+        r = tap_fn(name, nhwc)
+        return _conv_w(r.permute(0, 3, 1, 2)) if r.ndim == 4 else r
+
+    with exact_fp32():
+        if stem_out is None:
+            x = tap("input", _conv_w(x.permute(0, 3, 1, 2)))
+            t = tap("stem", _conv_f(x, folded["conv1"], 2, 3, relu=True))
+        else:
+            t = _conv_w(stem_out.permute(0, 3, 1, 2))
+        t = F.max_pool2d(t, 3, 2, 1)
+
+        for s, depth in enumerate(spec.depths):
+            for b in range(depth):
+                blk = folded[f"layer{s + 1}"][str(b)]
+                stride = spec.block_stride(s, b)
+                identity = t
+                if spec.block == "basic":
+                    h = _conv_f(t, blk["conv1"], stride, 1, relu=True)
+                    h = tap(f"l{s}b{b}i0", h)
+                    h = _conv_f(h, blk["conv2"], 1, 1, relu=False)
+                else:
+                    h = _conv_f(t, blk["conv1"], 1, 0, relu=True)
+                    h = tap(f"l{s}b{b}i0", h)
+                    h = _conv_f(h, blk["conv2"], stride, 1, relu=True, groups=spec.groups)
+                    h = tap(f"l{s}b{b}i1", h)
+                    h = _conv_f(h, blk["conv3"], 1, 0, relu=False)
+                if "down" in blk:
+                    identity = _conv_f(t, blk["down"], stride, 0, relu=False)
+                t = tap(f"l{s}b{b}o", F.relu(h + identity))
+
+        feats = tap("feat", t.mean(dim=(2, 3)))
+        if return_features:
+            return feats
+        logits = feats @ folded["fc"]["w"] + folded["fc"]["b"]
+    return (logits, taps) if with_taps else logits
+
+
+def calibrate(spec: ResNetSpec, folded: Dict, batches, *, max_images: int = 256,
+              averaging_constant=0.01, **observer_kw) -> Dict[str, ObserverState]:
+    """Activation-range calibration over at most ``max_images`` (the
+    reference's budget); ``observer='minmax'|'percentile'|'entropy'``
+    (``calib.calibrate_taps``)."""
+    from .calib import calibrate_taps
+
+    return calibrate_taps(apply_folded, spec, folded, batches, max_images=max_images,
+                          averaging_constant=averaging_constant, **observer_kw)
+
+
+# --------------------------------------------------------------------------
+# conversion (numpy on the host)
+# --------------------------------------------------------------------------
+
 
 def _t32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))  # a copy: msgpack leaves are read-only
@@ -70,6 +184,106 @@ def restore_stem_offsets(stem: Dict) -> Dict:
                        remap_stem_weights_s2d(w_fp).permute(3, 2, 0, 1))
     e4 = conv_d4.permute(0, 2, 3, 1) + 128.0 * w4_scale * w4_q.sum(dim=(0, 1, 2))
     return {**stem, "e": e.contiguous().numpy(), "e4": e4.contiguous().numpy()}
+
+
+STEM_DERIVED_KEYS = ("e", "e4")
+
+
+def _folded_input_stem(spec, folded, obs_out, image_size) -> Dict:
+    """The stem conv with the ImageNet normalization folded in, consuming raw
+    uint8: W' = W * k (k_c = 1 / (255 sigma_c)) quantized per channel, in the
+    7x7 and the space-to-depth 4x4 form; the offset maps ``e`` / ``e4`` are
+    derived (``restore_stem_offsets``) from the stored fp32 kernel ``w_fp``."""
+    w = np.asarray(folded["conv1"]["w"], np.float32)  # (7, 7, 3, C)
+    b = np.asarray(folded["conv1"]["b"], np.float32)
+    k = 1.0 / (255.0 * np.asarray(IMAGENET_STD, np.float32))
+    w_prime = w * k.reshape(1, 1, 3, 1)
+    w_q, w_scale = quantize_weight_per_channel(w_prime, channel_axis=3)
+    w4_q, w4_scale = quantize_weight_per_channel(
+        remap_stem_weights_s2d(torch.from_numpy(w_prime)).numpy(), channel_axis=3)
+    scale, zp = minmax_qparams_affine(obs_out.min, obs_out.max)
+    stem = {
+        "w_q": w_q,
+        "w_scale": w_scale,
+        "w_fp": w.astype(np.float32),  # the exact offset term conv(d, W) needs it
+        "bias": b,
+        "w4_q": w4_q,
+        "w4_scale": w4_scale,
+        "input_hw": np.asarray(image_size, np.int32),
+        "out_scale": np.float32(scale),
+        "out_zp": np.int32(zp),
+    }
+    return restore_stem_offsets(stem)
+
+
+def serializable(qmodel: Dict) -> Dict:
+    """Checkpoint view of a static-int8 model: the derived offset maps left out."""
+    if "stem" not in qmodel or "e" not in qmodel.get("stem", {}):
+        return qmodel
+    stem = {k: v for k, v in qmodel["stem"].items() if k not in STEM_DERIVED_KEYS}
+    return {**qmodel, "stem": stem}
+
+
+def _qconv_params(w, b, obs_out=None) -> Dict:
+    w_q, w_scale = quantize_weight_per_channel(np.asarray(w, np.float32), channel_axis=3)
+    d = {
+        "w_q": w_q,
+        "w_scale": w_scale,
+        "w_sum": w_q.sum(axis=(0, 1, 2), dtype=np.int32),
+        "bias": np.asarray(b, np.float32),
+    }
+    if obs_out is not None:
+        scale, zp = minmax_qparams_affine(obs_out.min, obs_out.max)
+        d["out_scale"] = np.float32(scale)
+        d["out_zp"] = np.int32(zp)
+    return d
+
+
+def convert_static_int8(spec: ResNetSpec, folded: Dict, observers: Dict[str, ObserverState],
+                        *, image_size=(224, 224)) -> Dict:
+    """Folded fp32 model (JAX layout, numpy) + calibrated observers -> the
+    static-int8 tree the JAX package writes (numpy; its int32 leaves int32,
+    as JAX's 32-bit arrays store them). The ImageNet normalization is folded
+    into the stem (the JAX package's default ``fold_input=True``, the only
+    stem the int8 executor runs), so the model consumes raw uint8 pixels
+    with an exact input quantization."""
+    q: Dict = {}
+    s_in, zp_in = minmax_qparams_affine(observers["input"].min, observers["input"].max)
+    q["input"] = {"scale": np.float32(s_in), "zp": np.int32(zp_in)}
+    q["stem"] = _folded_input_stem(spec, folded, observers["stem"], image_size)
+    for s, depth in enumerate(spec.depths):
+        lname = f"layer{s + 1}"
+        q[lname] = {}
+        for b in range(depth):
+            blk = folded[lname][str(b)]
+            out: Dict = {"conv1": _qconv_params(blk["conv1"]["w"], blk["conv1"]["b"],
+                                                observers[f"l{s}b{b}i0"])}
+            if spec.block == "basic":
+                out["conv2"] = _qconv_params(blk["conv2"]["w"], blk["conv2"]["b"])
+            else:
+                out["conv2"] = _qconv_params(blk["conv2"]["w"], blk["conv2"]["b"],
+                                             observers[f"l{s}b{b}i1"])
+                out["conv3"] = _qconv_params(blk["conv3"]["w"], blk["conv3"]["b"])
+            if "down" in blk:
+                out["down"] = _qconv_params(blk["down"]["w"], blk["down"]["b"])
+            o_scale, o_zp = minmax_qparams_affine(observers[f"l{s}b{b}o"].min,
+                                                  observers[f"l{s}b{b}o"].max)
+            out["out_scale"] = np.float32(o_scale)
+            out["out_zp"] = np.int32(o_zp)
+            q[lname][str(b)] = out
+
+    f_scale, f_zp = minmax_qparams_affine(observers["feat"].min, observers["feat"].max)
+    w_q, w_scale = quantize_weight_per_channel(np.asarray(folded["fc"]["w"], np.float32),
+                                               channel_axis=1)
+    q["fc"] = {
+        "w_q": w_q,
+        "w_scale": w_scale,
+        "w_sum": w_q.sum(axis=0, dtype=np.int32),
+        "bias": np.asarray(folded["fc"]["b"], np.float32),
+        "in_scale": np.float32(f_scale),
+        "in_zp": np.int32(f_zp),
+    }
+    return q
 
 
 def restore_derived(qmodel: Dict) -> Dict:

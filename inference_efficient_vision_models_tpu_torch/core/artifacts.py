@@ -16,6 +16,8 @@ split into flax's ``__msgpack_chunked_array__`` form. ``msgpack_restore``
 reads and ``msgpack_serialize`` writes that subset in pure Python, so
 neither needs ``msgpack`` nor ``flax``; trees are nested dicts of numpy
 arrays in the JAX layouts (the models' ``params_to_jax`` make them).
+bfloat16 leaves, which numpy cannot hold without ``ml_dtypes``, are CPU
+torch tensors on both sides (flax writes them as dtype ``bfloat16``).
 ``save_checkpoint`` writes the bytes ``flax.serialization.to_bytes`` writes
 for the same bundle, so the JAX package's ``load_checkpoint_raw`` and its
 resume read a port checkpoint.
@@ -29,6 +31,7 @@ import struct
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 BEST = "best"
 LAST = "last"
@@ -62,6 +65,9 @@ class _Reader:
         if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unsupported msgpack ext type {code}")
         shape, dtype_name, buffer = _Reader(data, raw=True).value()
+        if dtype_name == b"bfloat16":
+            t = torch.frombuffer(bytearray(buffer), dtype=torch.bfloat16).reshape(shape)
+            return t if code == _EXT_NDARRAY else t.reshape(())
         arr = np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
         return arr[()] if code == _EXT_NPSCALAR else arr
 
@@ -207,6 +213,11 @@ class _Writer:
             self.ext(_EXT_NDARRAY, _ndarray_bytes(v))
         elif isinstance(v, np.generic):
             self.ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+        elif isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            w = _Writer()
+            w.value((tuple(int(d) for d in v.shape), "bfloat16",
+                     v.detach().cpu().contiguous().view(torch.int16).numpy().tobytes()))
+            self.ext(_EXT_NDARRAY, bytes(w.out))
         else:
             raise TypeError(f"cannot serialize {type(v).__name__}")
 
@@ -249,11 +260,20 @@ def msgpack_serialize(tree: Any) -> bytes:
 
 
 def _sorted_tree(tree):
-    """Dicts with their keys sorted at every level, leaves as numpy: the tree
-    ``jax.device_get`` gives the JAX package's writer."""
+    """Dicts with their keys sorted at every level, leaves as numpy (bfloat16
+    as CPU tensors): the tree ``jax.device_get`` gives the JAX package's writer."""
     if isinstance(tree, dict):
         return {str(k): _sorted_tree(tree[k]) for k in sorted(tree, key=str)}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
     return np.asarray(tree)
+
+
+def tree_bytes(tree: Any) -> bytes:
+    """The bytes ``flax.serialization.to_bytes(jax.device_get(tree))`` gives
+    for a nested dict of arrays (numpy, or tensors)."""
+    return msgpack_serialize(_sorted_tree(tree))
 
 
 def save_checkpoint(

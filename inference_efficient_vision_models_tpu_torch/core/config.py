@@ -12,7 +12,9 @@ multi-GPU yet), ``profile_dir``, ``num_workers`` (no real-image decode), and
 the ``augment*`` family (``augment=True`` raises in the train loop:
 ``data/augment.py`` is not ported). The device is not a field: the stage
 CLIs run on ``cuda`` unless ``IEVM_PLATFORM=cpu`` (``cli/common.py``).
-``PruningConfig`` and ``QuantConfig`` come with their stages.
+``PruningConfig`` and ``QuantConfig`` (stages 3-4) keep every JAX field too;
+``QuantConfig`` refuses the accuracy tools that are not ported yet (QAT,
+AdaRound, the sensitivity sweep, automix) instead of ignoring them.
 """
 
 from __future__ import annotations
@@ -198,3 +200,112 @@ class KDConfig(BaseConfig):
 
     def resolve_teacher_path(self) -> str:
         return self.teacher_exp_path
+
+
+class PruningConfig(BaseConfig):
+    """Stage 3: structured pruning + fine-tune (reference `p_config.py`)."""
+
+    stage_name = "pruning"
+
+    def _stage_defaults(self):
+        self.source_exp_name = "test"
+        self.model_name = "resnet18"
+        # Pruning hyperparameters (reference `p_config.py:30-34`)
+        self.pruning_ratio = 0.05
+        self.pruning_type = "structured"
+        # 'l1'|'l2'|'random'|'taylor'|'group_norm' (reference menu)
+        # + 'bn_act'|'apoz' (activation-based; compress/prune/importance.py)
+        self.pruning_method = "l2"
+        self.global_pruning = False
+        # pruned channel counts kept at multiples of round_to (8 keeps the
+        # int8 kernels' 16-byte rows whole)
+        self.round_to = 1
+        self.finetune_epochs = 0
+        # Iterative (gradual) pruning: split pruning_ratio across K
+        # prune -> fine-tune cycles, each keeping (1-ratio)^(1/K) of the
+        # current channels so the compounded total matches a one-shot run.
+        self.iterative_steps = 1
+        self.iterative_ft_epochs = 1  # fine-tune epochs BETWEEN steps
+        # Re-estimate BN running stats on train data right after pruning
+        # (train/bn_recal.py); stale stats collapse eval accuracy at
+        # aggressive ratios.
+        self.bn_recalibrate = True
+        self.bn_recal_batches = 16
+        # Taylor criterion: loss gradients averaged over this many train
+        # batches before ranking (one batch is noise-dominated).
+        self.taylor_batches = 8
+        self.learning_rate = 1e-5
+        self.batch_size = 64
+        self.student_exp_path: Optional[str] = None
+
+    def _resolve_paths(self):
+        if self.student_exp_path is None:
+            self.student_exp_path = self.stage_path("knowledge_distillation",
+                                                    self.source_exp_name)
+
+    def _debug_shrink(self):
+        # Reference `p_config.py:69-72`
+        self.num_folds = 1
+        self.fold_id = 0
+        self.finetune_epochs = 1
+        self.batch_size = 2
+        self.synthetic_size = 64
+
+
+class QuantConfig(BaseConfig):
+    """Stage 4: post-training quantization (reference `q_config.py`)."""
+
+    stage_name = "quantization"
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        unported = [k for k, on in (("qat_epochs", self.qat_epochs > 0),
+                                    ("adaround_iters", self.adaround_iters > 0),
+                                    ("sensitivity", bool(self.sensitivity)),
+                                    ("automix", bool(self.automix))) if on]
+        if unported:
+            raise NotImplementedError(
+                f"{unported}: QAT, AdaRound, the sensitivity sweep and automix are not ported "
+                f"yet (ROADMAP queue 1 item 12)")
+
+    def _stage_defaults(self):
+        self.model_type = "pruned"  # 'teacher' | 'student' | 'pruned'
+        self.student_model = "resnet18"
+        self.teacher_model = "resnet50"
+        self.teacher_exp_name = "test"
+        self.student_exp_name = "test"
+        self.pruning_exp_name = "test"
+        self.batch_size = 32
+        # static-INT8 calibration takes at most this many train images of the
+        # fold (reference `quantization/main.py:157`); num_calibration_batches
+        # is the reference's dead field, kept for the overrides
+        self.num_calibration_batches = 10
+        self.calibration_images = 256
+        # activation-range estimator: 'minmax' (EMA, reference parity) |
+        # 'percentile' | 'entropy' (KL); compress/quant/calib.py
+        self.observer = "minmax"
+        self.percentile = 99.99  # only read by observer='percentile'
+        # accuracy tools of the JAX package (not ported: nonzero / True raise)
+        self.qat_epochs = 0
+        self.qat_lr = 1e-5
+        self.adaround_iters = 0
+        self.adaround_lr = 1e-2
+        self.adaround_reg = 0.01
+        self.methods = ("static_int8", "dynamic_int8", "fp16", "weight_only_int8")
+        self.sensitivity = False
+        self.automix = False
+        self.automix_budget = 0.01
+        self.automix_max_taps = 8
+        self.fold_id = 0
+        self.teacher_exp_path: Optional[str] = None
+        self.student_exp_path: Optional[str] = None
+        self.pruning_exp_path: Optional[str] = None
+
+    def _resolve_paths(self):
+        if self.teacher_exp_path is None:
+            self.teacher_exp_path = self.stage_path("teacher_training", self.teacher_exp_name)
+        if self.student_exp_path is None:
+            self.student_exp_path = self.stage_path("knowledge_distillation",
+                                                    self.student_exp_name)
+        if self.pruning_exp_path is None:
+            self.pruning_exp_path = self.stage_path("pruning", self.pruning_exp_name)

@@ -40,6 +40,24 @@ class ResNetSpec:
     def has_downsample(self, s: int, b: int) -> bool:
         return self.block_stride(s, b) != 1 or self.block_in_width(s, b) != self.stage_widths[s]
 
+    @property
+    def stem_tied_to_stage0(self) -> bool:
+        """True when the stem output sits in stage 0's residual group (a
+        basic-block net: stage 0 has no downsample, so pruning the stem
+        width prunes every stage-0 block output with it)."""
+        return not self.has_downsample(0, 0)
+
+    def with_widths(self, stage_widths=None, inner_widths=None,
+                    stem_width: int | None = None) -> "ResNetSpec":
+        """The spec with some widths replaced (the pruner's edit)."""
+        return dataclasses.replace(
+            self,
+            stage_widths=tuple(stage_widths) if stage_widths is not None else self.stage_widths,
+            inner_widths=(_freeze_inner(inner_widths) if inner_widths is not None
+                          else self.inner_widths),
+            stem_width=stem_width if stem_width is not None else self.stem_width,
+        )
+
     def to_dict(self) -> Dict:
         return dataclasses.asdict(self)
 

@@ -22,9 +22,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .compress.quant import wo8
+from .compress.quant.engine import dynamic_forward, folded_forward
 from .compress.quant.fusedpath import load_static_int8_fused
 from .compress.quant.qresnet import load_static_int8
 from .compress.quant.qvit import load_static_int8 as load_static_int8_vit
+from .core.artifacts import load_checkpoint_raw
 from .models.efficientnet import EfficientNetSpec
 from .models.registry import spec_from_dict
 from .models.vit import ViTSpec
@@ -37,7 +40,9 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
 
     Dispatches on the artifact's spec: a ResNet serves ``"static_int8"``
     through the int8 executor, whose stem takes the space-to-depth layout the
-    host preprocess makes; an EfficientNet serves ``"static_int8_fused"``
+    host preprocess makes, and ``"dynamic_int8"``, ``"fp16"``, ``"bf16"`` and
+    ``"weight_only_int8"`` (any artifact of a float-compute method) through
+    the folded float forward on raw uint8; an EfficientNet serves ``"static_int8_fused"``
     (one fused kernel call per MBConv block) from
     ``model_static_int8_fused.msgpack`` or else the shared
     ``model_static_int8.msgpack``; a ViT serves ``"static_int8"`` (fp32
@@ -63,11 +68,34 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
                 "serve 'static_int8_fused'")
         raise NotImplementedError(f"method {method!r} is not ported yet for EfficientNet "
                                   f"(have 'static_int8_fused')")
-    if method != "static_int8":
-        raise NotImplementedError(f"method {method!r} is not ported yet for ResNet "
-                                  f"(have 'static_int8')")
-    model = load_static_int8(fold_dir, device)
-    return model.spec, model, model, space_to_depth_u8
+    if method == "static_int8":
+        model = load_static_int8(fold_dir, device)
+        return model.spec, model, model, space_to_depth_u8
+    return _load_resnet_float(spec, fold_dir, method, device)
+
+
+def _load_resnet_float(spec, fold_dir: str, method: str, device: DeviceLike):
+    """A ResNet artifact of the float-compute methods, told apart by its
+    leaves as the JAX package's loader tells them: weight-only int8 ({"q",
+    "s"} kernels, bf16 compute), dynamic int8 (an ``fc_q`` head, fp32
+    trunk), or a folded cast (fp16 / bf16 / fp32, computed in its own
+    dtype). Each forward normalizes the raw uint8 images on the device and
+    runs ``qresnet.apply_folded`` (the JAX loader folds the normalization
+    into an s2d float stem instead: the same function, rounded elsewhere)."""
+    if method.startswith(("static_int8_", "weight_only_int4")):
+        raise NotImplementedError(f"method {method!r} is not ported yet for ResNet (ROADMAP "
+                                  f"queue 1 items 11 and 14)")
+    model = load_checkpoint_raw(fold_dir, method)
+    if wo8.is_weight_only(model):
+        fn = folded_forward(spec, wo8.dequantize(model, torch.bfloat16), torch.bfloat16, device)
+    elif "fc_q" in model:
+        fn = dynamic_forward(spec, model, device)
+    else:
+        leaf = model["fc"]["w"]
+        dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else \
+            {np.dtype(np.float16): torch.float16, np.dtype(np.float32): torch.float32}[leaf.dtype]
+        fn = folded_forward(spec, model, dtype, device)
+    return spec, model, fn, None
 
 
 class Predictor:

@@ -13,7 +13,7 @@ times (empty on the CPU, where no device time exists).
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,17 +79,25 @@ def train_classifier(
     logger,
     *,
     teacher=None,  # (teacher_spec, teacher_params, teacher_state) -> KD mode
+    epochs: Optional[int] = None,
+    learning_rate: Optional[float] = None,
+    save: bool = True,
+    resume: Optional[bool] = None,
     device: DeviceLike = None,
 ):
     """Train with best-val tracking; returns (params, state, history) of the
     best epoch, on ``device`` (the GPU unless ``device="cpu"``).
 
     ``teacher`` switches the step to knowledge distillation with cfg.alpha /
-    cfg.temperature / cfg.sp_weight. ``cfg.resume`` continues an
-    interrupted run from ``model_last``, optimizer state and batch order
-    included. Checkpoints are written in the JAX layout."""
+    cfg.temperature / cfg.sp_weight. ``epochs``, ``learning_rate`` and
+    ``resume`` override the config's fields (the stage-3 fine-tune passes
+    its own). ``resume`` continues an interrupted run from ``model_last``,
+    optimizer state and batch order included. Checkpoints are written in
+    the JAX layout; ``save=False`` writes nothing into ``fold_dir``."""
     dev = resolve_device(device)
-    epochs, resume = cfg.epochs, cfg.resume
+    epochs = cfg.epochs if epochs is None else epochs
+    lr = cfg.learning_rate if learning_rate is None else learning_rate
+    resume = cfg.resume if resume is None else resume
     if cfg.augment:
         raise NotImplementedError("train-time augmentation (data/augment.py) is not ported yet "
                                   "(ROADMAP queue 1: augment.py)")
@@ -100,20 +108,20 @@ def train_classifier(
     schedule = None
     if cfg.lr_schedule != "constant":
         schedule = make_lr_schedule(
-            cfg.lr_schedule, cfg.learning_rate, epochs * len(train_loader),
+            cfg.lr_schedule, lr, epochs * len(train_loader),
             warmup_steps=cfg.warmup_steps, min_fraction=cfg.lr_min_fraction,
         )
         logger.info("lr schedule: %s over %d steps", cfg.lr_schedule, epochs * len(train_loader))
 
     if teacher is None:
-        step = steps_mod.make_train_step(spec, learning_rate=cfg.learning_rate,
+        step = steps_mod.make_train_step(spec, learning_rate=lr,
                                          compute_dtype=cfg.compute_dtype, lr_schedule=schedule)
         extra = ()
     else:
         t_spec, t_params, t_state = teacher
         step = steps_mod.make_kd_train_step(
             spec, t_spec, alpha=cfg.alpha, temperature=cfg.temperature,
-            learning_rate=cfg.learning_rate, compute_dtype=cfg.compute_dtype,
+            learning_rate=lr, compute_dtype=cfg.compute_dtype,
             lr_schedule=schedule, sp_weight=float(cfg.sp_weight))
         extra = (t_params, t_state)
     eval_step = steps_mod.make_eval_step(spec, compute_dtype=cfg.compute_dtype)
@@ -162,13 +170,15 @@ def train_classifier(
         if val["acc"] > best_acc:
             best_acc = val["acc"]
             best = (to_jax(carry[0]), to_jax(carry[1]))
-            artifacts.save_checkpoint(fold_dir, artifacts.BEST, best[0], best[1], spec)
-            logger.info("new best val acc %.2f%% → model_best", best_acc * 100)
-        artifacts.save_checkpoint(
-            fold_dir, artifacts.LAST, to_jax(carry[0]), to_jax(carry[1]), spec,
-            opt=opt_to_jax(carry[2], to_jax), meta={"epoch": epoch, "best_acc": best_acc},
-        )
-        artifacts.save_training_log(fold_dir, history)
+            if save:
+                artifacts.save_checkpoint(fold_dir, artifacts.BEST, best[0], best[1], spec)
+                logger.info("new best val acc %.2f%% → model_best", best_acc * 100)
+        if save:
+            artifacts.save_checkpoint(
+                fold_dir, artifacts.LAST, to_jax(carry[0]), to_jax(carry[1]), spec,
+                opt=opt_to_jax(carry[2], to_jax), meta={"epoch": epoch, "best_acc": best_acc},
+            )
+            artifacts.save_training_log(fold_dir, history)
 
     if best is None:  # epochs == 0 or resumed past the best epoch
         if resume and best_acc >= 0 and artifacts.checkpoint_exists(fold_dir, artifacts.BEST):

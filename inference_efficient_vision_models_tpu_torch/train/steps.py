@@ -34,14 +34,17 @@ def _tracked(params):
     return leaves
 
 
-def ce_loss_and_grads(spec, params, state, batch, *, compute_dtype="bfloat16"):
-    """-> (loss, logits, new_state, grads in ``tree_leaves(params)`` order)."""
+def ce_loss_and_grads(spec, params, state, batch, *, compute_dtype="bfloat16",
+                      train: bool = True):
+    """-> (loss, logits, new_state, grads in ``tree_leaves(params)`` order).
+    ``train=False`` takes the gradient through the eval-mode forward (running
+    BatchNorm statistics), as the Taylor pruning criterion does."""
     cdt = compute_dtype_of(compute_dtype)
     imgs_u8, labels, mask = batch
     with exact_fp32(), torch.enable_grad():
         leaves = _tracked(params)
         logits, new_state = apply_model(spec, params, state, normalize_images(imgs_u8, cdt),
-                                        train=True, compute_dtype=cdt)
+                                        train=train, compute_dtype=cdt)
         loss = cross_entropy(logits, labels, mask)
         grads = list(torch.autograd.grad(loss, leaves))
     return loss.detach(), logits.detach(), new_state, grads

@@ -1,7 +1,7 @@
 """The port's stage CLIs on the CPU (``IEVM_PLATFORM=cpu``) at a tiny size:
-teacher -> KD -> ``choice=2``, checkpoints crossing between the two packages
-in both directions, resume from ``model_last``, and the device rules (no
-fallback to the CPU)."""
+teacher -> KD -> prune -> quantize and ``choice=2`` of each, checkpoints and
+stage-4 artifacts crossing between the two packages in both directions,
+resume from ``model_last``, and the device rules (no fallback to the CPU)."""
 
 import json
 import os
@@ -17,7 +17,7 @@ from inference_efficient_vision_models_tpu.data.pipeline import normalize_images
 from inference_efficient_vision_models_tpu.models import registry as jreg
 from inference_efficient_vision_models_tpu.models import resnet as jr
 from inference_efficient_vision_models_tpu.train import optim as jo
-from inference_efficient_vision_models_tpu_torch.cli import common, kd, teacher
+from inference_efficient_vision_models_tpu_torch.cli import common, kd, prune, quantize, teacher
 from inference_efficient_vision_models_tpu_torch.core import artifacts as tart
 from inference_efficient_vision_models_tpu_torch.core.config import TeacherConfig
 from inference_efficient_vision_models_tpu_torch.core.log import get_logger
@@ -29,8 +29,10 @@ from inference_efficient_vision_models_tpu_torch.train.loop import train_classif
 from chip_smoke import resnet_params_from_seed
 
 try:
+    from tests.test_torch_port_prune import one_thread  # noqa: F401  (autouse)
     from tests.test_torch_port_resnet_float import flat, tiny_spec_dict
 except ImportError:
+    from test_torch_port_prune import one_thread  # noqa: F401  (autouse)
     from test_torch_port_resnet_float import flat, tiny_spec_dict
 
 TEACHER = tiny_spec_dict("bottleneck", 2)
@@ -48,6 +50,20 @@ def common_args(root, **over):
 @pytest.fixture
 def cpu_platform(monkeypatch):
     monkeypatch.setenv("IEVM_PLATFORM", "cpu")
+
+
+@pytest.fixture
+def short_timing(monkeypatch):
+    """Stages 3-4 time every model they evaluate (latency and throughput
+    loops budgeted at 15 s each); a CPU time means nothing, so the tests
+    run each loop at its floor (no warm-up, 3 timed calls)."""
+    from inference_efficient_vision_models_tpu_torch.metrics import profile
+
+    def floor(fn, args, warmup, iters, budget_s):
+        fn(*args)
+        return 0, 3
+
+    monkeypatch.setattr(profile, "_budgeted", floor)
 
 
 def test_teacher_kd_and_choice2(tmp_path, cpu_platform):
@@ -114,6 +130,100 @@ def test_jax_written_teacher_feeds_port_kd(tmp_path, cpu_platform):
     res = kd.main(common_args(tmp_path, epochs=1) + [
         "teacher_exp_name='jx'", f"student_model={STUDENT!r}"])
     assert len(res) == 1 and np.isfinite(res[0]["test_loss"])
+
+
+QUANT_METHODS = ("static_int8", "dynamic_int8", "fp16", "bf16", "weight_only_int8")
+
+
+def debug_args(root, **over):
+    kw = dict(artifacts_root=str(root), image_size=(32, 32), folds=(0,), pretrained=False,
+              compute_dtype="float32", DEBUG_MODE=True)
+    kw.update(over)
+    return [f"{k}={v!r}" for k, v in kw.items()]
+
+
+def test_prune_and_quantize_clis_debug_mode(tmp_path, cpu_platform, short_timing):
+    """Stages 1-4 under DEBUG_MODE (the JAX package's e2e test of its CLIs,
+    tests/test_cli_e2e.py, at the port's tiny size), ``choice=2`` of stages
+    3 and 4 reproducing their results, and the artifacts read by the JAX
+    package's loaders."""
+    from inference_efficient_vision_models_tpu.serving import load_quantized as j_load_q
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    teacher.main(debug_args(tmp_path, model_name=TEACHER))
+    kd.main(debug_args(tmp_path, student_model=STUDENT))
+    p1 = prune.main(debug_args(tmp_path, pruning_ratio=0.3, round_to=8))
+    assert [r["phase"] for r in p1] == ["baseline", "pruned", "pruned+ft"]
+    assert p1[1]["Params (M)"] < p1[0]["Params (M)"] and p1[1]["MACs (G)"] < p1[0]["MACs (G)"]
+    p2 = prune.main(debug_args(tmp_path, choice=2))
+    for k in ("Accuracy", "MACs (G)", "Params (M)", "Size (MB)"):
+        assert p2[0][k] == p1[2][k], k  # the saved model is the fine-tuned one
+    pfold = tmp_path / "pruning" / "test" / "fold_0"
+    spec = jreg.spec_from_dict(json.loads((pfold / "model_best.spec.json").read_text()))
+    assert spec.stage_widths != tuple(STUDENT["stage_widths"])
+    assert all(w % 8 == 0 for w in spec.stage_widths)
+    raw = jart.load_checkpoint_raw(str(pfold), "best")  # the JAX reader
+    ref_p, ref_s = resnet_params_from_seed(spec, 0)
+    assert flat(raw["params"]).keys() == flat(ref_p).keys()
+    for k, v in flat(raw["params"]).items():
+        assert v.shape == flat(ref_p)[k].shape, k
+    assert len(json.loads((pfold / "training_log.json").read_text())["train_loss"]) == 1
+
+    q1 = quantize.main(debug_args(tmp_path, methods=QUANT_METHODS))
+    assert [r["method"] for r in q1] == ["fp32", *QUANT_METHODS]
+    assert all(np.isfinite(r["Accuracy"]) and r["Size (MB)"] > 0 for r in q1)
+    q2 = quantize.main(debug_args(tmp_path, choice=2, methods=QUANT_METHODS))
+    for a, b in zip(q1[1:], q2):
+        assert (b["method"], b["Accuracy"], b["Size (MB)"]) == (a["method"], a["Accuracy"],
+                                                                  a["Size (MB)"])
+    qfold = str(tmp_path / "quantization" / "test" / "fold_0")
+    prov = json.loads(open(os.path.join(qfold, "provenance.json")).read())
+    assert prov["model_type"] == "pruned" and prov["stage_widths"] == list(spec.stage_widths)
+    assert prov["upstream"]["stage"] == "pruning"
+    assert prov["upstream"]["upstream"]["upstream"]["stage"] == "teacher_training"
+
+    # every artifact restored by the JAX package's loader; static_int8 gives
+    # the port's plain-path argmax (and logits within the serving limit)
+    x = np.random.default_rng(4).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    for method in QUANT_METHODS:
+        _, _, j_fn, j_pre = j_load_q(qfold, method)
+        _, _, fn, pre = load_quantized(qfold, method, device="cpu")
+        ref = np.asarray(j_fn(jnp.asarray(j_pre(x) if j_pre else x)), np.float32)
+        with torch.no_grad():
+            got = fn(torch.from_numpy(pre(x) if pre else x)).float().numpy()
+        assert ref.shape == got.shape == (6, 6) and np.isfinite(ref).all(), method
+        if method == "static_int8":
+            np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))
+            np.testing.assert_allclose(got, ref, rtol=0.02, atol=0.02)
+
+
+def test_port_quantizes_a_jax_pruned_checkpoint(tmp_path, cpu_platform, short_timing):
+    """A checkpoint pruned and written by the JAX package feeds the port's
+    stage 4: the port reads it back to the JAX logits, and converts it."""
+    from inference_efficient_vision_models_tpu.compress.prune import prune_model as j_prune
+
+    spec0 = jreg.spec_from_dict(STUDENT)
+    spec, p, s = j_prune(spec0, *resnet_params_from_seed(spec0, 3), ratio=0.25, round_to=8)
+    fold = str(tmp_path / "pruning" / "jx" / "fold_0")
+    jart.save_checkpoint(fold, "best", p, s, spec)
+    x = np.random.default_rng(1).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    ref = np.asarray(jr.apply(spec, p, s, j_norm(jnp.asarray(x)))[0])
+    tspec, tp, ts = teacher.load_stage_model(fold, "best", "cpu")
+    assert tspec.to_dict() == spec.to_dict()
+    got = tr.apply(tspec, tp, ts, normalize_images(torch.from_numpy(x)))[0].detach().numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    rows = quantize.main(common_args(tmp_path, epochs=1) + [
+        "pruning_exp_name='jx'", "calibration_images=16", "methods=('static_int8',)"])
+    assert [r["method"] for r in rows] == ["fp32", "static_int8"]
+
+
+def test_unported_stage4_options_raise(tmp_path):
+    from inference_efficient_vision_models_tpu_torch.core.config import QuantConfig
+
+    for over in ({"qat_epochs": 1}, {"adaround_iters": 4}, {"sensitivity": True},
+                 {"automix": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            QuantConfig(artifacts_root=str(tmp_path), **over)
 
 
 def test_resume_continues_the_same_trajectory(tmp_path):
