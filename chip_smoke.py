@@ -532,24 +532,27 @@ def compare_exact(got: torch.Tensor, ref: torch.Tensor):
 
 
 def kernel_a_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, batch: int = BATCH,
-                 calls: int = 1):
+                 calls: int = 1, timed: bool = True):
     """(a) kernel A at one served call, exact against its plain version, then
-    its time beside the plain version's, its bound and torch._int_mm's.
-    Rows off the batch-256 forward are left out of the kernels line."""
+    (``timed``) its time beside the plain version's, its bound and
+    torch._int_mm's. Rows off the batch-256 forward are left out of the
+    kernels line."""
     args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
     ok, err = compare_exact(int8_matmul_requant(*args, **kw), int8_matmul_requant_plain(*args, **kw))
     nbytes, ops = cost("int8_matmul_requant", x, leaf, kw)
-    lib, lib_note = int_mm_ms(x, leaf)
     row = {
         "path": path, "kernel": "int8_matmul_requant", "call": label, "batch": batch,
         "x": list(x.shape), "x_dtype": str(x.dtype)[6:], "n": leaf["w"].n, "max_abs_err": err,
-        "ms": time_ms(lambda: int8_matmul_requant(*args, **kw), spin=True),
-        "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw), spin=True),
         "bytes": nbytes, "ops": ops,
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
-        "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
         "calls": calls, "in_forward": batch == BATCH,
     }
+    if timed:
+        lib, lib_note = int_mm_ms(x, leaf)
+        row.update({
+            "ms": time_ms(lambda: int8_matmul_requant(*args, **kw), spin=True),
+            "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw), spin=True),
+            "library_ms": lib, **({"library_note": lib_note} if lib_note else {})})
     return row, [] if ok else [f"int8_matmul_requant {path} {label} {tuple(x.shape)} "
                                f"b{batch}: max abs err {err}"]
 
@@ -667,21 +670,32 @@ def check_odd_shapes(gen: torch.Generator):
     return fails
 
 
-def check_and_time_main_shapes(model, gen: torch.Generator, path: str = "resnet18"):
+def call_key(row) -> tuple:
+    """What a kernel call's time depends on: its kernel, shapes and epilogue."""
+    return (row["kernel"], row["batch"], tuple(row["x"]), row.get("x_dtype"), row["n"],
+            row.get("residual"))
+
+
+def check_and_time_main_shapes(model, gen: torch.Generator, path: str = "resnet18",
+                               timed_rows=()):
     """(a) at every served shape (batch 256; kernel A at batch 1 too), then
-    the timings; ``path`` names the model's path in the rows."""
+    the timings; ``path`` names the model's path in the rows. A call whose
+    ``call_key`` one of ``timed_rows`` has is checked and not timed again."""
     rows, fails = [], []
+    seen = {call_key(r) for r in timed_rows}
     for kernel, label, shape, dtype, leaf, kw in main_path_calls(model, 1):
         if kernel == "int8_matmul_requant":
-            row, f = kernel_a_row(path, label, make_input(shape, dtype, kw["in_zp"], gen),
-                                  leaf, kw, batch=1)
+            x = make_input(shape, dtype, kw["in_zp"], gen)
+            key = (kernel, 1, tuple(shape), str(dtype)[6:], leaf["w"].n, None)
+            row, f = kernel_a_row(path, label, x, leaf, kw, batch=1, timed=key not in seen)
             rows.append(row)
             fails += f
             emit({"phase": "a_main_shape", **row})
     for kernel, label, shape, dtype, leaf, kw in main_path_calls(model, BATCH):
         x = make_input(shape, dtype, kw["in_zp"], gen)
         if kernel == "int8_matmul_requant":
-            row, f = kernel_a_row(path, label, x, leaf, kw)
+            key = (kernel, BATCH, tuple(shape), str(dtype)[6:], leaf["w"].n, None)
+            row, f = kernel_a_row(path, label, x, leaf, kw, timed=key not in seen)
             rows.append(row)
             fails += f
             emit({"phase": "a_main_shape", **row})
@@ -693,23 +707,28 @@ def check_and_time_main_shapes(model, gen: torch.Generator, path: str = "resnet1
         if not ok:
             fails.append(f"{kernel} {label} {tuple(shape)}: max abs err {err}")
         nbytes, ops = cost(kernel, x, leaf, kw)
-        m, k = x.numel() // shape[-1], 9 * shape[-1]
-        lib, lib_note = int_mm_ms(make_input((m, k), torch.int8, kw["in_zp"], gen), leaf)
         res = kw.get("residual")
-        rows.append({
+        row = {
             "path": path, "kernel": kernel, "call": label, "batch": BATCH, "x": list(shape),
             "n": n, "max_abs_err": err,
             "residual": None if res is None else ("float32" if isinstance(res, torch.Tensor)
                                                   else "int8"),
-            "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
-            "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
             "bytes": nbytes, "ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
-            "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
-            "library": "torch._int_mm at (M, 9C, O): the GEMM only, no patch matrix",
-        })
+        }
+        if call_key(row) not in seen:
+            m, k = x.numel() // shape[-1], 9 * shape[-1]
+            lib, lib_note = int_mm_ms(make_input((m, k), torch.int8, kw["in_zp"], gen), leaf)
+            row.update({
+                "ms": time_ms(lambda: KERNEL[kernel](*args, **kw), spin=True),
+                "plain_ms": time_ms(lambda: PLAIN[kernel](*args, **kw), spin=True),
+                "library_ms": lib, **({"library_note": lib_note} if lib_note else {}),
+                "library": "torch._int_mm at (M, 9C, O): the GEMM only, no patch matrix"})
+        rows.append(row)
         emit({"phase": "a_main_shape", **rows[-1]})
         del x, args, kw
+    if timed_rows:
+        return rows, fails
     # the stem's patch matrix, built outside the kernel (plain data movement)
     st = model.q["stem"]
     h = st["e4"].shape[1]
@@ -1595,46 +1614,6 @@ def run_train_step_golden(dev):
         raise SmokeFailure(f"train_step_golden: {fails} outside the limits")
 
 
-def _ema_ranges(spec, folded, imgs: np.ndarray, dtype, cudnn: bool) -> dict:
-    """minmax-EMA tap ranges of the calibration set (batches of 32) from one
-    forward per batch in ``dtype``, with or without cuDNN: tap -> (min, max)."""
-    import contextlib
-
-    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
-    from inference_efficient_vision_models_tpu_torch.compress.quant.observers import (
-        ObserverState)
-    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
-
-    f = qresnet.place_folded(folded, "cuda", dtype)
-    x = torch.from_numpy(imgs).cuda()
-    flags = contextlib.nullcontext() if cudnn else torch.backends.cudnn.flags(enabled=False)
-    obs = {}
-    with torch.no_grad(), flags:
-        for i in range(0, len(x), 32):
-            taps = qresnet.apply_folded(spec, f, normalize_images(x[i : i + 32]).to(dtype),
-                                        with_taps=True)[1]
-            for name, t in taps.items():
-                obs[name] = obs.get(name, ObserverState.fresh()).update(float(t.min()),
-                                                                       float(t.max()))
-    return {k: (o.min, o.max) for k, o in obs.items()}
-
-
-def calibration_error(spec, folded, imgs, obs, golden) -> dict:
-    """How far each fp32 calibration's tap ranges lie from an fp64 forward's
-    (largest relative deviation of a range end over the taps): the port's
-    (``obs``, cuDNN off), cuDNN's fp32 algorithms (TF32 off), and the JAX
-    golden's (XLA on the CPU)."""
-    exact = _ema_ranges(spec, folded, imgs, torch.float64, cudnn=True)
-
-    def dev(ranges):
-        return max(abs(float(ranges[k][i]) - exact[k][i]) / max(abs(exact[k][i]), 1e-30)
-                   for k in exact for i in (0, 1))
-
-    return {"port_fp32_no_cudnn_vs_fp64": dev({k: (o.min, o.max) for k, o in obs.items()}),
-            "cudnn_fp32_vs_fp64": dev(_ema_ranges(spec, folded, imgs, torch.float32, True)),
-            "jax_cpu_fp32_vs_fp64": dev(golden["observers"])}
-
-
 def run_convert_r2(dev, calib, test):
     """Stage 4 on the committed pruned r2 checkpoint, on the card: fold,
     calibrate (minmax, ``calib``: the first 256 images of fold 0's train
@@ -1664,8 +1643,7 @@ def run_convert_r2(dev, calib, test):
     t_convert = time.perf_counter() - t0
     report = compare_conversion(qresnet.serializable(qmodel), golden)
     out = {"phase": "convert_r2", **_stage_card(dev), "fold_s": t_fold, "calibrate_s": t_calib,
-           "convert_s": t_convert, "calibration_images": 256, "batch": 32, **report,
-           "calibration_error": calibration_error(spec, folded, calib[0], obs, golden)}
+           "convert_s": t_convert, "calibration_images": 256, "batch": 32, **report}
     if not report["ok"]:
         emit(out)
         raise SmokeFailure(f"convert_r2: the port's conversion is outside the limits: {report}")
@@ -1921,43 +1899,26 @@ def prune_cli(dev, root, common):
 def quantize_cli(dev, root, common):
     """Stage 4 through ``cli/quantize.py`` on the pruned model (the default
     methods, 256 calibration images, batch 32) and its ``choice=2``; the
-    calibration and conversion timed by wrapping the family module's two
-    functions in this process. Fails when a requested method has no summary
-    row or no artifact, or its ``choice=2`` accuracy differs."""
+    calibration and conversion times are the engine's, from the fold's
+    provenance record. Fails when a requested method has no summary row or
+    no artifact, its ``choice=2`` accuracy differs, or the times are
+    missing."""
     import contextlib
 
     from inference_efficient_vision_models_tpu_torch.cli import quantize
-    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
     from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
         load_static_int8)
     from inference_efficient_vision_models_tpu_torch.core.config import QuantConfig
+    from inference_efficient_vision_models_tpu_torch.core.provenance import read_provenance
 
     methods = QuantConfig(artifacts_root=root).methods
-    timed = {}
-
-    def timer(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            timed[name] = time.perf_counter() - t0
-            return out
-        return run
-
     argv = common + ["model_type='pruned'", "pruning_exp_name='smoke'",
                      "calibration_images=256"]
-    calibrate, convert = qresnet.calibrate, qresnet.convert_static_int8
-    qresnet.calibrate = timer("calibrate_s", calibrate)
-    qresnet.convert_static_int8 = timer("convert_s", convert)
-    try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            first = quantize.main(argv)
-            wall = time.perf_counter() - t0
-            second = quantize.main(argv + ["choice=2"])
-    finally:
-        qresnet.calibrate, qresnet.convert_static_int8 = calibrate, convert
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        first = quantize.main(argv)
+        wall = time.perf_counter() - t0
+        second = quantize.main(argv + ["choice=2"])
     torch.cuda.synchronize()
     launches = dict(_lib.launches)
     fold_dir = os.path.join(root, "quantization", "smoke", "fold_0")
@@ -1970,6 +1931,8 @@ def quantize_cli(dev, root, common):
                                        and reload[m]["Accuracy"] == rows[m]["Accuracy"]}
               for m in methods}
     checks["fp32"] = {"row": "fp32" in rows}
+    timed = (read_provenance(fold_dir) or {}).get("static_int8_timings", {})
+    checks["static_int8_timings"] = {k: k in timed for k in ("calibrate_s", "convert_s")}
     model = load_static_int8(fold_dir, "cuda")
     hw = 2 * model.q["stem"]["e4"].shape[1]  # the image size it was converted for
     x = torch.from_numpy(np.random.default_rng(7).integers(
@@ -2015,11 +1978,13 @@ def _reserializes(fold_dir: str) -> bool:
     return True
 
 
-def kernels_line(rows, launches_by_path):
+def kernels_line(rows, launches_by_path, aside=()):
     """One entry per kernel: time, plain time, bound and library time summed
     over its calls in one batch-256 forward of every path that runs it (a row
     stands for ``calls`` identical calls; rows off that forward are left
-    out); launches summed over the counted runs of those paths."""
+    out); launches summed over the counted runs of those paths. The paths in
+    ``aside`` (a second model at the same shapes) add their launches, their
+    largest error and an entry under ``paths``, and nothing to the sums."""
     notes = {
         "fused_mbconv_block": "no PyTorch call computes a fused int8 MBConv block, and PyTorch "
                               "has no int8 convolution on CUDA",
@@ -2030,28 +1995,38 @@ def kernels_line(rows, launches_by_path):
     }
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
-        mine = [r for r in rows if r["kernel"] == k and r.get("in_forward", True)]
+        every = [r for r in rows if r["kernel"] == k and r.get("in_forward", True)]
+        mine = [r for r in every if r["path"] not in aside]
         n = [r.get("calls", 1) for r in mine]
         parts = [max(r["bytes_ms"], r["ops_ms"], r.get("dw_ms", 0.0)) for r in mine]
         by = {"bytes": sum(c * p for c, p, r in zip(n, parts, mine) if p == r["bytes_ms"]),
               "operations": sum(c * p for c, p, r in zip(n, parts, mine) if p != r["bytes_ms"])}
         libs = [r["library_ms"] for r in mine]
-        paths = sorted({r["path"] for r in mine})
+        summed = sorted({r["path"] for r in mine})
+        paths = sorted({r["path"] for r in every})
+
+        def path_entry(p):
+            its = [r for r in every if r["path"] == p]
+            timed = [r for r in its if "ms" in r]
+            return {"calls": sum(r.get("calls", 1) for r in its),
+                    "timed_calls": sum(r.get("calls", 1) for r in timed),
+                    "ms": sum(r.get("calls", 1) * r["ms"] for r in timed),
+                    "launches": launches_by_path[p].get(k, 0),
+                    **({"in_sums": False} if p in aside else {})}
+
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(launches_by_path[p].get(k, 0) for p in paths),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": sum(c * r["ms"] for c, r in zip(n, mine)),
             "plain_ms": sum(c * r["plain_ms"] for c, r in zip(n, mine)),
             "bound_ms": sum(c * p for c, p in zip(n, parts)),
             "bound_by": max(by, key=by.get),
             "library_ms": None if None in libs else sum(c * v for c, v in zip(n, libs)),
             **({"library_note": notes[k]} if k in notes else {}),
-            "per": f"one batch-{BATCH} forward of {' and '.join(paths)}: sum over its "
+            "per": f"one batch-{BATCH} forward of {' and '.join(summed)}: sum over its "
                    f"{sum(n)} calls",
-            "paths": {p: {"calls": sum(c for c, r in zip(n, mine) if r["path"] == p),
-                          "ms": sum(c * r["ms"] for c, r in zip(n, mine) if r["path"] == p),
-                          "launches": launches_by_path[p].get(k, 0)} for p in paths},
+            "paths": {p: path_entry(p) for p in paths},
         })
     return kernels
 
@@ -2151,16 +2126,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         chain = run_training(dev, root)
         # the INT8 ResNet18 the chain made: each kernel call of its forward
-        # against the plain version, bit for bit, and timed
+        # against the plain version, bit for bit; timed where r2's calls
+        # have not the same shapes
         fresh = load_static_int8(chain["quant_dir"], device="cuda")
-        pipe_rows, fails = check_and_time_main_shapes(fresh, gen, "resnet18_pipeline")
+        pipe_rows, fails = check_and_time_main_shapes(fresh, gen, "resnet18_pipeline",
+                                                      timed_rows=rows)
         if fails:
             raise SmokeFailure("(a) kernels disagree with their plain versions on the stage "
                                "chain's model:\n" + "\n".join(fails))
         del fresh
     emit({"kernels": kernels_line(rows + eff_rows + vit_rows + pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
-                                   "resnet18_pipeline": chain["launches"], **vit_launches})})
+                                   "resnet18_pipeline": chain["launches"], **vit_launches},
+                                  aside={"resnet18_pipeline"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

@@ -6,9 +6,10 @@ fold's own train split, run every requested method, measure accuracy,
 size, batch-1 latency and batch throughput, save each artifact
 (``model_<method>.msgpack`` from ``serializable(model)`` + ``spec.json``,
 read by either package's ``load_quantized``), and emit the summary table
-and CSV. A method that fails is logged and skipped, as in the reference,
-so the others still run. choice=2 reloads the saved artifacts and
-re-measures accuracy and size.
+and CSV; the fold's provenance record also holds static_int8's
+calibration and conversion seconds. A method that fails is logged and
+skipped, as in the reference, so the others still run. choice=2 reloads
+the saved artifacts and re-measures accuracy and size.
 
     python -m inference_efficient_vision_models_tpu_torch.cli.quantize key=value ...
 """
@@ -136,7 +137,7 @@ def run_quantize(cfg, logger, data, split, device=None):
             stage_widths=[int(w) for w in spec.stage_widths],
             observer=cfg.observer, qat_epochs=cfg.qat_epochs,
             adaround_iters=cfg.adaround_iters, calibration_images=cfg.calibration_images,
-            methods=list(cfg.methods),
+            methods=list(cfg.methods), static_int8_timings=engine.timings,
         ))
     summarize_folds(rows, cfg.output_dir, logger, name="quantization_summary")
     return rows

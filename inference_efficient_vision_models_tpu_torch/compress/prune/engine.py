@@ -268,7 +268,7 @@ class StructuredPruningEngine:
             return self.params, self.state
         self.params, self.state, self.history = train_classifier(
             self.cfg, self.spec, self.params, self.state, train_d, val_d, fold_dir,
-            self.logger, epochs=epochs, learning_rate=self.cfg.learning_rate, save=False,
+            self.logger, epochs=epochs, save=False,
             device=self.device)
         return self.params, self.state
 

@@ -17,6 +17,7 @@ artifact stores (JAX layout: numpy, bfloat16 leaves as CPU tensors) and
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Tuple
 
 import numpy as np
@@ -98,6 +99,7 @@ class QuantizationEngine:
         self.q = quant_module(spec)
         self.folded = self.q.fold(spec, params_to_jax(spec, params), params_to_jax(spec, state))
         self.folded_dev = qresnet.place_folded(self.folded, self.device)
+        self.timings: Dict[str, float] = {}  # static_quantize's wall seconds
 
     # -- conversions ---------------------------------------------------------
 
@@ -110,17 +112,24 @@ class QuantizationEngine:
                         executor: str = "int8"):
         """Calibrate on at most cfg.calibration_images (the estimator from
         cfg.observer), then convert to int8; the forward runs the int8
-        executor on kernels A and B."""
+        executor on kernels A and B. Wall seconds of the two steps go to
+        ``self.timings`` (calibrate_s, convert_s): the observer ranges come
+        back to the host as floats, so the first ends with the device's work."""
         if executor != "int8":
             raise NotImplementedError(
                 f"the {executor!r} executor is not ported yet (ROADMAP queue 1 items 14-15); "
                 f"the ResNet int8 executor is 'int8'")
         loader = Batches(calib_data[0], calib_data[1], self.cfg.batch_size, self.device)
+        t0 = time.perf_counter()
         observers = self.q.calibrate(self.spec, self.folded_dev, loader,
                                      max_images=self.cfg.calibration_images,
                                      observer=self.cfg.observer, percentile=self.cfg.percentile)
+        t1 = time.perf_counter()
         qmodel = self.q.convert_static_int8(self.spec, self.folded, observers,
                                             image_size=tuple(self.cfg.image_size))
+        self.timings = {"calibrate_s": t1 - t0, "convert_s": time.perf_counter() - t1}
+        self.logger.info("static_int8: calibrate %.3f s, convert %.3f s",
+                         self.timings["calibrate_s"], self.timings["convert_s"])
         model = qresnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device)
         return qmodel, model
 

@@ -10,8 +10,8 @@ Calibration keeps an ``ObserverState`` per activation tap: the reference's
 ``MovingAverageMinMaxObserver`` (averaging constant 0.01, the first batch
 taken as it is), updated on the host in Python floats from each batch's
 min and max, as the JAX package updates it. Weight quantization for a
-conversion runs in numpy on the host (``quantize_weight_per_channel`` of a
-numpy array), the JAX package's arithmetic.
+conversion runs in numpy on the host (``quantize_weight_per_channel``), the
+JAX package's arithmetic.
 """
 
 from __future__ import annotations
@@ -66,26 +66,13 @@ def minmax_qparams_affine(min_val: float, max_val: float) -> Tuple[float, int]:
     return scale, int(np.clip(zp, 0, 255))
 
 
-def quantize_weight_per_channel(w, channel_axis: int):
-    """-> (w_q int8, scale f32[channels]), symmetric per channel: numpy in,
-    numpy out (the host conversion); a tensor gives tensors on its device."""
-    if isinstance(w, np.ndarray):
-        scale = minmax_qparams_symmetric_per_channel(w, channel_axis)
-        shape = [1] * w.ndim
-        shape[channel_axis] = -1
-        q = np.round(np.asarray(w, np.float32) / scale.reshape(shape))
-        return np.clip(q, -128, 127).astype(np.int8), scale
-    w = w.float()
-    moved = w.movedim(channel_axis, 0).reshape(w.shape[channel_axis], -1)
-    min_val = torch.clamp_max(moved.min(dim=1).values, 0.0)
-    max_val = torch.clamp_min(moved.max(dim=1).values, 0.0)
-    # a 0-d divisor: CUDA divides by a Python scalar as a multiply by its reciprocal
-    div = torch.full((), 127.5, dtype=torch.float32, device=w.device)
-    scale = torch.clamp_min(torch.maximum(-min_val, max_val) / div, EPS)
-    shape = [1] * w.dim()
+def quantize_weight_per_channel(w: np.ndarray, channel_axis: int):
+    """-> (w_q int8, scale f32[channels]) numpy, symmetric per channel."""
+    scale = minmax_qparams_symmetric_per_channel(w, channel_axis)
+    shape = [1] * w.ndim
     shape[channel_axis] = -1
-    q = torch.round(w / scale.reshape(shape))
-    return torch.clamp(q, -128, 127).to(torch.int8), scale
+    q = np.round(np.asarray(w, np.float32) / scale.reshape(shape))
+    return np.clip(q, -128, 127).astype(np.int8), scale
 
 
 def quantize_affine_shifted(x: torch.Tensor, scale, zp: int) -> torch.Tensor:

@@ -86,32 +86,23 @@ def _conv_f(x, leaf, stride: int, padding: int, relu: bool, groups: int = 1):
 
 
 def apply_folded(spec: ResNetSpec, folded: Dict, x, *, with_taps: bool = False,
-                 return_features: bool = False, tap_fn=None, stem_out=None):
+                 return_features: bool = False):
     """Forward of the folded model (``place_folded``) on NHWC float images in
     the model's dtype -> logits, or the pooled features (pre-classifier), or
     (logits, taps) with ``with_taps``.
 
     The taps are the quantization points the conversion consumes, NHWC as
     the JAX package's (views on the GPU, whose activations are channels-last).
-    ``tap_fn(name, t) -> t'`` intercepts each and its return re-enters the
-    flow; ``stem_out`` (the NHWC pre-max-pool stem activation) skips the
-    stem, and ``x`` is then ignored. fp32 runs with TF32 off."""
+    fp32 runs with TF32 off."""
     taps: Dict[str, torch.Tensor] = {}
 
     def tap(name, t):
-        nhwc = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
-        taps[name] = nhwc
-        if tap_fn is None:
-            return t
-        r = tap_fn(name, nhwc)
-        return _conv_w(r.permute(0, 3, 1, 2)) if r.ndim == 4 else r
+        taps[name] = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
+        return t
 
     with exact_fp32():
-        if stem_out is None:
-            x = tap("input", _conv_w(x.permute(0, 3, 1, 2)))
-            t = tap("stem", _conv_f(x, folded["conv1"], 2, 3, relu=True))
-        else:
-            t = _conv_w(stem_out.permute(0, 3, 1, 2))
+        x = tap("input", _conv_w(x.permute(0, 3, 1, 2)))
+        t = tap("stem", _conv_f(x, folded["conv1"], 2, 3, relu=True))
         t = F.max_pool2d(t, 3, 2, 1)
 
         for s, depth in enumerate(spec.depths):

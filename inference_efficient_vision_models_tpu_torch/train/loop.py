@@ -80,24 +80,21 @@ def train_classifier(
     *,
     teacher=None,  # (teacher_spec, teacher_params, teacher_state) -> KD mode
     epochs: Optional[int] = None,
-    learning_rate: Optional[float] = None,
     save: bool = True,
-    resume: Optional[bool] = None,
     device: DeviceLike = None,
 ):
     """Train with best-val tracking; returns (params, state, history) of the
     best epoch, on ``device`` (the GPU unless ``device="cpu"``).
 
     ``teacher`` switches the step to knowledge distillation with cfg.alpha /
-    cfg.temperature / cfg.sp_weight. ``epochs``, ``learning_rate`` and
-    ``resume`` override the config's fields (the stage-3 fine-tune passes
-    its own). ``resume`` continues an interrupted run from ``model_last``,
-    optimizer state and batch order included. Checkpoints are written in
-    the JAX layout; ``save=False`` writes nothing into ``fold_dir``."""
+    cfg.temperature / cfg.sp_weight. ``epochs`` overrides cfg.epochs (the
+    stage-3 fine-tune passes its own). ``cfg.resume`` continues an
+    interrupted run from ``model_last``, optimizer state and batch order
+    included. Checkpoints are written in the JAX layout; ``save=False``
+    writes nothing into ``fold_dir``."""
     dev = resolve_device(device)
     epochs = cfg.epochs if epochs is None else epochs
-    lr = cfg.learning_rate if learning_rate is None else learning_rate
-    resume = cfg.resume if resume is None else resume
+    lr, resume = cfg.learning_rate, cfg.resume
     if cfg.augment:
         raise NotImplementedError("train-time augmentation (data/augment.py) is not ported yet "
                                   "(ROADMAP queue 1: augment.py)")
