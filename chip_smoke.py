@@ -66,7 +66,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 7. times each kernel at its serving shapes beside its plain version, its
    bound and a library call where one exists, and each forward at batch 1
    and 256 with CUDA events (median of 25 runs after warm-up), and profiles
-   a batch-256 forward of each path with ``torch.profiler``.
+   a batch-256 forward of each path with ``torch.profiler``;
+8. the deployment entry points: ``serve_rates`` serves r2 through
+   ``Predictor`` at batch 256 three ways (host s2d by numpy, host s2d by
+   the native row interleave, ``device_preprocess=True``; logits identical,
+   and through ``predict_stream``); ``server_r2`` runs the HTTP server
+   (``InferenceServer`` -> ``MicroBatcher`` -> ``Predictor``) at the JAX
+   package's defaults under 8 clients x 40 requests, holds every answer to
+   ``Predictor.predict_logits`` (the ResNet18 limit, bit-identical rows
+   counted), the launches to 8 + 13 per batch the server ran, and sends
+   each payload kind and error status; ``server_eff`` and ``server_vit``
+   serve one 8-image request each through kernel C and kernel A;
+   ``predict_cli`` runs ``python -m ….cli.predict`` over 300 seeded BMPs
+   and an .npy against ``Predictor`` over ``load_images``; ``augment``
+   holds ``apply_augment`` on the card to its CPU evaluation, and a timed
+   teacher step with ``augment=True`` runs beside the stage-1 steps.
 
 Results go to stdout as JSON lines; the line before the last gives the card
 as nvidia-smi reports it and the last is ``{"ok": true, "device": ...}``.
@@ -76,12 +90,17 @@ GPU. Needs one card.
 
 from __future__ import annotations
 
+import base64
+import http.client as http_client
+import io
 import json
 import os
 import queue
+import struct
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1667,7 +1686,11 @@ def run_convert_r2(dev, calib, test):
 def bf16_train_steps():
     """The bf16 teacher step (ResNet50, batch 64) and KD step (ResNet18 from
     it, batch 32) as the stage CLIs run them (the train loop's steps, seeded
-    weights, random images), each after 3 warm-up steps: [(name, step, batch)]."""
+    weights, random images), and the teacher step with ``augment=True`` (the
+    default options), each after 3 warm-up steps: [(name, step, batch)]."""
+    from types import SimpleNamespace
+
+    from inference_efficient_vision_models_tpu_torch.data.augment import make_augment_fn
     from inference_efficient_vision_models_tpu_torch.models.registry import (
         make_spec, params_from_jax)
     from inference_efficient_vision_models_tpu_torch.train.optim import adamw_init
@@ -1690,13 +1713,20 @@ def bf16_train_steps():
                                 temperature=TRAIN_STEP["temperature"], learning_rate=1e-4,
                                 compute_dtype="bfloat16")
 
+    t_aug_step = make_train_step(specs["teacher"], learning_rate=1e-4, compute_dtype="bfloat16",
+                                 augment_fn=make_augment_fn(SimpleNamespace(augment=True)))
+
     def teacher_step(b):
         m["teacher"][:] = t_step(*m["teacher"], b)[:3]
+
+    def teacher_augment_step(b):
+        m["teacher"][:] = t_aug_step(*m["teacher"], b)[:3]
 
     def kd_step(b):
         m["student"][:] = k_step(*m["student"], *m["teacher"][:2], b)[:3]
 
-    steps = [("teacher", teacher_step, batch(64)), ("kd", kd_step, batch(32))]
+    steps = [("teacher", teacher_step, batch(64)), ("kd", kd_step, batch(32)),
+             ("teacher_augment", teacher_augment_step, batch(64))]
     for _, fn, b in steps:
         for _ in range(3):
             fn(b)
@@ -1978,13 +2008,412 @@ def _reserializes(fold_dir: str) -> bool:
     return True
 
 
+# --------------------------------------------------------------------------
+# the deployment entry points: served rates, the HTTP server, the predict CLI
+# --------------------------------------------------------------------------
+
+SERVE_IMAGES = 2048  # serve_rates: 8 batches of 256
+SERVE_ROUNDS = 3  # serve_rates: each way timed this many times, in alternating order
+SERVER_CLIENTS, SERVER_REQUESTS = 8, 40
+SERVER_SIZES = (1, 1, 8, 32)  # request sizes, in a seeded order, cycled per client
+R18_LIMIT = {"rtol": 0.02, "atol": 0.02}  # PERF.md §2: the ResNet18 served-logit limit
+CLI_IMAGES = 300  # predict_cli: seeded 200x200 BMPs, half 8-bit paletted, half 24-bit
+
+
+def bmp_bytes(img: np.ndarray) -> bytes:
+    """An uncompressed BMP of (H, W) uint8 (8-bit, grey palette) or (H, W, 3)
+    uint8 RGB (24-bit BGR): bottom-up rows padded to 4 bytes, NEU-DET's two
+    kinds of file."""
+    h, w = img.shape[:2]
+    if img.ndim == 2:
+        palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+        palette[:, 3] = 0
+        rows, bpp, ncolors = img, 8, 256
+    else:
+        palette = np.zeros((0, 4), np.uint8)
+        rows, bpp, ncolors = img[..., ::-1].reshape(h, w * 3), 24, 0
+    pix = np.zeros((h, (rows.shape[1] + 3) & ~3), np.uint8)
+    pix[:, : rows.shape[1]] = rows[::-1]
+    off = 14 + 40 + palette.size
+    return (struct.pack("<2sIHHI", b"BM", off + pix.size, 0, 0, off)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, 0, pix.size, 2835, 2835, ncolors, 0)
+            + palette.tobytes() + pix.tobytes())
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """A (H, W, 3) uint8 image as an 8-bit RGB PNG (written without PIL)."""
+    h, w, _ = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def npy_bytes(arr: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def http(port: int, method: str, path: str, body=None, headers=None, timeout: float = 300):
+    """One request to the server on 127.0.0.1 -> (status, content type, body)."""
+    conn = http_client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        conn.close()
+
+
+def post_npy(port: int, imgs: np.ndarray):
+    """POST (n, H, W, 3) uint8 as npy, logits back as npy -> (status, logits or body)."""
+    code, ctype, raw = http(port, "POST", "/v1/predict", npy_bytes(imgs),
+                            {"Content-Type": "application/x-npy", "Accept": "application/x-npy"})
+    return code, (np.load(io.BytesIO(raw)) if ctype == "application/x-npy" else raw)
+
+
+def run_serve_rates(dev):
+    """r2 through ``Predictor`` at batch 256 over 2,048 seeded images, three
+    ways: host s2d by numpy (the plain version), host s2d by the native row
+    interleave, and ``device_preprocess=True`` (no host preprocess); logits
+    identical across the three and through ``predict_stream``."""
+    from inference_efficient_vision_models_tpu_torch.ops.space_to_depth import (
+        space_to_depth_u8, space_to_depth_u8_plain)
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    imgs = np.random.default_rng(11).integers(0, 256, (SERVE_IMAGES, 224, 224, 3),
+                                              dtype=np.uint8)
+    _, _, fn, pre = load_quantized(ARTIFACT, device="cuda")
+    _, _, fn_d, pre_d = load_quantized(ARTIFACT, device="cuda", device_preprocess=True)
+    if pre is not space_to_depth_u8 or pre_d is not None:
+        raise SmokeFailure(f"load_quantized gave host preprocesses {pre} / {pre_d}")
+    ways = {"host_numpy": Predictor(fn, host_preprocess=space_to_depth_u8_plain,
+                                    batch_size=BATCH, device="cuda"),
+            "host_native": Predictor(fn, host_preprocess=pre, batch_size=BATCH, device="cuda"),
+            "device_s2d": Predictor(fn_d, host_preprocess=None, batch_size=BATCH, device="cuda")}
+    for pred in ways.values():
+        pred.warmup()
+    rates = {k: [] for k in ways}
+    outs = {}
+    for r in range(SERVE_ROUNDS):
+        for k in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            t0 = time.perf_counter()
+            outs[k] = ways[k].predict_logits(imgs)
+            rates[k].append(len(imgs) / (time.perf_counter() - t0))
+    ref = outs["host_native"]
+    identical = {k: bool(np.array_equal(v, ref)) for k, v in outs.items()}
+    stream = np.concatenate(list(ways["host_native"].predict_stream(
+        imgs[i : i + BATCH] for i in range(0, len(imgs), BATCH))))
+    host_ms = {}
+    for name, f in (("numpy", space_to_depth_u8_plain), ("native", space_to_depth_u8)):
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            f(imgs[:BATCH])
+            t.append((time.perf_counter() - t0) * 1e3)
+        host_ms[name] = float(np.median(t))
+    emit({"phase": "serve_rates", **_stage_card(dev), "images": len(imgs), "batch": BATCH,
+          "rounds": SERVE_ROUNDS, "images_per_s": {k: float(np.median(v)) for k, v in rates.items()},
+          "images_per_s_runs": rates, "host_s2d_ms_per_batch": host_ms,
+          "host_threads": os.cpu_count(), "logits_identical": identical,
+          "predict_stream_identical": bool(np.array_equal(stream, ref))})
+    if not all(identical.values()) or not np.array_equal(stream, ref):
+        raise SmokeFailure(f"serve_rates: the three ways or predict_stream disagree: {identical}")
+
+
+def _server(fold: str, method: str):
+    """``InferenceServer.from_artifact`` at the JAX package's defaults (batch
+    64, buckets 1 and 8, 2 ms wait) on a free port, warmed, and a
+    ``Predictor`` of the same batching for reference answers."""
+    from inference_efficient_vision_models_tpu_torch.server import InferenceServer
+
+    t0 = time.perf_counter()
+    srv = InferenceServer.from_artifact(fold, method, port=0).start()
+    warm = time.perf_counter() - t0
+    ref = Predictor.from_artifact(fold, method, device="cuda", batch_size=srv.pred.batch_size,
+                                  bucket_sizes=srv.pred.bucket_sizes)
+    return srv, ref, warm
+
+
+def _server_launches(srv, per_forward: dict, label: str):
+    """Launches since the last reset, against ``per_forward`` x the batches
+    the server's stats count; -> (launches, stats)."""
+    launches = dict(_lib.launches)
+    stats = srv.batcher.stats()
+    for k in set(per_forward) | set(launches):
+        if launches.get(k, 0) != per_forward.get(k, 0) * stats["batches"]:
+            raise SmokeFailure(f"{label}: {k} launched {launches.get(k, 0)} times for "
+                               f"{stats['batches']} batches, expected "
+                               f"{per_forward.get(k, 0) * stats['batches']}")
+    return launches, stats
+
+
+def run_server_r2(dev):
+    """r2 behind the HTTP server: 8 clients x 40 requests of seeded sizes,
+    every answer against ``Predictor.predict_logits`` of its images (the
+    ResNet18 limit; bit-identical rows counted), launches against the
+    batches the server ran, then each payload kind and error status."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from inference_efficient_vision_models_tpu_torch.data.native_loader import (
+        decode_batch_native)
+
+    srv, ref_pred, warm = _server(ARTIFACT, "static_int8")
+    try:
+        rng = np.random.default_rng(12)
+        sizes = rng.permutation(SERVER_SIZES)
+        reqs = [[rng.integers(0, 256, (int(sizes[(c + i) % len(sizes)]), 224, 224, 3),
+                              dtype=np.uint8) for i in range(SERVER_REQUESTS)]
+                for c in range(SERVER_CLIENTS)]
+
+        def client(c):
+            out = []
+            for imgs in reqs[c]:
+                t0 = time.perf_counter()
+                code, logits = post_npy(srv.port, imgs)
+                out.append((code, logits, time.perf_counter() - t0))
+            return out
+
+        # the dispatcher's busy seconds, and the host staging (s2d + pinned
+        # copy) within them: how much of the wall the model's thread works
+        busy = {"dispatch_s": 0.0, "stage_host_s": 0.0}
+
+        def timed(fn, key):
+            def run(*a):
+                t = time.perf_counter()
+                try:
+                    return fn(*a)
+                finally:
+                    busy[key] += time.perf_counter() - t
+            return run
+
+        srv.batcher._dispatch = timed(srv.batcher._dispatch, "dispatch_s")
+        srv.pred._stage_host = timed(srv.pred._stage_host, "stage_host_s")
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+            answers = [f.result() for f in [pool.submit(client, c) for c in range(SERVER_CLIENTS)]]
+        wall = time.perf_counter() - t0
+        launches, stats = _server_launches(srv, PER_FORWARD, "server_r2")
+        n_images = sum(len(r) for rs in reqs for r in rs)
+        if stats["requests"] != SERVER_CLIENTS * SERVER_REQUESTS or stats["images"] != n_images:
+            raise SmokeFailure(f"server_r2: stats {stats} for {n_images} images")
+
+        lat = {}
+        rows = identical = 0
+        worst = 0.0
+        for rs, ans in zip(reqs, answers):
+            for imgs, (code, got, secs) in zip(rs, ans):
+                if code != 200:
+                    raise SmokeFailure(f"server_r2: status {code}: {got}")
+                want = ref_pred.predict_logits(imgs)
+                worst = max(worst, float(np.abs(got - want).max()))
+                if not (np.allclose(got, want, **R18_LIMIT)
+                        and (got.argmax(1) == want.argmax(1)).all()):
+                    raise SmokeFailure(f"server_r2: answer off its Predictor logits by {worst}")
+                rows += len(imgs)
+                identical += int(sum(np.array_equal(g, w) for g, w in zip(got, want)))
+                lat.setdefault(len(imgs), []).append(secs * 1e3)
+
+        # each payload kind and error status, one request at a time
+        img = reqs[0][0][:1]
+        _, want = post_npy(srv.port, img)
+        code, _, raw = http(srv.port, "POST", "/v1/predict", json.dumps(
+            {"images_b64": base64.b64encode(npy_bytes(img[0])).decode()}).encode(),
+            {"Content-Type": "application/json"})
+        js = json.loads(raw)
+        json_ok = bool(code == 200 and js["classes"] == want.argmax(1).tolist()
+                       and np.abs(np.array(js["logits"]) - want).max() <= 1e-4)
+        code, _, raw = http(srv.port, "POST", "/v1/predict", bmp_bytes(img[0]),
+                            {"Content-Type": "image/bmp", "Accept": "application/x-npy"})
+        bmp224_ok = bool(code == 200 and np.array_equal(np.load(io.BytesIO(raw)), want))
+        small = rng.integers(0, 256, (200, 200), dtype=np.uint8)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "neu.bmp")
+            with open(path, "wb") as f:
+                f.write(bmp_bytes(small))
+            decoded, ok = decode_batch_native([path], (224, 224))
+        code, _, raw = http(srv.port, "POST", "/v1/predict", bmp_bytes(small),
+                            {"Content-Type": "image/bmp", "Accept": "application/x-npy"})
+        bmp200_ok = bool(ok.all() and code == 200
+                         and np.array_equal(np.load(io.BytesIO(raw)),
+                                            post_npy(srv.port, decoded)[1]))
+        # a PNG needs PIL: decoded where it is installed, else 415 naming it;
+        # the second request hides PIL from this process to take that branch
+        png = png_bytes(img[0])
+        try:
+            import PIL  # noqa: F401
+            pil = True
+        except ImportError:
+            pil = False
+        png_code = http(srv.port, "POST", "/v1/predict", png, {"Content-Type": "image/png"})[0]
+        saved = sys.modules.get("PIL")
+        sys.modules["PIL"] = None
+        try:
+            png_code_no_pil, _, png_raw = http(srv.port, "POST", "/v1/predict", png,
+                                               {"Content-Type": "image/png"})
+        finally:
+            if saved is None:
+                sys.modules.pop("PIL")
+            else:
+                sys.modules["PIL"] = saved
+        errors = {
+            404: http(srv.port, "GET", "/nope")[0],
+            413: http(srv.port, "POST", "/v1/predict", b"",
+                      {"Content-Type": "application/x-npy"})[0],
+            415: http(srv.port, "POST", "/v1/predict", b"x", {"Content-Type": "text/plain"})[0],
+            400: http(srv.port, "POST", "/v1/predict", b"not npy",
+                      {"Content-Type": "application/x-npy"})[0],
+        }
+        health = http(srv.port, "GET", "/healthz")[0]
+        meta = json.loads(http(srv.port, "GET", "/v1/metadata")[2])
+    finally:
+        srv.close()
+    payloads = {"json_b64": json_ok, "bmp_224_equals_npy": bmp224_ok,
+                "bmp_200_8bit_equals_file_decode": bmp200_ok, "pil_installed": pil,
+                "png_status": png_code, "png_status_without_pil": png_code_no_pil,
+                "png_error_without_pil": png_raw.decode(errors="replace")[:200],
+                "errors": errors, "healthz": health}
+    emit({"phase": "server_r2", **_stage_card(dev), "warmup_s": warm,
+          "clients": SERVER_CLIENTS, "requests": SERVER_CLIENTS * SERVER_REQUESTS,
+          "images": n_images, "wall_s": wall, "images_per_s": n_images / wall,
+          "latency_ms": {str(n): {"requests": len(v), "p50": float(np.percentile(v, 50)),
+                                  "p99": float(np.percentile(v, 99))}
+                         for n, v in sorted(lat.items())},
+          "stats": stats, "dispatcher_busy": {**busy, "share_of_wall": busy["dispatch_s"] / wall},
+          "launches": launches, "rows": rows, "rows_bit_identical": identical,
+          "max_abs_err": worst, "limit": R18_LIMIT, "payloads": payloads,
+          "metadata": {k: meta[k] for k in ("batch_size", "bucket_sizes", "max_batch")}})
+    bad = [k for k in ("json_b64", "bmp_224_equals_npy", "bmp_200_8bit_equals_file_decode")
+           if not payloads[k]]
+    if (bad or png_code != (200 if pil else 415) or png_code_no_pil != 415
+            or "PIL" not in payloads["png_error_without_pil"]
+            or any(k != v for k, v in errors.items()) or health != 200):
+        raise SmokeFailure(f"server_r2: payloads or statuses wrong: {bad} {payloads}")
+    return launches
+
+
+def run_server_one(dev, label: str, fold: str, method: str, per_forward: dict, tau: float):
+    """One 8-image request to a server of ``fold`` against its ``Predictor``
+    (``logits_close`` at ``tau``), launches against the batches it ran."""
+    srv, ref_pred, warm = _server(fold, method)
+    try:
+        imgs = np.random.default_rng(13).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        code, got = post_npy(srv.port, imgs)
+        secs = time.perf_counter() - t0
+        launches, stats = _server_launches(srv, per_forward, label)
+    finally:
+        srv.close()
+    if code != 200:
+        raise SmokeFailure(f"{label}: status {code}: {got}")
+    want = ref_pred.predict_logits(imgs)
+    ok, err, atol = logits_close(got, want, tau)
+    emit({"phase": label, **_stage_card(dev), "method": method, "warmup_s": warm,
+          "request_ms": secs * 1e3, "stats": stats, "launches": launches,
+          "max_abs_err": err, "atol": atol, "tau": tau,
+          "rows_bit_identical": int(sum(np.array_equal(g, w) for g, w in zip(got, want))),
+          "rows": len(imgs)})
+    if not ok:
+        raise SmokeFailure(f"{label}: served logits off the Predictor's by {err} > {atol}")
+    return launches
+
+
+def run_predict_cli(dev):
+    """``python -m …cli.predict`` in a subprocess over 300 seeded 200x200
+    BMPs (8-bit paletted and 24-bit) and a 16-image .npy: its CSV against
+    ``Predictor`` over ``load_images`` of the same files."""
+    import re
+    import subprocess
+
+    from inference_efficient_vision_models_tpu_torch.data.neudet import load_images
+
+    rng = np.random.default_rng(14)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "bmps")
+        os.makedirs(d)
+        paths = []
+        for i in range(CLI_IMAGES):
+            shape = (200, 200) if i % 2 == 0 else (200, 200, 3)
+            paths.append(os.path.join(d, f"img_{i:03d}.bmp"))
+            with open(paths[-1], "wb") as f:
+                f.write(bmp_bytes(rng.integers(0, 256, shape, dtype=np.uint8)))
+        npy = os.path.join(tmp, "batch.npy")
+        np.save(npy, rng.integers(0, 256, (16, 224, 224, 3), dtype=np.uint8))
+        out = os.path.join(tmp, "preds.csv")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"{PKG}.cli.predict", f"artifact={ARTIFACT}",
+                            f"inputs={npy},{d}", f"output={out}"], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise SmokeFailure(f"predict_cli exited {r.returncode}:\n{r.stderr[-3000:]}")
+        with open(out) as f:
+            lines = f.read().splitlines()
+        imgs = np.concatenate([np.load(npy), load_images(paths, (224, 224))])
+        logits = Predictor.from_artifact(ARTIFACT, device="cuda").predict_logits(imgs)
+    z = logits - logits.max(1, keepdims=True)
+    probs = np.exp(z) / np.exp(z).sum(1, keepdims=True)
+    names = [f"{npy}[{i}]" for i in range(16)] + paths
+    rows = [ln.split(",") for ln in lines[1:]]
+    same = (lines[0] == "image,rank,class_id,class_name,prob" and len(rows) == len(names)
+            and [r[0] for r in rows] == names
+            and [int(r[2]) for r in rows] == probs.argmax(1).tolist())
+    prob_err = float(np.abs(np.array([float(r[4]) for r in rows])
+                            - probs.max(1)).max()) if same else None
+    rate = re.search(r"([0-9.]+) img/s", r.stderr)
+    emit({"phase": "predict_cli", **_stage_card(dev), "images": len(names),
+          "bmps": {"8bit_paletted": (CLI_IMAGES + 1) // 2, "24bit": CLI_IMAGES // 2},
+          "rows_and_classes_equal": same, "max_prob_err": prob_err,
+          "cli_images_per_s": float(rate.group(1)) if rate else None,
+          "subprocess_wall_s": wall})
+    if not same or prob_err > 1.5e-4:
+        raise SmokeFailure(f"predict_cli: CSV differs from Predictor over load_images "
+                           f"(rows/classes equal: {same}, prob err {prob_err})")
+
+
+def run_augment(dev):
+    """``apply_augment`` on the card against its CPU evaluation at the same
+    draws, every option on, 256x224x224."""
+    from inference_efficient_vision_models_tpu_torch.data.augment import (
+        DEFAULTS, apply_augment, draw_augment)
+
+    n, h, w = BATCH, 224, 224
+    opts = {**DEFAULTS, "illum_gradient": 0.5, "noise": 0.05}
+    x = torch.from_numpy(np.random.default_rng(15).integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    draws = draw_augment(gen, n, h, w, opts)
+    cpu = {k: tuple(t.cpu() if torch.is_tensor(t) else t for t in v) if isinstance(v, tuple)
+           else v.cpu() for k, v in draws.items()}
+    xg = x.cuda()
+    got = apply_augment(xg, draws).cpu()
+    ref = apply_augment(x, cpu)
+    diff = (got.int() - ref.int()).abs()
+    ms = time_ms(lambda: apply_augment(xg, draws))
+    bound = 2 * x.numel() / HBM_BYTES_PER_S * 1e3  # uint8 in, uint8 out
+    emit({"phase": "augment", **_stage_card(dev), "shape": [n, h, w, 3], "options": opts,
+          "values": x.numel(), "values_differing": int((diff > 0).sum()),
+          "max_abs_diff": int(diff.max()), "ms": ms, "bound_ms": bound})
+    if int(diff.max()) > 1:
+        raise SmokeFailure(f"augment: card and CPU differ by {int(diff.max())} at the same draws")
+
+
 def kernels_line(rows, launches_by_path, aside=()):
     """One entry per kernel: time, plain time, bound and library time summed
     over its calls in one batch-256 forward of every path that runs it (a row
     stands for ``calls`` identical calls; rows off that forward are left
     out); launches summed over the counted runs of those paths. The paths in
     ``aside`` (a second model at the same shapes) add their launches, their
-    largest error and an entry under ``paths``, and nothing to the sums."""
+    largest error and an entry under ``paths``, and nothing to the sums; so
+    do paths with launches and no rows (the HTTP server's, whose calls have
+    the shapes of the served paths' rows), without an error of their own."""
     notes = {
         "fused_mbconv_block": "no PyTorch call computes a fused int8 MBConv block, and PyTorch "
                               "has no int8 convolution on CUDA",
@@ -2003,7 +2432,9 @@ def kernels_line(rows, launches_by_path, aside=()):
               "operations": sum(c * p for c, p, r in zip(n, parts, mine) if p != r["bytes_ms"])}
         libs = [r["library_ms"] for r in mine]
         summed = sorted({r["path"] for r in mine})
-        paths = sorted({r["path"] for r in every})
+        # a path with no rows (the server's) runs shapes another path's rows time
+        paths = sorted({r["path"] for r in every}
+                       | {p for p, c in launches_by_path.items() if c.get(k)})
 
         def path_entry(p):
             its = [r for r in every if r["path"] == p]
@@ -2012,7 +2443,7 @@ def kernels_line(rows, launches_by_path, aside=()):
                     "timed_calls": sum(r.get("calls", 1) for r in timed),
                     "ms": sum(r.get("calls", 1) * r["ms"] for r in timed),
                     "launches": launches_by_path[p].get(k, 0),
-                    **({"in_sums": False} if p in aside else {})}
+                    **({"in_sums": False} if p in aside or not its else {})}
 
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
@@ -2119,6 +2550,17 @@ def main() -> int:
 
     eff_rows, eff_launches = run_efficientnet(gen)
     vit_rows, vit_launches = run_vit(gen)
+    run_serve_rates(dev)
+    server_launches = {
+        "server_resnet18": run_server_r2(dev),
+        "server_efficientnet_b0": run_server_one(dev, "server_eff", EFF_ARTIFACT,
+                                                 "static_int8_fused", EFF_PER_FORWARD, TAU_B),
+        "server_vit_tiny_int8_bf16": run_server_one(dev, "server_vit", VIT_ARTIFACT,
+                                                    "static_int8_bf16", VIT_PER_FORWARD,
+                                                    VIT_TAU_B),
+    }
+    run_predict_cli(dev)
+    run_augment(dev)
     calib, test = r2_data()
     run_float_r2_eval(dev, test)
     run_convert_r2(dev, calib, test)
@@ -2137,7 +2579,8 @@ def main() -> int:
         del fresh
     emit({"kernels": kernels_line(rows + eff_rows + vit_rows + pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
-                                   "resnet18_pipeline": chain["launches"], **vit_launches},
+                                   "resnet18_pipeline": chain["launches"], **vit_launches,
+                                   **server_launches},
                                   aside={"resnet18_pipeline"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})

@@ -8,9 +8,7 @@
 
 Fields the port does not act on yet keep their JAX defaults so both
 packages accept the same overrides: ``data_axis``/``model_axis`` (no
-multi-GPU yet), ``profile_dir``, ``num_workers`` (no real-image decode), and
-the ``augment*`` family (``augment=True`` raises in the train loop:
-``data/augment.py`` is not ported). The device is not a field: the stage
+multi-GPU yet) and ``profile_dir``. The device is not a field: the stage
 CLIs run on ``cuda`` unless ``IEVM_PLATFORM=cpu`` (``cli/common.py``).
 ``PruningConfig`` and ``QuantConfig`` (stages 3-4) keep every JAX field too;
 ``QuantConfig`` refuses the accuracy tools that are not ported yet (QAT,
@@ -96,7 +94,7 @@ class BaseConfig:
         # Train-time augmentation (data/augment.py; OFF = exact reference
         # parity — the reference has none, `teacher_training/dataset.py:14-21`).
         # augment=True fuses flip/crop/brightness-contrast jitter into the
-        # train step (JAX package only so far). For the hard surrogate set augment_flip=False
+        # train step. For the hard surrogate set augment_flip=False
         # augment_rot180=True (flips change the orientation label there).
         self.augment = False
         self.augment_flip = True

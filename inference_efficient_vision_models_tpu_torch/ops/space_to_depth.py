@@ -14,7 +14,24 @@ import torch
 
 
 def space_to_depth_u8(imgs: np.ndarray, factor: int = 2) -> np.ndarray:
-    """(B, H, W, C) uint8 -> (B, H/f, W/f, f*f*C), on the host with numpy."""
+    """(B, H, W, C) uint8 -> (B, H/f, W/f, f*f*C), on the host.
+
+    The serving layout (f=2, C=3, uint8) goes through the C++ row interleave
+    of ``data/native_loader.py`` (numpy's strided transpose runs at well
+    under a GB/s on one core); other layouts take ``space_to_depth_u8_plain``,
+    the reference the tests hold the native path to."""
+    b, h, w, c = imgs.shape
+    if h % factor or w % factor:
+        raise ValueError(f"image size {h}x{w} is not a multiple of {factor}")
+    if factor == 2 and c == 3 and imgs.dtype == np.uint8:
+        from ..data.native_loader import s2d_batch_native
+
+        return s2d_batch_native(imgs)
+    return space_to_depth_u8_plain(imgs, factor)
+
+
+def space_to_depth_u8_plain(imgs: np.ndarray, factor: int = 2) -> np.ndarray:
+    """``space_to_depth_u8`` by numpy's reshape and transpose."""
     b, h, w, c = imgs.shape
     if h % factor or w % factor:
         raise ValueError(f"image size {h}x{w} is not a multiple of {factor}")

@@ -1,14 +1,19 @@
-"""Serving runtime: a pipelined predictor over the static-INT8 forward.
+"""Serving runtime: a pipelined predictor over a quantized forward, and the
+request coalescing in front of it.
 
 ``Predictor`` overlaps three stages per batch:
 
     host preprocess (space-to-depth where the model takes it, pinned staging;
                      producer thread)
-      ->  H2D copy + forward (main thread, asynchronous on the current stream)
-      ->  result gather (main thread, a couple of batches behind)
+      ->  H2D copy + forward (calling thread, asynchronous on the current stream)
+      ->  result gather (calling thread, a couple of batches behind)
 
 The producer thread touches only host memory (it pins the staging buffer);
 every CUDA operation comes from the calling thread.
+
+``MicroBatcher`` coalesces concurrent small requests into one forward per
+batch on a dispatcher thread, the only thread that runs the model: clients
+hand it numpy arrays and wait on futures.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import json
 import os
 import queue
 import threading
-from typing import Callable, Optional, Tuple
+import time
+from concurrent.futures import Future
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +42,15 @@ from .ops.space_to_depth import space_to_depth_u8
 from .utils.device import DeviceLike, resolve_device
 
 
-def load_quantized(fold_dir: str, method: str = "static_int8", *, device: DeviceLike = None):
+def load_quantized(fold_dir: str, method: str = "static_int8", *, device: DeviceLike = None,
+                   device_preprocess: bool = False):
     """Restore a stage-4 artifact -> (spec, model, apply_fn, host_preprocess).
 
     Dispatches on the artifact's spec: a ResNet serves ``"static_int8"``
     through the int8 executor, whose stem takes the space-to-depth layout the
-    host preprocess makes, and ``"dynamic_int8"``, ``"fp16"``, ``"bf16"`` and
+    host preprocess makes (``device_preprocess=True``: no host preprocess,
+    the executor relayouts raw uint8 on the device, for hosts whose cores
+    are the scarce resource), and ``"dynamic_int8"``, ``"fp16"``, ``"bf16"`` and
     ``"weight_only_int8"`` (any artifact of a float-compute method) through
     the folded float forward on raw uint8; an EfficientNet serves ``"static_int8_fused"``
     (one fused kernel call per MBConv block) from
@@ -70,7 +80,7 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
                                   f"(have 'static_int8_fused')")
     if method == "static_int8":
         model = load_static_int8(fold_dir, device)
-        return model.spec, model, model, space_to_depth_u8
+        return model.spec, model, model, None if device_preprocess else space_to_depth_u8
     return _load_resnet_float(spec, fold_dir, method, device)
 
 
@@ -127,8 +137,10 @@ class Predictor:
 
     @classmethod
     def from_artifact(cls, fold_dir: str, method: str = "static_int8", *,
-                      device: DeviceLike = None, **kw) -> "Predictor":
-        _, _, fn, pre = load_quantized(fold_dir, method, device=device)
+                      device: DeviceLike = None, device_preprocess: bool = False,
+                      **kw) -> "Predictor":
+        _, _, fn, pre = load_quantized(fold_dir, method, device=device,
+                                       device_preprocess=device_preprocess)
         return cls(fn, host_preprocess=pre, device=device, **kw)
 
     def _target_size(self, n: int) -> int:
@@ -212,3 +224,173 @@ class Predictor:
     def predict(self, images: np.ndarray) -> np.ndarray:
         """-> predicted class ids (N,)."""
         return self.predict_logits(images).argmax(axis=-1)
+
+    def predict_stream(self, batches: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
+        """Generator over a stream of uint8 image batches -> each batch's
+        logits, each batch run as given (no bucket padding)."""
+        for chunk in batches:
+            yield self._run(self._stage_host(chunk)).cpu().numpy()
+
+
+_CLOSE = object()  # MicroBatcher shutdown sentinel
+
+
+class MicroBatcher:
+    """Dynamic request batching in front of a :class:`Predictor`.
+
+    A dispatcher thread coalesces everything waiting, up to ``max_batch``
+    images or until the oldest request has waited ``max_wait_ms``, into one
+    forward routed through the predictor's shape buckets, then scatters the
+    logits back to per-request futures. A request that would overflow the
+    batch leads the next one; a failed forward delivers its exception to
+    every future of the batch.
+
+    The dispatcher is the only thread that touches the device: ``submit``
+    takes and returns numpy arrays and never waits on the device. Use as a
+    context manager or call :meth:`close` to drain and stop the dispatcher.
+    """
+
+    def __init__(self, predictor: Predictor, *, max_wait_ms: float = 2.0,
+                 max_batch: Optional[int] = None):
+        self.pred = predictor
+        self.max_batch = int(max_batch or predictor.batch_size)
+        if not 1 <= self.max_batch <= predictor.batch_size:
+            raise ValueError(
+                f"max_batch {self.max_batch} must lie in [1, predictor.batch_size="
+                f"{predictor.batch_size}]"
+            )
+        self.max_wait_s = max_wait_ms / 1e3
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._carry = None  # the request that would have overflowed the batch
+        self._lock = threading.Lock()
+        self.n_requests = 0
+        self.n_batches = 0
+        self.n_images = 0  # valid images dispatched
+        self.n_slots = 0  # padded batch rows dispatched
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # -- client API ----------------------------------------------------------
+    def submit(self, images: np.ndarray) -> "Future[np.ndarray]":
+        """images (n, H, W, 3) uint8, n <= max_batch -> Future of logits (n, K).
+        Larger workloads are batch jobs: send those to
+        :meth:`Predictor.predict_logits`."""
+        images = np.asarray(images)
+        if images.ndim != 4:
+            raise ValueError(f"expected (n, H, W, C) images, got {images.shape}")
+        if len(images) > self.max_batch:
+            raise ValueError(
+                f"request of {len(images)} images exceeds max_batch "
+                f"{self.max_batch}; use Predictor.predict_logits for batch jobs"
+            )
+        fut: Future = Future()
+        if len(images) == 0:
+            fut.set_result(np.empty((0, 0), np.float32))
+            return fut
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("MicroBatcher is closed")
+            self.n_requests += 1
+            self._q.put((images, fut, len(images)))
+        return fut
+
+    def infer(self, images: np.ndarray) -> np.ndarray:
+        """Blocking convenience wrapper: submit and wait for the logits."""
+        return self.submit(images).result()
+
+    def warmup(self, image_shape: Tuple[int, int, int] = (224, 224, 3)) -> None:
+        """Run :meth:`Predictor.warmup` on the dispatcher thread (kernel
+        builds and allocator growth happen there, before any request) and
+        wait for it; counted in no statistic."""
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("MicroBatcher is closed")
+            self._q.put((image_shape, fut, 0))
+        fut.result()
+
+    def stats(self) -> dict:
+        """Coalescing counters (mean_batch = valid images per forward)."""
+        b = max(self.n_batches, 1)
+        return {
+            "requests": self.n_requests,
+            "batches": self.n_batches,
+            "images": self.n_images,
+            "mean_batch": self.n_images / b,
+            "mean_dispatch_slots": self.n_slots / b,
+        }
+
+    def close(self) -> None:
+        """Drain queued requests, dispatch them, and stop the dispatcher."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._q.put(_CLOSE)
+        self._thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- dispatcher ----------------------------------------------------------
+    def _loop(self) -> None:
+        with torch.inference_mode():  # thread-local: entered by the thread that runs the model
+            while True:
+                if self._carry is not None:
+                    first, self._carry = self._carry, None
+                else:
+                    first = self._q.get()
+                    if first is _CLOSE:
+                        return
+                if first[2] == 0:  # a warmup() call: (image shape, future, 0)
+                    try:
+                        first[1].set_result(self.pred.warmup(first[0]))
+                    except Exception as e:  # handed to the waiting caller
+                        first[1].set_exception(e)
+                    continue
+                batch: List[Tuple[np.ndarray, Future, int]] = [first]
+                total = first[2]
+                deadline = time.monotonic() + self.max_wait_s
+                while total < self.max_batch:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        item = self._q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if item is _CLOSE:
+                        self._q.put(_CLOSE)  # re-post: exit after this dispatch
+                        break
+                    if item[2] == 0 or total + item[2] > self.max_batch:
+                        self._carry = item  # leads the next round
+                        break
+                    batch.append(item)
+                    total += item[2]
+                self._dispatch(batch, total)
+
+    def _dispatch(self, batch, total: int) -> None:
+        live = [fut.set_running_or_notify_cancel() for _, fut, _ in batch]
+        try:
+            imgs = np.concatenate([im for im, _, _ in batch], axis=0)
+            tgt = self.pred._target_size(total)
+            if tgt > total:
+                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], tgt - total, 0)])
+            logits = self.pred._run(self.pred._stage_host(imgs))[:total].cpu().numpy()
+        except Exception as e:  # scatter the failure to every caller
+            for (_, fut, _), ok in zip(batch, live):
+                if ok:
+                    fut.set_exception(e)
+            return
+        off = 0
+        for (_, fut, n), ok in zip(batch, live):
+            if ok:
+                fut.set_result(logits[off : off + n])
+            off += n
+        self.n_batches += 1
+        self.n_images += total
+        self.n_slots += tgt

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..core import artifacts
+from ..data.augment import augment_options, make_augment_fn
 from ..data.pipeline import Batches
 from ..models.registry import params_from_jax, params_to_jax
 from ..utils.device import DeviceLike, resolve_device
@@ -95,9 +96,6 @@ def train_classifier(
     dev = resolve_device(device)
     epochs = cfg.epochs if epochs is None else epochs
     lr, resume = cfg.learning_rate, cfg.resume
-    if cfg.augment:
-        raise NotImplementedError("train-time augmentation (data/augment.py) is not ported yet "
-                                  "(ROADMAP queue 1: augment.py)")
 
     train_loader = Batches(*train_data, cfg.batch_size, dev, shuffle=True, seed=cfg.seed)
     val_loader = Batches(*val_data, cfg.batch_size, dev)
@@ -110,16 +108,21 @@ def train_classifier(
         )
         logger.info("lr schedule: %s over %d steps", cfg.lr_schedule, epochs * len(train_loader))
 
+    augment_fn = make_augment_fn(cfg)
+    if augment_fn is not None:
+        logger.info("train-time augmentation ON (%s)", augment_options(cfg))
     if teacher is None:
         step = steps_mod.make_train_step(spec, learning_rate=lr,
-                                         compute_dtype=cfg.compute_dtype, lr_schedule=schedule)
+                                         compute_dtype=cfg.compute_dtype, lr_schedule=schedule,
+                                         augment_fn=augment_fn, augment_seed=cfg.seed)
         extra = ()
     else:
         t_spec, t_params, t_state = teacher
         step = steps_mod.make_kd_train_step(
             spec, t_spec, alpha=cfg.alpha, temperature=cfg.temperature,
             learning_rate=lr, compute_dtype=cfg.compute_dtype,
-            lr_schedule=schedule, sp_weight=float(cfg.sp_weight))
+            lr_schedule=schedule, sp_weight=float(cfg.sp_weight),
+            augment_fn=augment_fn, augment_seed=cfg.seed)
         extra = (t_params, t_state)
     eval_step = steps_mod.make_eval_step(spec, compute_dtype=cfg.compute_dtype)
 

@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..data.augment import augment_generator
 from ..data.pipeline import normalize_images
 from ..models.registry import apply_model, features_and_logits
 from ..utils.device import exact_fp32
@@ -90,14 +91,28 @@ def _lr(learning_rate, lr_schedule, step: int) -> float:
     return lr_schedule(step) if lr_schedule is not None else learning_rate
 
 
+def _augmented(batch, augment_fn, augment_seed: int, step: int):
+    """The batch with its images through ``augment_fn`` (data/augment.py),
+    drawn from the generator of (augment_seed, step); as is without one."""
+    if augment_fn is None:
+        return batch
+    imgs_u8, labels, mask = batch
+    gen = augment_generator(augment_seed, step, imgs_u8.device)
+    return augment_fn(gen, imgs_u8), labels, mask
+
+
 def make_train_step(spec, *, learning_rate, compute_dtype="bfloat16", weight_decay=0.01,
-                    lr_schedule: Optional[Callable[[int], float]] = None):
+                    lr_schedule: Optional[Callable[[int], float]] = None, augment_fn=None,
+                    augment_seed: int = 0):
     """CE classifier step: (params, state, opt, batch) -> (params, state, opt,
     metrics {"loss", "acc", "n"}). ``params`` and the moments are updated in
     place. ``lr_schedule(step) -> lr`` (``optim.make_lr_schedule``) or None
-    for the constant rate."""
+    for the constant rate. ``augment_fn(gen, imgs_u8)`` (``data/augment.py``)
+    augments the batch on its device first, drawing from the generator of
+    (augment_seed, opt.step)."""
 
     def step(params, state, opt, batch):
+        batch = _augmented(batch, augment_fn, augment_seed, opt.step)
         loss, logits, new_state, grads = ce_loss_and_grads(
             spec, params, state, batch, compute_dtype=compute_dtype)
         params, opt = adamw_update(params, grads, opt,
@@ -112,11 +127,14 @@ def make_train_step(spec, *, learning_rate, compute_dtype="bfloat16", weight_dec
 
 def make_kd_train_step(student_spec, teacher_spec, *, alpha, temperature, learning_rate,
                        compute_dtype="bfloat16", weight_decay=0.01,
-                       lr_schedule: Optional[Callable[[int], float]] = None, sp_weight=0.0):
+                       lr_schedule: Optional[Callable[[int], float]] = None, sp_weight=0.0,
+                       augment_fn=None, augment_seed: int = 0):
     """KD step: (params, state, opt, teacher_params, teacher_state, batch) ->
-    (params, state, opt, metrics {"loss", "ce", "kd", "sp", "acc", "n"})."""
+    (params, state, opt, metrics {"loss", "ce", "kd", "sp", "acc", "n"}).
+    With ``augment_fn``, teacher and student see the same augmented batch."""
 
     def step(params, state, opt, teacher_params, teacher_state, batch):
+        batch = _augmented(batch, augment_fn, augment_seed, opt.step)
         loss, parts, logits, new_state, grads = kd_loss_and_grads(
             student_spec, teacher_spec, params, state, teacher_params, teacher_state, batch,
             alpha=alpha, temperature=temperature, sp_weight=sp_weight,

@@ -122,10 +122,25 @@ def test_load_dataset_synthetic_equal(tmp_path, variant):
 
 
 def test_load_dataset_real_images_not_ported(tmp_path):
-    os.makedirs(tmp_path / "nd" / "train" / "images")
-    cfg = tconfig.TeacherConfig(artifacts_root=str(tmp_path), data_dir=str(tmp_path / "nd"))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tneudet.load_dataset(cfg)
+    """Real images are read since the native decoder was ported: a NEU-DET
+    tree is loaded as the JAX package loads it; with no tree and synthetic
+    data off, both raise FileNotFoundError."""
+    from chip_smoke import bmp_bytes
+
+    for sub in ("train", "validation"):
+        d = tmp_path / "nd" / sub / "images" / "patches"
+        os.makedirs(d)
+        (d / "a.bmp").write_bytes(bmp_bytes(np.full((20, 20), 7, np.uint8)))
+    kw = dict(artifacts_root=str(tmp_path), data_dir=str(tmp_path / "nd"), image_size=(16, 16))
+    got = tneudet.load_dataset(tconfig.TeacherConfig(**kw))
+    ref = jneudet.load_dataset(jconfig.TeacherConfig(**kw))
+    for split in ("train", "test"):
+        for g, r in zip(got[split], ref[split]):
+            np.testing.assert_array_equal(g, r)
+    assert got["train"][1].tolist() == [2]
+    kw.update(data_dir=str(tmp_path / "none"), synthetic_data=False)
+    with pytest.raises(FileNotFoundError):
+        tneudet.load_dataset(tconfig.TeacherConfig(**kw))
 
 
 @pytest.mark.parametrize("cls", ["TeacherConfig", "KDConfig"])

@@ -1,6 +1,7 @@
 """The port and its GPU script import neither JAX, flax, msgpack nor the JAX
 package, nor a package the GPU machine lacks (sklearn, pandas, tabulate,
-matplotlib, PIL, tqdm, torchvision)."""
+matplotlib, tqdm, torchvision) or that the port must not need (PIL); the
+server, with PIL absent, refuses a PNG body by naming the missing decoder."""
 
 import os
 import subprocess
@@ -30,6 +31,18 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+
+# the deployment entry points refuse what needs PIL, naming it, and import nothing
+import numpy as np
+from inference_efficient_vision_models_tpu_torch import server
+png = chip_smoke.png_bytes(np.zeros((4, 4, 3), np.uint8))
+try:
+    server._decode_image_bytes(png, "image/png", (4, 4))
+except server._NoDecoder as e:
+    assert "PIL" in str(e), e
+else:
+    raise AssertionError("a PNG was decoded without PIL")
+assert {"server", "cli.predict", "cli.import_torch"} <= {m.split(".", 1)[1] for m in mods}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 print(len(mods), bad)
 """
@@ -41,5 +54,5 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 60, r.stdout  # every module of the port was imported
+    assert int(n) >= 65, r.stdout  # every module of the port was imported
     assert bad == "[]", bad

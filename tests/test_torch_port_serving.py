@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import load_static_int8
+from inference_efficient_vision_models_tpu_torch.ops.space_to_depth import space_to_depth_u8
 from inference_efficient_vision_models_tpu_torch.serving import Predictor, load_quantized
 from inference_efficient_vision_models_tpu_torch.utils import device as tdev
 
@@ -44,6 +45,22 @@ def test_predictor_warmup_and_bad_buckets():
         load_quantized(ARTIFACT, "weight_only_int4", device="cpu")
     with pytest.raises(FileNotFoundError):  # served since PR 8; r2 has no such artifact
         load_quantized(ARTIFACT, "dynamic_int8", device="cpu")
+
+
+def test_device_preprocess_and_predict_stream():
+    """``device_preprocess=True`` (raw uint8 to the executor, which
+    relayouts on the device) gives the host space-to-depth's logits bit for
+    bit; ``predict_stream`` gives ``predict_logits``'s, batch by batch."""
+    kw = dict(device="cpu", batch_size=8, bucket_sizes=(1, 4))
+    host = Predictor.from_artifact(ARTIFACT, **kw)
+    raw = Predictor.from_artifact(ARTIFACT, device_preprocess=True, **kw)
+    assert host.host_preprocess is space_to_depth_u8 and raw.host_preprocess is None
+    imgs = np.random.default_rng(4).integers(0, 256, (6, 224, 224, 3), dtype=np.uint8)
+    ref = host.predict_logits(imgs)
+    np.testing.assert_array_equal(raw.predict_logits(imgs), ref)
+    stream = list(host.predict_stream(iter([imgs[:1], imgs[1:]])))
+    assert [s.shape for s in stream] == [(1, 6), (5, 6)]
+    np.testing.assert_array_equal(np.concatenate(stream), ref)
 
 
 def test_predictor_surfaces_producer_errors():

@@ -276,10 +276,15 @@ def test_no_cpu_fallback(tmp_path, monkeypatch):
 
 
 def test_augment_and_real_images_are_not_ported(tmp_path, cpu_platform):
-    with pytest.raises(NotImplementedError, match="augment"):
-        teacher.main(common_args(tmp_path, augment=True) + [f"model_name={TEACHER!r}"])
-    with pytest.raises(NotImplementedError, match="real-image decode"):
-        teacher.main(common_args(tmp_path, synthetic_data=False))
+    """Both are ported now: the teacher trains with ``augment=True`` (the
+    training log records its epoch), and with synthetic data off and no
+    NEU-DET tree the stage raises FileNotFoundError, as the JAX package's."""
+    res = teacher.main(common_args(tmp_path, augment=True, epochs=1, DEBUG_MODE=True)
+                       + [f"model_name={TEACHER!r}"])
+    assert len(res) == 1 and np.isfinite(res[0]["test_loss"])
+    with pytest.raises(FileNotFoundError, match="NEU-DET not found"):
+        teacher.main(common_args(tmp_path, synthetic_data=False,
+                                 data_dir=str(tmp_path / "none")))
 
 
 def test_cli_kwargs_and_folds():
