@@ -91,6 +91,7 @@ GPU. Needs one card.
 from __future__ import annotations
 
 import base64
+import contextlib
 import http.client as http_client
 import io
 import json
@@ -758,16 +759,16 @@ def check_and_time_main_shapes(model, gen: torch.Generator, path: str = "resnet1
     return rows, fails
 
 
-def profile_forward(model, x: torch.Tensor, iters: int = 3):
-    """Device time by kernel over ``iters`` forwards (torch.profiler), and the
-    device's idle share of that window's host wall time."""
+def profile_window(run, per: int = 1, unit: str = "forward"):
+    """Device time by kernel over ``run()`` (torch.profiler: the kernels of
+    every thread of the process), and the device's idle share of that
+    window's host wall time; counts and times per ``per`` ``unit``s."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
-            model(x)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -775,12 +776,17 @@ def profile_forward(model, x: torch.Tensor, iters: int = 3):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {
-        "forwards": iters, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "launches_per_forward": sum(e.count for e in kernels) / iters,
+        f"{unit}s": per, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        f"launches_per_{unit}": sum(e.count for e in kernels) / per,
         "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-        "top": [{"kernel": e.key[:100], "ms_per_forward": e.self_device_time_total / 1e3 / iters,
-                 "calls_per_forward": e.count / iters} for e in top],
+        "top": [{"kernel": e.key[:100], f"ms_per_{unit}": e.self_device_time_total / 1e3 / per,
+                 f"calls_per_{unit}": e.count / per} for e in top],
     }
+
+
+def profile_forward(model, x: torch.Tensor, iters: int = 3):
+    """``profile_window`` over ``iters`` forwards of ``model`` on ``x``."""
+    return profile_window(lambda: [model(x) for _ in range(iters)], iters)
 
 
 def serve(model_dir: str, golden_imgs: np.ndarray, gen_np: np.random.Generator,
@@ -2140,6 +2146,77 @@ def _server(fold: str, method: str):
     return srv, ref, warm
 
 
+@contextlib.contextmanager
+def recorded_forwards(pred, keep_inputs: bool = True):
+    """Wrap ``pred._stage_host`` and ``pred.apply_fn``, which the server's
+    dispatcher thread calls in turn once per coalesced and padded batch, to
+    keep each batch's host images (``keep_inputs``: the array the batcher
+    made, no copy), its logits and CUDA events around the forward; yields
+    the list they go to and unwraps on exit."""
+    log, stage, fn = [], pred._stage_host, pred.apply_fn
+
+    def stage_host(chunk):
+        log.append([chunk if keep_inputs else None])
+        return stage(chunk)
+
+    def run(x):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = fn(x)
+        end.record()
+        log[-1] += [y, start, end]
+        return y
+
+    pred._stage_host, pred.apply_fn = stage_host, run
+    try:
+        yield log
+    finally:
+        pred._stage_host, pred.apply_fn = stage, fn
+
+
+def forward_spans(log) -> dict:
+    """Each recorded forward's device span (CUDA events: from the stream
+    reaching its first launch to its last kernel's end), by batch rows."""
+    torch.cuda.synchronize()
+    spans = {}
+    for _, y, start, end in log:
+        spans.setdefault(len(y), []).append(start.elapsed_time(end))
+    return {str(b): {"forwards": len(v), "median": float(np.median(v)), "mean": float(np.mean(v)),
+                     "sum": float(np.sum(v))} for b, v in sorted(spans.items())}
+
+
+def dispatched_vs_plain(pred, model, log, tau=None):
+    """Every batch the server dispatched, staged again by ``pred`` and held
+    against ``model``'s plain version on that device input: bit for bit
+    (``tau`` None), else ``logits_close`` at ``tau``. -> (summary, failures)."""
+    rows = same = 0
+    worst, fails, by_rows = 0.0, [], {}
+    with torch.inference_mode():
+        for i, (chunk, y, _, _) in enumerate(log):
+            by_rows[str(len(y))] = by_rows.get(str(len(y)), 0) + 1
+            plain = model(pred._stage_host(chunk).cuda(), impl="plain")
+            got, ref = y.float().cpu().numpy(), plain.float().cpu().numpy()
+            err = float(np.abs(got - ref).max())
+            worst = max(worst, err)
+            rows += len(got)
+            same += int(sum(np.array_equal(g, r) for g, r in zip(got, ref)))
+            ok = torch.equal(y, plain) if tau is None else logits_close(got, ref, tau)[0]
+            if not ok:
+                fails.append(f"dispatched batch {i} ({len(got)} rows): max abs err {err}")
+    return {"forwards": len(log), "forwards_by_rows": by_rows, "rows": rows,
+            "rows_bit_identical": same, "max_abs_err": worst,
+            "check": "bit-exact" if tau is None else f"logits_close tau {tau}"}, fails
+
+
+def stats_since(now: dict, before: dict) -> dict:
+    """``MicroBatcher.stats()`` counters between two readings."""
+    n = {k: now[k] - before[k] for k in ("requests", "batches", "images")}
+    slots = round(now["mean_dispatch_slots"] * now["batches"]
+                  - before["mean_dispatch_slots"] * before["batches"])
+    b = max(n["batches"], 1)
+    return {**n, "mean_batch": n["images"] / b, "mean_dispatch_slots": slots / b}
+
+
 def _server_launches(srv, per_forward: dict, label: str):
     """Launches since the last reset, against ``per_forward`` x the batches
     the server's stats count; -> (launches, stats)."""
@@ -2155,9 +2232,13 @@ def _server_launches(srv, per_forward: dict, label: str):
 
 def run_server_r2(dev):
     """r2 behind the HTTP server: 8 clients x 40 requests of seeded sizes,
-    every answer against ``Predictor.predict_logits`` of its images (the
-    ResNet18 limit; bit-identical rows counted), launches against the
-    batches the server ran, then each payload kind and error status."""
+    three times. Counted (plus one request alone per bucket): launches
+    against the batches the server ran, and each batch it dispatched
+    against the plain forward, bit for bit. Timed:
+    latency, rate, forward spans, dispatcher busy time. Profiled: device
+    busy time over the window. Every answer of the first two against
+    ``Predictor.predict_logits`` of its images (the ResNet18 limit;
+    bit-identical rows counted); then each payload kind and error status."""
     from concurrent.futures import ThreadPoolExecutor
 
     from inference_efficient_vision_models_tpu_torch.data.native_loader import (
@@ -2179,8 +2260,38 @@ def run_server_r2(dev):
                 out.append((code, logits, time.perf_counter() - t0))
             return out
 
-        # the dispatcher's busy seconds, and the host staging (s2d + pinned
-        # copy) within them: how much of the wall the model's thread works
+        def load():
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+                futs = [pool.submit(client, c) for c in range(SERVER_CLIENTS)]
+                answers = [f.result() for f in futs]
+            return answers, time.perf_counter() - t0
+
+        n_images = sum(len(r) for rs in reqs for r in rs)
+        model = srv.pred.apply_fn
+        # pass 1, counted and checked: launches against the batches the
+        # server ran; each batch as the server coalesced and padded it (its
+        # host images kept) against the plain forward on the same input.
+        # After the load, one request alone per bucket below the batch, so
+        # that every bucket runs whatever the coalescing did
+        solo_rng = np.random.default_rng(16)
+        solo = [solo_rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)
+                for b in srv.pred.bucket_sizes]
+        _lib.reset_launch_counts()
+        with recorded_forwards(srv.pred) as log:
+            answers, _ = load()
+            solo_answers = [post_npy(srv.port, x) for x in solo]
+        launches, stats = _server_launches(srv, PER_FORWARD, "server_r2")
+        n_counted = n_images + sum(len(x) for x in solo)
+        if (stats["requests"] != SERVER_CLIENTS * SERVER_REQUESTS + len(solo)
+                or stats["images"] != n_counted):
+            raise SmokeFailure(f"server_r2: stats {stats} for {n_counted} images")
+        plain, plain_fails = dispatched_vs_plain(srv.pred, model, log)
+        del log
+
+        # pass 2, timed, keeping no inputs: each forward's device span, the
+        # dispatcher's busy seconds and the host staging (s2d + pinned copy)
+        # within them
         busy = {"dispatch_s": 0.0, "stage_host_s": 0.0}
 
         def timed(fn, key):
@@ -2194,30 +2305,39 @@ def run_server_r2(dev):
 
         srv.batcher._dispatch = timed(srv.batcher._dispatch, "dispatch_s")
         srv.pred._stage_host = timed(srv.pred._stage_host, "stage_host_s")
-        _lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(SERVER_CLIENTS) as pool:
-            answers = [f.result() for f in [pool.submit(client, c) for c in range(SERVER_CLIENTS)]]
-        wall = time.perf_counter() - t0
-        launches, stats = _server_launches(srv, PER_FORWARD, "server_r2")
-        n_images = sum(len(r) for rs in reqs for r in rs)
-        if stats["requests"] != SERVER_CLIENTS * SERVER_REQUESTS or stats["images"] != n_images:
-            raise SmokeFailure(f"server_r2: stats {stats} for {n_images} images")
+        with recorded_forwards(srv.pred, keep_inputs=False) as log:
+            timed_answers, wall = load()
+        del srv.batcher._dispatch, srv.pred._stage_host  # back to the methods
+        spans = forward_spans(log)
+        del log
+        timed_stats = stats_since(srv.batcher.stats(), stats)
 
-        lat = {}
+        # pass 3, the same load under torch.profiler: the device's busy time
+        # over the window (the dispatcher thread's kernels), against its wall
+        before = srv.batcher.stats()
+        prof = profile_window(load, unit="window")
+        prof["batches"] = srv.batcher.stats()["batches"] - before["batches"]
+
+        # every answer of passes 1 and 2 against Predictor.predict_logits of
+        # the request's images alone (another batch composition)
+        flat = [(imgs, ans[i]) for rs, ans in [*zip(reqs, answers), *zip(reqs, timed_answers)]
+                for i, imgs in enumerate(rs)]
+        flat += [(x, (code, got, None)) for x, (code, got) in zip(solo, solo_answers)]
         rows = identical = 0
         worst = 0.0
-        for rs, ans in zip(reqs, answers):
-            for imgs, (code, got, secs) in zip(rs, ans):
-                if code != 200:
-                    raise SmokeFailure(f"server_r2: status {code}: {got}")
-                want = ref_pred.predict_logits(imgs)
-                worst = max(worst, float(np.abs(got - want).max()))
-                if not (np.allclose(got, want, **R18_LIMIT)
-                        and (got.argmax(1) == want.argmax(1)).all()):
-                    raise SmokeFailure(f"server_r2: answer off its Predictor logits by {worst}")
-                rows += len(imgs)
-                identical += int(sum(np.array_equal(g, w) for g, w in zip(got, want)))
+        for imgs, (code, got, _) in flat:
+            if code != 200:
+                raise SmokeFailure(f"server_r2: status {code}: {got}")
+            want = ref_pred.predict_logits(imgs)
+            worst = max(worst, float(np.abs(got - want).max()))
+            if not (np.allclose(got, want, **R18_LIMIT)
+                    and (got.argmax(1) == want.argmax(1)).all()):
+                raise SmokeFailure(f"server_r2: answer off its Predictor logits by {worst}")
+            rows += len(imgs)
+            identical += int(sum(np.array_equal(a, w) for a, w in zip(got, want)))
+        lat = {}
+        for rs, ans in zip(reqs, timed_answers):
+            for imgs, (_, _, secs) in zip(rs, ans):
                 lat.setdefault(len(imgs), []).append(secs * 1e3)
 
         # each payload kind and error status, one request at a time
@@ -2285,10 +2405,17 @@ def run_server_r2(dev):
           "latency_ms": {str(n): {"requests": len(v), "p50": float(np.percentile(v, 50)),
                                   "p99": float(np.percentile(v, 99))}
                          for n, v in sorted(lat.items())},
-          "stats": stats, "dispatcher_busy": {**busy, "share_of_wall": busy["dispatch_s"] / wall},
-          "launches": launches, "rows": rows, "rows_bit_identical": identical,
+          "stats": timed_stats,
+          "dispatcher_busy": {**busy, "share_of_wall": busy["dispatch_s"] / wall},
+          "device_span_ms": spans,
+          "device_span_share_of_wall": sum(v["sum"] for v in spans.values()) / (wall * 1e3),
+          "profiled_load": prof, "counted_stats": stats, "launches": launches,
+          "dispatched_vs_plain": plain, "rows": rows, "rows_bit_identical_to_predictor": identical,
           "max_abs_err": worst, "limit": R18_LIMIT, "payloads": payloads,
           "metadata": {k: meta[k] for k in ("batch_size", "bucket_sizes", "max_batch")}})
+    if plain_fails:
+        raise SmokeFailure("server_r2: dispatched batches differ from the plain forward:\n"
+                           + "\n".join(plain_fails))
     bad = [k for k in ("json_b64", "bmp_224_equals_npy", "bmp_200_8bit_equals_file_decode")
            if not payloads[k]]
     if (bad or png_code != (200 if pil else 415) or png_code_no_pil != 415
@@ -2299,16 +2426,23 @@ def run_server_r2(dev):
 
 
 def run_server_one(dev, label: str, fold: str, method: str, per_forward: dict, tau: float):
-    """One 8-image request to a server of ``fold`` against its ``Predictor``
-    (``logits_close`` at ``tau``), launches against the batches it ran."""
+    """One 8-image request to a server of ``fold``: the batch it dispatched
+    against the plain forward on the same input and the answer against its
+    ``Predictor`` (both ``logits_close`` at ``tau``), launches against the
+    batches it ran."""
     srv, ref_pred, warm = _server(fold, method)
     try:
         imgs = np.random.default_rng(13).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        model = srv.pred.apply_fn
         _lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        code, got = post_npy(srv.port, imgs)
-        secs = time.perf_counter() - t0
+        with recorded_forwards(srv.pred) as log:
+            t0 = time.perf_counter()
+            code, got = post_npy(srv.port, imgs)
+            secs = time.perf_counter() - t0
         launches, stats = _server_launches(srv, per_forward, label)
+        plain, plain_fails = dispatched_vs_plain(srv.pred, model, log, tau)
+        spans = forward_spans(log)
+        del log
     finally:
         srv.close()
     if code != 200:
@@ -2317,9 +2451,14 @@ def run_server_one(dev, label: str, fold: str, method: str, per_forward: dict, t
     ok, err, atol = logits_close(got, want, tau)
     emit({"phase": label, **_stage_card(dev), "method": method, "warmup_s": warm,
           "request_ms": secs * 1e3, "stats": stats, "launches": launches,
-          "max_abs_err": err, "atol": atol, "tau": tau,
-          "rows_bit_identical": int(sum(np.array_equal(g, w) for g, w in zip(got, want))),
+          "max_abs_err": err, "atol": atol, "tau": tau, "dispatched_vs_plain": plain,
+          "device_span_ms": spans,
+          "rows_bit_identical_to_predictor": int(sum(np.array_equal(g, w)
+                                                     for g, w in zip(got, want))),
           "rows": len(imgs)})
+    if plain_fails:
+        raise SmokeFailure(f"{label}: the dispatched batch differs from the plain forward: "
+                           + "; ".join(plain_fails))
     if not ok:
         raise SmokeFailure(f"{label}: served logits off the Predictor's by {err} > {atol}")
     return launches

@@ -182,22 +182,16 @@ class InferenceServer:
         host: str = "127.0.0.1",
         port: int = 8000,
         max_wait_ms: float = 2.0,
-        max_batch: Optional[int] = None,
         image_size: Tuple[int, int] = (224, 224),
-        class_names: Optional[list] = None,
         metadata: Optional[dict] = None,
         logger=None,
-        warmup: bool = True,
     ):
         self.pred = predictor
-        self.batcher = MicroBatcher(predictor, max_wait_ms=max_wait_ms, max_batch=max_batch)
+        self.batcher = MicroBatcher(predictor, max_wait_ms=max_wait_ms)
         self.image_size = image_size
-        self.class_names = class_names or [
-            n for n, _ in sorted(CLS_NAME_ID_MAP.items(), key=lambda kv: kv[1])
-        ]
+        self.class_names = [n for n, _ in sorted(CLS_NAME_ID_MAP.items(), key=lambda kv: kv[1])]
         self._meta = dict(metadata or {})
         self._logger = logger
-        self._warmup = warmup
         self.ready = threading.Event()
         self.httpd = ThreadingHTTPServer((host, port), _Handler)
         self.httpd.daemon_threads = True
@@ -227,8 +221,7 @@ class InferenceServer:
         says 503 until then, so load balancers wait."""
         self._serve_thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._serve_thread.start()
-        if self._warmup:
-            self.batcher.warmup((*self.image_size, 3))
+        self.batcher.warmup((*self.image_size, 3))
         self.ready.set()
         self._log(
             f"serving on :{self.port} "
