@@ -30,6 +30,14 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (``testdata``); serving as above with (d) 16 fused-block calls and 3
    int8-matmul launches per forward, (b) and (c) with logit tolerances
    relative to the logit scale;
+3b. EfficientNet-B0's unfused and mixed executors (PR 10): the committed
+   artifact served by the unfused executor (``Predictor``, 34 int8-matmul +
+   16 int8-depthwise launches per forward, logits against the plain path
+   and the JAX golden) and both executors timed; kernel E (``dwconv_int8``)
+   against its plain version, max abs err 0, at the 16 depthwise calls
+   (batch 256, timed beside its bound) and at odd shapes (C 1, 8, 13,
+   1,152; odd H and W; k 5 stride 2 at every border class; zero points 0,
+   128 and 255);
 4. ViT-Tiny path (the committed static-INT8 ViT-Tiny/16, and the float ViT
    from the same seeded weights): (a) kernel D (dense + GELU) against its
    plain version at odd shapes (offset views among them, both bf16 routes)
@@ -67,6 +75,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    bound and a library call where one exists, and each forward at batch 1
    and 256 with CUDA events (median of 25 runs after warm-up), and profiles
    a batch-256 forward of each path with ``torch.profiler``;
+7b. this slice's stages 1-4 on EfficientNet-B0 (PR 10): one fp32 CE step
+   and one KD step of B0 at 64x64 against a JAX golden
+   (``effnet_train_step_golden``); a seeded B0 recalibrated, calibrated and
+   converted on the card against the JAX package's CPU record
+   (``convert_effnet``); in the training process, after the ResNet chain,
+   B0 teacher -> KD -> prune (l2, 0.2, round_to 8) -> quantize (six
+   methods) through the port's CLIs at 224x224 (``effnet_chain``); then the
+   chain's INT8 model served by the unfused, fused and mixed executors,
+   each against its own plain path, launches counted per forward, fused
+   blocks against unfused ones, and kernels A, C and E at its shapes
+   (``effnet_chain_int8``);
 8. the deployment entry points: ``serve_rates`` serves r2 through
    ``Predictor`` at batch 256 three ways (host s2d by numpy, host s2d by
    the native row interleave, ``device_preprocess=True``; logits identical,
@@ -142,6 +161,9 @@ KERNEL_INFO = {
                            "inference_efficient_vision_models_tpu/ops/fused_mbconv.py:222"),
     "dense_gelu": (f"{PKG}/csrc/fused_dense.cu",
                    "inference_efficient_vision_models_tpu/ops/fused_dense.py:77"),
+    # not a Pallas kernel: the JAX package computes it with XLA
+    "dwconv_int8": (f"{PKG}/csrc/dwconv_int8.cu",
+                    "inference_efficient_vision_models_tpu/ops/dwconv_int8.py:50"),
 }
 PLAIN = {"int8_matmul_requant": int8_matmul_requant_plain,
          "conv3x3_s1_int8": conv3x3_s1_int8_plain}
@@ -150,6 +172,10 @@ PER_FORWARD = {"int8_matmul_requant": 8, "conv3x3_s1_int8": 13}
 # EfficientNet-B0: stem, head conv and fc on kernel A; 16 fused blocks with SE,
 # each three launches (expand+depthwise, SE gate, project)
 EFF_PER_FORWARD = {"int8_matmul_requant": 3, "fused_mbconv_block": 16 * 3}
+# the unfused executor: stem, 15 expand, 16 project, head conv and fc on kernel
+# A, 16 depthwise convs on kernel E; the mixed one: the same A, a bf16 depthwise
+EFF_UNFUSED_PER_FORWARD = {"int8_matmul_requant": 34, "dwconv_int8": 16}
+EFF_MIXED_PER_FORWARD = {"int8_matmul_requant": 34}
 # ViT-Tiny int8 (either carrier): patch embed, 12 x (qkv, proj, mlp1, mlp2), head
 VIT_PER_FORWARD = {"int8_matmul_requant": 50}
 # float ViT-Tiny with fused_mlp: one mlp1 + GELU per block
@@ -204,6 +230,25 @@ UPDATE_LEAF_MAX = 16384
 TRAIN_LIMITS = {"loss_rel": 3.3e-6, "logits_over_scale": 9.4e-5, "grad_norm_rel": 0.0123,
                 "bn_sum_over_abs_sum": 7.5e-7, "mu_norm_rel": 0.0128, "nu_norm_rel": 0.035,
                 "update_dev_over_lr": 2.0}
+# EfficientNet-B0's fp32 CE step (teacher role) and KD step (a B0 student from
+# another seed against it), batch 8 at 64x64 (``testdata/effnet_train_step_jax.npz``,
+# ``JAX_PLATFORMS=cpu python tests/test_torch_port_effnet_float.py`` writes it)
+# The gradient of a block's project_bn bias is zero in exact arithmetic where
+# the block's output feeds only the next conv and its train-mode BatchNorm
+# (which removes a per-channel shift): those leaves hold rounding noise, ~1e-8
+# of the largest leaf norm, so norms are held relative to at least 1e-4 of it
+EFF_TRAIN_STEP = dict(teacher="efficientnet_b0", student="efficientnet_b0", seed=0,
+                      student_seed=1, batch=8, size=64, image_seed=0, alpha=0.5,
+                      temperature=4.0, lr=1e-3, norm_floor=1e-4)
+EFF_TRAIN_GOLDEN = os.path.join(TESTDATA, "effnet_train_step_jax.npz")
+# twice the port's CPU deviation from it, the largest over 1 to 8 intra-op
+# threads (the writer prints it: loss 1.22e-6, logits 8.2e-6 of the scale, a
+# gradient leaf's norm 4.28e-4 and a first moment's 4.28e-4 over the floor, a
+# second moment's 4.52e-5, a BN statistic's sum 1.31e-7 of its sum of
+# magnitudes, updates 1.99 lr)
+EFF_TRAIN_LIMITS = {"loss_rel": 2.5e-6, "logits_over_scale": 1.7e-5, "grad_norm_rel": 8.6e-4,
+                    "bn_sum_over_abs_sum": 2.7e-7, "mu_norm_rel": 8.6e-4, "nu_norm_rel": 9.1e-5,
+                    "update_dev_over_lr": 2.0}
 # stages 3-4: the JAX package's CPU conversion of the committed pruned r2
 # checkpoint (minmax, the first 256 images of fold 0's train split, batch 32):
 # activation qparams by value, every other leaf by sha256
@@ -214,6 +259,24 @@ CONVERT_GOLDEN = os.path.join(TESTDATA, "r2_convert_jax.json")
 # forwards sum in another order in oneDNN than in XLA, and the EMA of the
 # tap's max carries it); every other leaf equal
 CONVERT_LIMITS = {"scale_rtol": 1.075e-6}
+
+# this slice's conversion: a seeded EfficientNet-B0 (effnet_params_from_seed),
+# its BN statistics recalibrated and its activations calibrated (minmax) on
+# seeded surrogate images, converted to static INT8 at 224x224. The JAX
+# package's CPU run is the record (``testdata/effnet_b0_convert_jax.json``,
+# qparams + per-leaf sha256) beside the BN statistics it recalibrated
+# (``effnet_b0_convert_state_jax.npz``), from which the card converts so
+# that every non-activation leaf can be held equal; the card's own
+# recalibration is held to those statistics
+# (``JAX_PLATFORMS=cpu python tests/test_torch_port_effnet_quant.py`` writes both)
+EFF_CONVERT = dict(seed=0, size=224, per_class=8, image_seed=5, batch=16)
+EFF_CONVERT_GOLDEN = os.path.join(TESTDATA, "effnet_b0_convert_jax.json")
+EFF_CONVERT_STATE = os.path.join(TESTDATA, "effnet_b0_convert_state_jax.npz")
+# scales within twice the port's CPU deviation from the record, the largest
+# over 1 to 8 intra-op threads (2.52e-6, stage6/0/out_scale: the fp32
+# calibration forwards sum in another order); recalibrated statistics within
+# fp32 1e-5 of each leaf's scale, the stage-3 tests' limit (the CPU: 2.49e-6)
+EFF_CONVERT_LIMITS = {"scale_rtol": 5.0e-6, "recal_rtol": 1e-5}
 
 
 class SmokeFailure(RuntimeError):
@@ -310,6 +373,67 @@ def resnet_params_from_seed(spec, seed: int):
     return params, state
 
 
+def effnet_params_from_seed(spec, seed: int):
+    """EfficientNet (params, BN state) in the JAX layout (HWIO convs, a
+    depthwise kernel (k, k, 1, C), (in, out) SE and fc matrices): nested dicts
+    of fp32 numpy arrays drawn leaf by leaf, in the JAX init's order, from
+    ``np.random.default_rng(seed)``: convs N(0, 2 / fan_out) (Kaiming, fan_out;
+    a depthwise kernel's fan is k*k), SE matrices N(0, 2 / out) with biases
+    0.1 N, BN scale 1 + 0.1 N, bias 0.1 N, running mean 0.1 N, running var
+    1 + 0.1 |N|, the fc weight U(±1/sqrt(classes)) and bias 0.1 N."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def conv(kh, kw, cin, cout, fan=None):
+        return {"w": normal((kh, kw, cin, cout), (2.0 / (fan or kh * kw * cout)) ** 0.5)}
+
+    def se(cin, cout):
+        return {"w": normal((cin, cout), (2.0 / cout) ** 0.5), "b": normal((cout,), 0.1)}
+
+    def bn(c):
+        p = {"scale": (1 + normal((c,), 0.1)).astype(np.float32), "bias": normal((c,), 0.1)}
+        s = {"mean": normal((c,), 0.1),
+             "var": (1 + 0.1 * np.abs(rng.standard_normal(c))).astype(np.float32)}
+        return p, s
+
+    params, state = {"stem": conv(3, 3, spec.in_chans, spec.stem_width)}, {}
+    params["stem_bn"], state["stem_bn"] = bn(spec.stem_width)
+    for si, depth in enumerate(spec.depths):
+        k = spec.stage_kernels[si]
+        lp, ls = {}, {}
+        for b in range(depth):
+            cin, h = spec.block_in_width(si, b), spec.hidden_widths[si][b]
+            cout, sq = spec.stage_widths[si], spec.se_widths[si][b]
+            bp, bs = {}, {}
+            if spec.has_expand[si][b]:
+                bp["expand"] = conv(1, 1, cin, h)
+                bp["expand_bn"], bs["expand_bn"] = bn(h)
+            bp["dw"] = conv(k, k, 1, h, fan=k * k)
+            bp["dw_bn"], bs["dw_bn"] = bn(h)
+            bp["se_reduce"], bp["se_expand"] = se(h, sq), se(sq, h)
+            bp["project"] = conv(1, 1, h, cout)
+            bp["project_bn"], bs["project_bn"] = bn(cout)
+            lp[str(b)], ls[str(b)] = bp, bs
+        params[f"stage{si}"], state[f"stage{si}"] = lp, ls
+    params["last"] = conv(1, 1, spec.stage_widths[-1], spec.last_width)
+    params["last_bn"], state["last_bn"] = bn(spec.last_width)
+    bound = spec.num_classes ** -0.5
+    params["fc"] = {"w": rng.uniform(-bound, bound, (spec.last_width, spec.num_classes))
+                    .astype(np.float32), "b": normal((spec.num_classes,), 0.1)}
+    return params, state
+
+
+def params_from_seed(spec, seed: int):
+    """Seeded (params, BN state) in the JAX layout of a ResNet or an EfficientNet."""
+    from inference_efficient_vision_models_tpu_torch.models.efficientnet import EfficientNetSpec
+
+    fn = effnet_params_from_seed if isinstance(spec, EfficientNetSpec) else \
+        resnet_params_from_seed
+    return fn(spec, seed)
+
+
 def leaf_sums(tree) -> np.ndarray:
     """float64 sum of every leaf, in the tree's order: a fingerprint that makes
     a drifting copy of the parameters fail loudly."""
@@ -328,7 +452,7 @@ def flat_raw(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
-_ACT_QPARAMS = ("out_scale", "out_zp", "in_scale", "in_zp")
+_ACT_QPARAMS = ("out_scale", "out_zp", "in_scale", "in_zp", "se_scale", "se_zp")
 
 
 def conversion_record(qmodel, observers=None) -> dict:
@@ -362,7 +486,20 @@ def _tap_of(path: str) -> str:
     return f"l{s}b{b}o"
 
 
-def compare_conversion(qmodel, ref: dict, limits=CONVERT_LIMITS) -> dict:
+def _eff_tap_of(path: str) -> str:
+    """The calibration tap of an EfficientNet activation qparam."""
+    parts = path.strip("/").split("/")
+    if parts[0] in ("input", "stem"):
+        return parts[0]
+    if parts[0] in ("last", "fc"):
+        return {"last": "head", "fc": "feat"}[parts[0]]
+    s, b = parts[0][5:], parts[1]
+    if parts[2] in ("expand", "dw"):
+        return f"s{s}b{b}{parts[2][0]}"
+    return f"s{s}b{b}" + ("se" if parts[2].startswith("se_") else "o")
+
+
+def compare_conversion(qmodel, ref: dict, limits=CONVERT_LIMITS, tap_of=_tap_of) -> dict:
     """A conversion (``serializable`` tree) against a reference record: every
     non-activation leaf equal, every scale within ``scale_rtol``, every zero
     point equal or one apart where the reference's -min/scale lies within
@@ -381,7 +518,7 @@ def compare_conversion(qmodel, ref: dict, limits=CONVERT_LIMITS) -> dict:
             if d > rel:
                 rel, worst = d, k
         elif g != r:
-            lo = min(ref["observers"][_tap_of(k)][0], 0.0)
+            lo = min(ref["observers"][tap_of(k)][0], 0.0)
             scale = ref["qparams"][k.replace("zp", "scale")]
             frac = -lo / scale
             edge = abs(frac - (np.floor(frac) + 0.5)) <= rt * max(abs(frac), 1.0)
@@ -885,7 +1022,7 @@ def block_cost(x: torch.Tensor, packed, kernel: int, stride: int, residual: bool
 def eff_block_inputs(model, b: int, gen: torch.Generator):
     """(name, x, kernel, stride, residual) at every block of the served model,
     batch b, int8 inputs spread around each block's input zero point."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import block_plan
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
 
     h = model.q["stem"]["e"].shape[1]
     out = []
@@ -943,7 +1080,7 @@ def eff_check_odd_shapes(gen_np: np.random.Generator, gen: torch.Generator):
 def eff_kernel_a_calls(model, b: int):
     """Kernel A's three calls of one forward at batch b: stem (im2col patches,
     K = 27), the head conv (K = 320) and the fc (float input)."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import block_plan
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
 
     q = model.q
     st, last, fc = q["stem"], q["last"], q["fc"]
@@ -960,10 +1097,13 @@ def eff_kernel_a_calls(model, b: int):
     ]
 
 
-def eff_check_and_time_main_shapes(model, gen: torch.Generator):
+def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "efficientnet_b0"):
     """(a) kernel C at the 16 block shapes, bit for bit, and kernel A at its
     3, batch 256, then the timings: each block's three launches apart
-    (device time, torch.profiler) beside the whole call and its bound."""
+    (device time, torch.profiler; on the committed model's path only)
+    beside the whole call and its bound. ``path`` names the model's path in
+    the rows; kernel A is timed on the committed model's path only."""
+    main = path == "efficientnet_b0"
     rows, fails = [], []
     for name, x, k, stride, residual in eff_block_inputs(model, BATCH, gen):
         packed = model.qf[name]
@@ -975,7 +1115,7 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator):
                          f"exact {exact}")
         nbytes, ops, dw = block_cost(x, packed, k, stride, residual)
         rows.append({
-            "path": "efficientnet_b0", "kernel": "fused_mbconv_block", "call": name,
+            "path": path, "kernel": "fused_mbconv_block", "call": name,
             "x": list(x.shape), "ce": packed["wdw"].shape[-1], "n": packed["wp"].n,
             "k": k, "stride": stride, "max_abs_err": err, "exact": exact,
             "ms": time_ms(lambda: fused_mbconv_block(x, packed, **kw), spin=True),
@@ -983,11 +1123,22 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator):
             "bytes": nbytes, "ops": ops, "dw_macs": dw,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
             "dw_ms": dw / FP32_FMA_PER_S * 1e3, "library_ms": None,
-            "launch_ms": launch_ms(lambda: fused_mbconv_block(x, packed, **kw)),
+            **({"launch_ms": launch_ms(lambda: fused_mbconv_block(x, packed, **kw))}
+               if main else {}),
         })
         emit({"phase": "eff_a_main_shape", **rows[-1]})
         del x
     mine = [r for r in rows if r["kernel"] == "fused_mbconv_block"]
+    if not main:
+        emit({"phase": "eff_c_blocks", "path": path, "batch": BATCH,
+              "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+              "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"], r["dw_ms"]) for r in mine)})
+        for _, label, shape, dtype, leaf, kw in eff_kernel_a_calls(model, BATCH):
+            row, f = kernel_a_row(path, label, make_input(shape, dtype, kw["in_zp"], gen), leaf,
+                                  kw, timed=False)
+            rows.append(row)
+            fails += f
+        return rows, fails
     emit({"phase": "eff_c_launches", "batch": BATCH,
           "blocks": [{"block": r["call"], **r["launch_ms"], "ms": r["ms"],
                       "bound_ms": max(r["bytes_ms"], r["ops_ms"], r["dw_ms"])} for r in mine],
@@ -1007,10 +1158,7 @@ def eff_blocks_teacher_forced(model, imgs: np.ndarray):
     """(a') every block on the golden images: kernel and plain fed the same
     plain-path input, so flips do not compound; within one quantum, >= 98%
     exact on every block."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
-        block_plan,
-        stem_int8,
-    )
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan, stem_int8
 
     fails, per = [], []
     with torch.inference_mode():
@@ -1034,7 +1182,7 @@ def eff_blocks_vs_jax(model, golden):
     """(c') every block fed the JAX package's own input to it (its block
     outputs on golden images, committed in testdata): the kernel's int8
     output against JAX's, within one quantum and >= 98% exact."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import block_plan
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
 
     fails, per = [], []
     names = ["stem"] + [name for name, *_ in block_plan(model.spec)]
@@ -1139,6 +1287,307 @@ def run_efficientnet(gen: torch.Generator):
         emit({"phase": "eff_forward", **fwd})
         emit({"phase": "eff_profile_b256", **profile_forward(model, x)})
     return rows, launches
+
+
+# --------------------------------------------------------------------------
+# EfficientNet-B0's unfused and mixed executors: kernel E (int8 depthwise)
+# --------------------------------------------------------------------------
+
+# kernel E's odd shapes (N, H, W, C, k, stride): byte loads (C 13, 1), 8-byte
+# loads (C 8), odd H and W, k 5 at stride 2 on every border class (H mod 4)
+E_ODD_SHAPES = [(4, 13, 13, 8, 3, 1), (4, 13, 11, 13, 5, 2), (2, 9, 15, 13, 3, 2),
+                (2, 7, 7, 1152, 5, 2), (3, 15, 9, 1152, 3, 1), (2, 11, 13, 8, 5, 2),
+                (2, 10, 10, 8, 5, 2), (2, 14, 14, 13, 5, 2), (2, 12, 11, 1152, 5, 2),
+                (3, 17, 17, 1, 5, 2)]
+E_ZPS = ((0, 255), (128, 128), (255, 0))  # (input zero point, output zero point)
+
+
+def dw_calls(model, b: int):
+    """Kernel E's 16 calls of one unfused forward at batch b: (block, x shape,
+    depthwise leaf, stride, in_scale, in_zp)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
+
+    q = model.q
+    h = q["stem"]["e"].shape[1]
+    cur_s, cur_z = q["stem"]["out_scale"], q["stem"]["out_zp"]
+    out = []
+    for name, _, stride, _ in block_plan(model.spec):
+        blk = q["blocks"][name]
+        e = blk.get("expand")
+        in_s, in_z = (e["out_scale"], e["out_zp"]) if e else (cur_s, cur_z)
+        out.append((name, (b, h, h, blk["dw"]["w_q"].shape[-1]), blk["dw"], stride, in_s, in_z))
+        h = (h - 1) // stride + 1
+        cur_s, cur_z = blk["out_scale"], blk["out_zp"]
+    return out
+
+
+def unfused_a_calls(model, b: int):
+    """Kernel A's 34 calls of one unfused forward at batch b: the stem (im2col
+    patches), each expand and project (fp32 out), the head conv and the fc."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
+
+    q = model.q
+    st = q["stem"]
+    h = st["e"].shape[1]
+    calls = [("stem", (b * h * h, st["w"].k), torch.int8, st, dict(in_scale=1.0, in_zp=128))]
+    cur_s, cur_z = st["out_scale"], st["out_zp"]
+    for name, _, stride, _ in block_plan(model.spec):
+        blk = q["blocks"][name]
+        if "expand" in blk:
+            calls.append((f"{name}.expand", (b * h * h, blk["expand"]["w"].k), torch.int8,
+                          blk["expand"], dict(in_scale=cur_s, in_zp=cur_z)))
+        h = (h - 1) // stride + 1
+        calls.append((f"{name}.project", (b * h * h, blk["project"]["w"].k), torch.int8,
+                      blk["project"], dict(in_scale=blk["se_scale"], in_zp=blk["se_zp"])))
+        cur_s, cur_z = blk["out_scale"], blk["out_zp"]
+    last, fc = q["last"], q["fc"]
+    calls.append(("last", (b * h * h, last["w"].k), torch.int8, last,
+                  dict(in_scale=last["in_scale"], in_zp=last["in_zp"])))
+    calls.append(("fc", (b, fc["w"].k), torch.float32, fc,
+                  dict(in_scale=fc["in_scale"], in_zp=fc["in_zp"])))
+    return calls
+
+
+def e_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = True):
+    """Kernel E at one call, bit for bit against its plain version, its bound
+    (bytes: x, out, the k*k x C weights and two fp32 C-vectors once; the
+    depthwise MACs at the CUDA cores' FMA rate) and, ``timed``, its time
+    beside the plain version's."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        depthwise_conv_int8, depthwise_conv_int8_plain)
+
+    args = (x, leaf["w_q"], leaf["w_scale"], leaf["bias"])
+    ok, err = compare_exact(depthwise_conv_int8(*args, **kw),
+                            depthwise_conv_int8_plain(*args, **kw))
+    n, h, w, c = x.shape
+    k, stride = leaf["w_q"].shape[0], kw["stride"]
+    out = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * c
+    nbytes, macs = x.numel() + out + k * k * c + 8 * c, out * k * k
+    row = {"path": path, "kernel": "dwconv_int8", "call": label, "batch": n, "x": list(x.shape),
+           "n": c, "k": k, "stride": stride, "in_zp": int(kw["in_zp"]),
+           "out_zp": int(kw["out_zp"]), "max_abs_err": err, "bytes": nbytes, "ops": 0,
+           "dw_macs": macs, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
+           "dw_ms": macs / FP32_FMA_PER_S * 1e3, "library_ms": None,
+           "in_forward": n == BATCH}
+    if timed:
+        row["ms"] = time_ms(lambda: depthwise_conv_int8(*args, **kw), spin=True)
+        row["plain_ms"] = time_ms(lambda: depthwise_conv_int8_plain(*args, **kw), spin=True)
+    return row, [] if ok else [f"dwconv_int8 {path} {label} {tuple(x.shape)} {kw}: "
+                               f"max abs err {err}"]
+
+
+def check_e_main_shapes(model, gen: torch.Generator, path: str):
+    """Kernel E at the 16 depthwise calls of ``model`` at batch 256, bit for
+    bit and timed."""
+    rows, fails = [], []
+    for name, shape, leaf, stride, in_s, in_z in dw_calls(model, BATCH):
+        x = int8_around(shape, in_z, gen)
+        kw = dict(stride=stride, in_scale=in_s, in_zp=in_z, out_scale=leaf["out_scale"],
+                  out_zp=leaf["out_zp"])
+        row, f = e_row(path, name, x, leaf, kw)
+        rows.append(row)
+        fails += f
+        emit({"phase": "effnet_e_shapes", **row})
+        del x
+    emit({"phase": "effnet_e_forward", "path": path, "batch": BATCH, "calls": len(rows),
+          "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+          "bound_ms": sum(max(r["bytes_ms"], r["dw_ms"]) for r in rows),
+          "bytes": sum(r["bytes"] for r in rows), "dw_macs": sum(r["dw_macs"] for r in rows)})
+    return rows, fails
+
+
+def run_effnet_e_shapes(gen: torch.Generator, gen_np: np.random.Generator):
+    """The committed EfficientNet-B0 artifact served by the unfused executor
+    (``Predictor``, three requests, A 34 + E 16 launches per forward; logits
+    against the plain path within TAU_B and the JAX package's fused-executor
+    golden within TAU_C), then ``effnet_e_shapes``: kernel E against its
+    plain version, max abs err 0, at B0's 16 depthwise calls (batch 256,
+    timed) and at odd shapes, each at zero points 0, 128 and 255.
+    -> (rows, launches)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
+        load_static_int8 as load_unfused)
+
+    model = load_unfused(EFF_ARTIFACT, "cuda")
+    # the main path: the committed artifact served by the unfused executor
+    golden = np.load(EFF_GOLDEN)
+    golden_imgs = np.random.default_rng(int(golden["seed"])).integers(
+        0, 256, tuple(golden["shape"]), dtype=np.uint8)
+    requests, served, forwards, launches, wall = serve(
+        EFF_ARTIFACT, golden_imgs, np.random.default_rng(1), "static_int8")
+    big = requests[-1]
+    with torch.inference_mode():
+        plain = np.concatenate([
+            model(torch.from_numpy(big[i : i + BATCH]).cuda(), impl="plain").cpu().numpy()
+            for i in range(0, len(big), BATCH)])
+    ok_b, err_b, _ = logits_close(served[-1], plain, TAU_B)
+    ok_c, err_c, atol_c = logits_close(served[1], golden["logits"][: len(served[1])], TAU_C)
+    counts_ok = all(launches.get(k, 0) == EFF_UNFUSED_PER_FORWARD.get(k, 0) * forwards
+                    for k in set(EFF_UNFUSED_PER_FORWARD) | set(launches))
+    emit({"phase": "eff_unfused_serve", "requests": [len(r) for r in requests],
+          "forwards": forwards, "launches": launches, "wall_s": wall,
+          "kernel_vs_plain_max_abs_err": err_b, "vs_jax_fused_golden_max_abs_err": err_c,
+          "vs_jax_fused_golden_atol": atol_c})
+    if not (ok_b and ok_c and counts_ok):
+        raise SmokeFailure(f"eff_unfused_serve: kernel vs plain {ok_b} ({err_b}), vs the JAX "
+                           f"golden {ok_c} ({err_c}), launches {launches} in {forwards}")
+    mixed = load_unfused(EFF_ARTIFACT, "cuda", executor="mixed")
+    fwd = {}
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            x = torch.from_numpy(np.random.default_rng(2).integers(
+                0, 256, (b, *golden_imgs.shape[1:]), dtype=np.uint8)).cuda()
+            fwd[f"unfused_forward_ms_b{b}"] = time_ms(lambda: model(x))
+            fwd[f"mixed_forward_ms_b{b}"] = time_ms(lambda: mixed(x))
+        emit({"phase": "eff_unfused_forward", **fwd,
+              "unfused_profile_b256": profile_forward(model, x)})
+    del mixed, x
+    rows, fails = check_e_main_shapes(model, gen, "efficientnet_b0_unfused")
+    odd = []
+    for n, h, w, c, k, stride in E_ODD_SHAPES:
+        leaf = {"w_q": torch.from_numpy(gen_np.integers(-127, 128, (k, k, 1, c),
+                                                        dtype=np.int8)).cuda(),
+                "w_scale": torch.from_numpy(gen_np.uniform(0.002, 0.02, c)
+                                            .astype(np.float32)).cuda(),
+                "bias": torch.from_numpy(gen_np.standard_normal(c).astype(np.float32)).cuda()}
+        for in_zp, out_zp in E_ZPS:
+            x = int8_around((n, h, w, c), in_zp, gen)
+            kw = dict(stride=stride, in_scale=0.04, in_zp=in_zp, out_scale=0.03, out_zp=out_zp)
+            row, f = e_row("odd", f"{h}x{w}x{c} k{k} s{stride}", x, leaf, kw, timed=False)
+            odd.append(row)
+            fails += f
+    emit({"phase": "effnet_e_odd_shapes", "checks": len(odd),
+          "max_abs_err": max(r["max_abs_err"] for r in odd), "failed": fails})
+    if fails:
+        raise SmokeFailure("kernel E disagrees with its plain version:\n" + "\n".join(fails))
+    return rows, launches
+
+
+def chain_images(size: int, n: int = 64) -> np.ndarray:
+    """``n`` seeded surrogate images of ``size`` x ``size``, every class."""
+    from inference_efficient_vision_models_tpu_torch.data.synthetic import make_synthetic_neudet
+
+    return make_synthetic_neudet(-(-n // 6), image_size=size, seed=9)[0][:n]
+
+
+def block_outputs(model, x: torch.Tensor, impl: str = "plain") -> dict:
+    """Each block's int8 output in a forward of an unfused or mixed
+    EfficientNet (``qeffnet.QEffNetInt8Unfused``) on raw uint8 images."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qeffnet
+
+    block = qeffnet.block_int8 if model.executor == "int8" else qeffnet.block_mixed
+    q = model.q
+    cur = qeffnet.stem_int8(q, x, impl=impl)
+    cur_s, cur_z = q["stem"]["out_scale"], q["stem"]["out_zp"]
+    outs = {}
+    for name, k, stride, residual in qeffnet.block_plan(model.spec):
+        blk = q["blocks"][name]
+        cur = outs[name] = block(blk, cur, cur_s, cur_z, kernel=k, stride=stride,
+                                 residual=residual, impl=impl)
+        cur_s, cur_z = blk["out_scale"], blk["out_zp"]
+    return outs
+
+
+def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
+    """``effnet_chain_int8``: the chain's static-INT8 EfficientNet served three
+    ways through ``Predictor.from_artifact`` (launches counted per forward:
+    unfused A 34 + E 16, fused A 3 + C 48, mixed A 34), each forward held to
+    its own ``impl="plain"`` on 64 images (unfused and fused bit for bit,
+    mixed within TAU_B), every fused block to the unfused one (teacher
+    forcing, within one quantum, >= 98% exact), the forwards timed at batch 1
+    and 256; then each kernel at the chain model's shapes against its plain
+    version (kernels C and E timed; kept out of the kernels line's sums).
+    -> (rows, {path: launches})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
+        load_static_int8_fused)
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
+        block_plan, load_static_int8 as load_unfused, stem_int8)
+
+    models = {"static_int8": load_unfused(quant_dir, "cuda"),
+              "static_int8_fused": load_static_int8_fused(quant_dir, "cuda"),
+              "static_int8_mixed": load_unfused(quant_dir, "cuda", executor="mixed")}
+    hw = 2 * models["static_int8"].q["stem"]["e"].shape[1]  # the size it was converted for
+    imgs = chain_images(hw)
+    x = torch.from_numpy(imgs).cuda()
+    per = {"static_int8": EFF_UNFUSED_PER_FORWARD, "static_int8_fused": EFF_PER_FORWARD,
+           "static_int8_mixed": EFF_MIXED_PER_FORWARD}
+    logits, launches_by, fails = {}, {}, []
+    with torch.inference_mode():
+        for method, model in models.items():
+            # one forward of the 64 images, the batch the plain path runs
+            pred = Predictor.from_artifact(quant_dir, method, device="cuda",
+                                           batch_size=len(imgs))
+            pred.warmup(imgs.shape[1:])
+            _lib.reset_launch_counts()
+            served = pred.predict_logits(imgs)
+            torch.cuda.synchronize()
+            launches = dict(_lib.launches)
+            launches_by[f"efficientnet_b0_pipeline_{method}"] = launches
+            kern, plain = model(x), model(x, impl="plain")
+            torch.cuda.synchronize()
+            kern, plain = kern.cpu().numpy(), plain.cpu().numpy()
+            logits[method] = kern
+            if method == "static_int8_mixed":
+                ok, err, _ = logits_close(kern, plain, TAU_B)
+            else:
+                ok, err = bool(np.array_equal(kern, plain)), float(np.abs(kern - plain).max())
+            s_ok, s_err, s_atol = logits_close(served, plain, TAU_B)
+            fwd = {}
+            for b in (1, BATCH):
+                xb = torch.from_numpy(np.random.default_rng(2).integers(
+                    0, 256, (b, hw, hw, 3), dtype=np.uint8)).cuda()
+                fwd[f"forward_ms_b{b}"] = time_ms(lambda: model(xb))
+            counts_ok = launches == per[method]
+            emit({"phase": "effnet_chain_int8", **_stage_card(dev), "method": method,
+                  "images": len(imgs), "launches_per_forward": launches,
+                  "expected_launches": per[method], "kernel_vs_plain_max_abs_err": err,
+                  "kernel_vs_plain_ok": ok, "served_vs_plain_max_abs_err": s_err,
+                  "served_atol": s_atol, "logit_scale": float(np.abs(plain).max()), **fwd,
+                  "images_per_s_b256": BATCH / fwd[f"forward_ms_b{BATCH}"] * 1e3})
+            if not (ok and s_ok and counts_ok):
+                fails.append(f"{method}: kernel vs plain {ok} ({err}), served {s_ok} ({s_err}), "
+                             f"launches {launches} (expected {per[method]})")
+            if method == "static_int8":
+                emit({"phase": "effnet_chain_int8_profile_b256",
+                      **profile_forward(model, xb)})
+        # every fused block (kernel C) fed the unfused executor's input, against
+        # the unfused block's output
+        unfused, fused = models["static_int8"], models["static_int8_fused"]
+        outs, per_block = block_outputs(unfused, x), []
+        prev = stem_int8(unfused.q, x, impl="plain")
+        for name, k, stride, residual in block_plan(unfused.spec):
+            got = fused_mbconv_block(prev, fused.qf[name], kernel=k, stride=stride, act="silu",
+                                     x_res=prev if residual else None)
+            b_ok, b_err, exact = compare_block(got, outs[name])
+            per_block.append({"block": name, "max_abs_err": b_err, "exact": exact})
+            if not b_ok:
+                fails.append(f"fused block {name} vs unfused: max abs err {b_err}, exact {exact}")
+            prev = outs[name]
+    u, f = logits["static_int8"], logits["static_int8_fused"]
+    emit({"phase": "effnet_chain_fused_vs_unfused", "images": len(imgs),
+          "worst_exact": min(r["exact"] for r in per_block),
+          "max_abs_err": max(r["max_abs_err"] for r in per_block), "blocks": per_block,
+          "logits_max_abs_diff_over_scale": float(np.abs(f - u).max() / np.abs(u).max()),
+          "argmax_agreement": float((f.argmax(1) == u.argmax(1)).mean()),
+          "mixed_vs_unfused_over_scale": float(np.abs(logits["static_int8_mixed"] - u).max()
+                                               / np.abs(u).max())})
+    if fails:
+        raise SmokeFailure("effnet_chain_int8:\n" + "\n".join(fails))
+
+    # each kernel at the chain model's shapes against its plain version
+    rows, fails = check_e_main_shapes(unfused, gen, "efficientnet_b0_pipeline")
+    c_rows, f2 = eff_check_and_time_main_shapes(fused, gen, "efficientnet_b0_pipeline")
+    rows += c_rows
+    fails += f2
+    for label, shape, dtype, leaf, kw in unfused_a_calls(unfused, BATCH):
+        row, f3 = kernel_a_row("efficientnet_b0_pipeline", f"unfused.{label}",
+                               make_input(shape, dtype, kw["in_zp"], gen), leaf, kw, timed=False)
+        rows.append(row)
+        fails += f3
+    emit({"phase": "effnet_chain_kernels", "checks": len(rows),
+          "max_abs_err": max(r["max_abs_err"] for r in rows), "failed": fails})
+    if fails:
+        raise SmokeFailure("kernels disagree at the chain model's shapes:\n" + "\n".join(fails))
+    return rows, launches_by
 
 
 # --------------------------------------------------------------------------
@@ -1406,10 +1855,10 @@ def run_vit(gen: torch.Generator):
 # --------------------------------------------------------------------------
 
 
-def train_step_batch():
+def train_step_batch(cfg=TRAIN_STEP):
     """The train-step golden's batch: uint8 images from a seed, labels 0..5."""
-    rng = np.random.default_rng(TRAIN_STEP["image_seed"])
-    b, size = TRAIN_STEP["batch"], TRAIN_STEP["size"]
+    rng = np.random.default_rng(cfg["image_seed"])
+    b, size = cfg["batch"], cfg["size"]
     return (rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8),
             (np.arange(b) % 6).astype(np.int32), np.ones(b, np.float32))
 
@@ -1424,7 +1873,7 @@ def _flat_sorted(tree, prefix=""):
 
 
 def train_step_metrics(role: str, loss, logits, grads, new_state, before, after, mu,
-                       nu) -> dict:
+                       nu, lr: float = TRAIN_STEP["lr"]) -> dict:
     """What the train-step golden keeps of one step (trees in the JAX layout):
     the loss, the logits, each gradient leaf's L2 norm, each BatchNorm
     running statistic's sum beside its sum of magnitudes (the scale it is
@@ -1446,13 +1895,12 @@ def train_step_metrics(role: str, loss, logits, grads, new_state, before, after,
             f"{role}_nu_norms": np.array([np.linalg.norm(v) for v in _flat_sorted(nu).values()]),
             f"{role}_update_names": np.array(kept),
             f"{role}_update_slack_over_lr": np.float64(2 * np.spacing(np.float32(
-                max(np.abs(p0[k]).max() for k in kept) + 4 * TRAIN_STEP["lr"]))
-                / TRAIN_STEP["lr"]),
+                max(np.abs(p0[k]).max() for k in kept) + 4 * lr)) / lr),
             f"{role}_update_over_lr": np.concatenate(
-                [((p1[k] - p0[k]) / TRAIN_STEP["lr"]).ravel() for k in kept]).astype(np.float32)}
+                [((p1[k] - p0[k]) / lr).ravel() for k in kept]).astype(np.float32)}
 
 
-def port_train_step(weights: dict, batch, device) -> dict:
+def port_train_step(weights: dict, batch, device, cfg=TRAIN_STEP) -> dict:
     """The port's fp32 CE step of the teacher, and KD step of the student
     against the (not updated) teacher in eval mode: the loss, logits,
     gradients and new BN state from ``*_loss_and_grads``, then the updated
@@ -1469,7 +1917,7 @@ def port_train_step(weights: dict, batch, device) -> dict:
     imgs, labels, mask = batch
     b = (torch.from_numpy(imgs).to(device), torch.from_numpy(labels.astype(np.int64)).to(device),
          torch.from_numpy(mask).to(device))
-    specs = {r: make_spec(TRAIN_STEP[r], 6) for r in ("teacher", "student")}
+    specs = {r: make_spec(cfg[r], 6) for r in ("teacher", "student")}
 
     def model(r):
         return tuple(params_from_jax(specs[r], t, device) for t in weights[r])
@@ -1477,11 +1925,11 @@ def port_train_step(weights: dict, batch, device) -> dict:
     def to_jax(r, tree):
         return params_to_jax(specs[r], tree)
 
-    kd = dict(alpha=TRAIN_STEP["alpha"], temperature=TRAIN_STEP["temperature"])
-    step = {"teacher": make_train_step(specs["teacher"], learning_rate=TRAIN_STEP["lr"],
+    kd = dict(alpha=cfg["alpha"], temperature=cfg["temperature"])
+    step = {"teacher": make_train_step(specs["teacher"], learning_rate=cfg["lr"],
                                        compute_dtype="float32"),
             "student": make_kd_train_step(specs["student"], specs["teacher"],
-                                          learning_rate=TRAIN_STEP["lr"],
+                                          learning_rate=cfg["lr"],
                                           compute_dtype="float32", **kd)}
     teacher = model("teacher")
     out = {}
@@ -1501,18 +1949,24 @@ def port_train_step(weights: dict, batch, device) -> dict:
     return out
 
 
-def _rel(mine, ref) -> float:
-    return float((np.abs(mine - ref) / np.maximum(np.abs(ref), 1e-30)).max())
+def _rel(mine, ref, floor: float = 0.0) -> float:
+    """Largest |mine - ref| / |ref|, each |ref| raised to at least ``floor``
+    times the largest |ref| (0: plain relative deviations)."""
+    scale = np.maximum(np.abs(ref), max(floor * float(np.abs(ref).max()), 1e-30))
+    return float((np.abs(mine - ref) / scale).max())
 
 
-def compare_train_step(role: str, got, golden, limits=None) -> dict:
+def compare_train_step(role: str, got, golden, limits=None, cfg=TRAIN_STEP) -> dict:
     """One role's step against the golden: the loss's relative deviation, the
     logits' over the logit scale, the largest relative deviation of a
     gradient leaf's norm, of a BN statistic's sum (over its sum of
-    magnitudes) and of a moment leaf's norm, and the largest deviation of a
+    magnitudes) and of a moment leaf's norm (each norm raised to at least
+    ``cfg["norm_floor"]`` of the largest, squared for the second moment),
+    and the largest deviation of a
     kept leaf's update in units of lr; with ``limits`` also whether each
     holds (the update's limit plus the parameters' rounding)."""
-    mine = train_step_metrics(role, *got)
+    mine = train_step_metrics(role, *got, lr=cfg["lr"])
+    fl = cfg.get("norm_floor", 0.0)
     for k in ("grad_names", "bn_names", "moment_names", "update_names"):
         if list(mine[f"{role}_{k}"]) != list(golden[f"{role}_{k}"]):
             raise SmokeFailure(f"{role}: the {k} differ from the golden's")
@@ -1520,11 +1974,11 @@ def compare_train_step(role: str, got, golden, limits=None) -> dict:
         "loss_rel": _rel(mine[f"{role}_loss"], golden[f"{role}_loss"]),
         "logits_over_scale": float(np.abs(mine[f"{role}_logits"] - golden[f"{role}_logits"]).max()
                                    / np.abs(golden[f"{role}_logits"]).max()),
-        "grad_norm_rel": _rel(mine[f"{role}_grad_norms"], golden[f"{role}_grad_norms"]),
+        "grad_norm_rel": _rel(mine[f"{role}_grad_norms"], golden[f"{role}_grad_norms"], fl),
         "bn_sum_over_abs_sum": float((np.abs(mine[f"{role}_bn_sums"] - golden[f"{role}_bn_sums"])
                                       / golden[f"{role}_bn_abs_sums"]).max()),
-        "mu_norm_rel": _rel(mine[f"{role}_mu_norms"], golden[f"{role}_mu_norms"]),
-        "nu_norm_rel": _rel(mine[f"{role}_nu_norms"], golden[f"{role}_nu_norms"]),
+        "mu_norm_rel": _rel(mine[f"{role}_mu_norms"], golden[f"{role}_mu_norms"], fl),
+        "nu_norm_rel": _rel(mine[f"{role}_nu_norms"], golden[f"{role}_nu_norms"], fl * fl),
         "update_dev_over_lr": float(np.abs(mine[f"{role}_update_over_lr"]
                                            - golden[f"{role}_update_over_lr"]).max()),
     }
@@ -1614,29 +2068,37 @@ def run_float_r2_eval(dev, test):
     emit(out)
 
 
-def run_train_step_golden(dev):
-    """One fp32 CE step of ResNet50 and one KD step of ResNet18 against it
-    (batch 8 at 224, TF32 off), from the seeded weights, against the JAX
-    package's golden."""
+def step_weights(cfg) -> dict:
+    """The train-step golden's seeded weights of each role (JAX layout)."""
     from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
 
-    golden = np.load(TRAIN_GOLDEN)
-    weights = {}
+    return {r: params_from_seed(make_spec(cfg[r], 6), cfg.get(f"{r}_seed", cfg["seed"]))
+            for r in ("teacher", "student")}
+
+
+def run_train_step_golden(dev, cfg=TRAIN_STEP, path=TRAIN_GOLDEN, limits=TRAIN_LIMITS,
+                          phase="train_step_golden"):
+    """One fp32 CE step of the teacher and one KD step of the student against
+    it (TF32 off), from the seeded weights, against the JAX package's golden:
+    ResNet50 and ResNet18 at batch 8, 224x224 (``TRAIN_STEP``), or
+    EfficientNet-B0 for both roles at 64x64 (``EFF_TRAIN_STEP``)."""
+    golden = np.load(path)
+    weights = step_weights(cfg)
     for role in ("teacher", "student"):
-        weights[role] = resnet_params_from_seed(make_spec(TRAIN_STEP[role], 6), TRAIN_STEP["seed"])
         if not (np.array_equal(leaf_sums(weights[role][0]), golden[f"{role}_param_sums"])
                 and np.array_equal(leaf_sums(weights[role][1]), golden[f"{role}_state_sums"])):
-            raise SmokeFailure("resnet_params_from_seed no longer gives the golden's weights")
-    got = port_train_step(weights, train_step_batch(), "cuda")
+            raise SmokeFailure(f"{phase}: the seeded weights are no longer the golden's")
+    got = port_train_step(weights, train_step_batch(cfg), "cuda", cfg)
     fails = []
     for role in ("teacher", "student"):
-        d = compare_train_step(role, got[role], golden, TRAIN_LIMITS)
-        emit({"phase": "train_step_golden", **_stage_card(dev), "role": role,
-              "model": TRAIN_STEP[role], "loss": got[role][0], "limits": TRAIN_LIMITS, **d})
+        d = compare_train_step(role, got[role], golden, limits, cfg)
+        emit({"phase": phase, **_stage_card(dev), "role": role, "model": cfg[role],
+              "batch": cfg["batch"], "size": cfg["size"], "loss": got[role][0],
+              "limits": limits, **d})
         if not d["ok"]:
             fails.append(role)
     if fails:
-        raise SmokeFailure(f"train_step_golden: {fails} outside the limits")
+        raise SmokeFailure(f"{phase}: {fails} outside the limits")
 
 
 def run_convert_r2(dev, calib, test):
@@ -1687,6 +2149,106 @@ def run_convert_r2(dev, calib, test):
     out["argmax_agreement"] = float((logits["port"].argmax(1) == logits["jax"].argmax(1)).mean())
     out["max_abs_logit_diff"] = float(np.abs(logits["port"] - logits["jax"]).max())
     emit(out)
+
+
+def flat_state_npz(tree) -> dict:
+    """A nested dict of arrays -> {"a/b": array} (npz keys)."""
+    return {k.lstrip("/"): v for k, v in flat_raw(tree).items()}
+
+
+def nested_from_npz(npz) -> dict:
+    out: dict = {}
+    for key in npz.files:
+        node = out
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(npz[key])
+    return out
+
+
+def effnet_convert_inputs():
+    """``EFF_CONVERT``'s spec, seeded (params, BN state) and surrogate images."""
+    from inference_efficient_vision_models_tpu_torch.data.synthetic import make_synthetic_neudet
+    from inference_efficient_vision_models_tpu_torch.models.efficientnet import (
+        efficientnet_spec)
+
+    spec = efficientnet_spec("efficientnet_b0", 6)
+    p, s = effnet_params_from_seed(spec, EFF_CONVERT["seed"])
+    imgs, labels = make_synthetic_neudet(EFF_CONVERT["per_class"], image_size=EFF_CONVERT["size"],
+                                         seed=EFF_CONVERT["image_seed"])
+    return spec, p, s, imgs, labels
+
+
+def port_recal_effnet(spec, p, s, imgs, device):
+    """The port's BN recalibration of ``EFF_CONVERT`` -> the JAX-layout state."""
+    from inference_efficient_vision_models_tpu_torch.models.registry import (
+        params_from_jax, params_to_jax)
+    from inference_efficient_vision_models_tpu_torch.train.bn_recal import recalibrate_bn
+
+    b = EFF_CONVERT["batch"]
+    st = recalibrate_bn(spec, params_from_jax(spec, p, device), params_from_jax(spec, s, device),
+                        imgs, batch_size=b, num_batches=len(imgs) // b)
+    return params_to_jax(spec, st)
+
+
+def port_convert_effnet(spec, p, s, imgs, labels, device):
+    """fold -> calibrate (minmax, every image, on ``device``) -> convert ->
+    (the converted tree, observers, {fold_s, calibrate_s, convert_s})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qeffnet
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import place_folded
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+
+    t = {}
+    t0 = time.perf_counter()
+    folded = qeffnet.fold(spec, p, s)
+    t["fold_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obs = qeffnet.calibrate(spec, place_folded(folded, device),
+                            Batches(imgs, labels, EFF_CONVERT["batch"], device),
+                            max_images=len(imgs))
+    t["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q = qeffnet.convert_static_int8(spec, folded, obs,
+                                    image_size=(EFF_CONVERT["size"], EFF_CONVERT["size"]))
+    t["convert_s"] = time.perf_counter() - t0
+    return q, obs, t
+
+
+def state_deviation(got: dict, ref: dict) -> float:
+    """Largest |got - ref| of a BN statistic over its leaf's largest |ref| (at least 1)."""
+    g, r = flat_raw(got), flat_raw(ref)
+    if g.keys() != r.keys():
+        raise SmokeFailure("the recalibrated state's leaves differ from the record's")
+    return max(float(np.abs(g[k] - r[k]).max()) / max(float(np.abs(r[k]).max()), 1.0)
+               for k in r)
+
+
+def run_convert_effnet(dev):
+    """``EFF_CONVERT`` on the card: the port's BN recalibration held to the
+    JAX package's (``recal_rtol``), then fold, calibration and conversion
+    from the recorded statistics held to the JAX CPU conversion record:
+    every non-activation leaf equal by sha256, every scale within
+    ``scale_rtol``."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qeffnet
+
+    with open(EFF_CONVERT_GOLDEN) as f:
+        golden = json.load(f)
+    spec, p, s, imgs, labels = effnet_convert_inputs()
+    ref_state = nested_from_npz(np.load(EFF_CONVERT_STATE))
+    t0 = time.perf_counter()
+    recal = port_recal_effnet(spec, p, s, imgs, "cuda")
+    torch.cuda.synchronize()
+    recal_s = time.perf_counter() - t0
+    recal_dev = state_deviation(recal, ref_state)
+    q, _, t = port_convert_effnet(spec, p, ref_state, imgs, labels, "cuda")
+    report = compare_conversion(qeffnet.serializable(q), golden, EFF_CONVERT_LIMITS, _eff_tap_of)
+    ok = report["ok"] and recal_dev <= EFF_CONVERT_LIMITS["recal_rtol"]
+    emit({"phase": "convert_effnet", **_stage_card(dev), "images": len(imgs),
+          "size": EFF_CONVERT["size"], "recal_s": recal_s, "recal_dev": recal_dev, **t,
+          "limits": EFF_CONVERT_LIMITS, **report, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"convert_effnet: outside the limits: recal {recal_dev}, {report}")
 
 
 def bf16_train_steps():
@@ -1809,7 +2371,9 @@ def training(dev, root, q):
     try:
         steps = bf16_train_steps()
         time_train_steps(dev, steps)
-        result = stage_clis(dev, root)
+        chain = stage_clis(dev, root)
+        chain["eff"] = effnet_stage_clis(dev, root)
+        result = chain
         profile_train_steps(dev, steps)
     finally:
         q.put(result)
@@ -1880,12 +2444,122 @@ def stage_clis(dev, root):
     return quantize_cli(dev, root, common)
 
 
+EFF_CHAIN_METHODS = ("static_int8", "static_int8_mixed", "dynamic_int8", "fp16", "bf16",
+                     "weight_only_int8")
+
+
+def effnet_stage_clis(dev, root):
+    """``effnet_chain``: EfficientNet-B0 through the port's four stage CLIs at
+    224x224 and full width, fold 0, one epoch, the synthetic surrogate (480
+    images a split), ``choice=2`` after each: the teacher (bf16, batch 32),
+    KD B0 -> B0 (alpha 0.5, T 4), prune (l2, ratio 0.2, round_to 8, one
+    fine-tune epoch) and quantize (minmax, 256 calibration images, the six
+    methods the port serves). Checks: finite losses, checkpoints in the JAX
+    layout with ``__kind__ == "efficientnet"``, pruned widths multiples of 8
+    (an SE squeeze width below 8 is kept whole), ``choice=2`` accuracy equal
+    to ``choice=1``'s, every method's summary row and an artifact that
+    ``load_quantized`` restores. The kernel launch counts are set to 0
+    before the chain and read after it. -> {"launches", "quant_dir"}."""
+    import contextlib
+
+    from inference_efficient_vision_models_tpu_torch.cli import kd, prune, quantize, teacher
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    exp = "smoke_eff"
+    common = [f"artifacts_root={root!r}", f"experiment_name={exp!r}", "folds=(0,)",
+              "synthetic_size=480", "pretrained=False", "batch_size=32"]
+    train_args = common + ["epochs=1", "compute_dtype='bfloat16'"]
+    stages = [
+        ("teacher", teacher, "teacher_training", train_args + ["model_name='efficientnet_b0'"]),
+        ("kd", kd, "knowledge_distillation", train_args + [
+            "teacher_model='efficientnet_b0'", "student_model='efficientnet_b0'",
+            f"teacher_exp_name={exp!r}", "alpha=0.5", "temperature=4.0"]),
+        ("prune", prune, "pruning", common + [
+            f"source_exp_name={exp!r}", "pruning_method='l2'", "pruning_ratio=0.2",
+            "round_to=8", "finetune_epochs=1", "compute_dtype='bfloat16'"]),
+        ("quantize", quantize, "quantization", common + [
+            "model_type='pruned'", f"pruning_exp_name={exp!r}", "calibration_images=256",
+            "observer='minmax'", f"methods={EFF_CHAIN_METHODS!r}"]),
+    ]
+    _lib.reset_launch_counts()
+    out = {"phase": "effnet_chain", **_stage_card(dev), "model": "efficientnet_b0",
+           "image_size": 224, "stages": {}}
+    checks = {}
+    for name, mod, stage, argv in stages:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            first = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            second = mod.main(argv + ["choice=2"])
+        fold_dir = os.path.join(root, stage, exp, "fold_0")
+        rec = {"wall_s": wall, "rows": first, "choice2": second}
+        if name != "quantize":
+            hist = artifacts.load_training_log(fold_dir)
+            spec_d = artifacts.load_spec_dict(fold_dir)
+            best = artifacts.load_checkpoint_raw(fold_dir, artifacts.BEST)
+            ref_p, ref_s = _seeded_shapes(fold_dir)
+            step_ms = hist["step_ms"][0]
+            losses = hist["train_loss"] + hist["val_loss"] + [
+                r["test_loss"] for r in first + second if "test_loss" in r]
+            rec.update({"train_steps": len(step_ms), "step_ms": step_ms,
+                        "step_ms_median_steady": float(np.median(step_ms[2:])),
+                        "epoch_s": hist["epoch_time"][0]})
+            checks[f"{name}_losses_finite"] = bool(np.isfinite(losses).all())
+            checks[f"{name}_kind"] = spec_d.get("__kind__") == "efficientnet"
+            checks[f"{name}_jax_layout"] = (_same_shapes(best["params"], ref_p)
+                                            and _same_shapes(best["state"], ref_s))
+            acc = "Accuracy" if name == "prune" else "test_acc"
+            last = first[-1] if name == "prune" else first[0]
+            checks[f"{name}_choice2_acc_equal"] = second[0][acc] == last[acc]
+        if name == "prune":
+            spec = spec_from_dict(artifacts.load_spec_dict(fold_dir))
+            widths = [spec.stem_width, spec.last_width, *spec.stage_widths,
+                      *(h for r in spec.hidden_widths for h in r)]
+            rec["spec"] = {"stem_width": spec.stem_width, "stage_widths": spec.stage_widths,
+                           "hidden_widths": spec.hidden_widths, "se_widths": spec.se_widths,
+                           "last_width": spec.last_width}
+            checks["prune_widths_multiple_of_8"] = all(w % 8 == 0 for w in widths) and all(
+                w % 8 == 0 or w < 8 for r in spec.se_widths for w in r)
+            checks["prune_pruned"] = spec.stage_widths != (16, 24, 40, 80, 112, 192, 320)
+        if name == "quantize":
+            rows = {r["method"]: r for r in first}
+            reload = {r["method"]: r for r in second}
+            for m in EFF_CHAIN_METHODS:
+                restored = True
+                try:
+                    load_quantized(fold_dir, m, device="cuda")
+                except Exception as e:  # the check reports which method failed, and fails
+                    restored = f"{type(e).__name__}: {e}"
+                checks[f"quantize_{m}"] = (
+                    m in rows and os.path.exists(os.path.join(fold_dir, f"model_{m}.msgpack"))
+                    and restored is True and m in reload
+                    and reload[m]["Accuracy"] == rows[m]["Accuracy"])
+            quant_dir = fold_dir
+            from inference_efficient_vision_models_tpu_torch.core.provenance import (
+                read_provenance)
+            rec.update((read_provenance(fold_dir) or {}).get("static_int8_timings", {}))
+        out["stages"][name] = rec
+    torch.cuda.synchronize()
+    launches = dict(_lib.launches)
+    out.update({"launches": launches, "checks": checks})
+    emit(out)
+    if not all(v is True for v in checks.values()):
+        raise SmokeFailure(f"effnet_chain: {checks}")
+    for k in ("int8_matmul_requant", "dwconv_int8"):
+        if not launches.get(k):
+            raise SmokeFailure(f"effnet_chain: {k} was not launched by the stage chain")
+    return {"launches": launches, "quant_dir": quant_dir}
+
+
 def _seeded_shapes(fold_dir: str):
     """Seeded weights of the checkpoint's own spec: the JAX layout's shapes."""
     from inference_efficient_vision_models_tpu_torch.core import artifacts
     from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
 
-    return resnet_params_from_seed(spec_from_dict(artifacts.load_spec_dict(fold_dir)), 0)
+    return params_from_seed(spec_from_dict(artifacts.load_spec_dict(fold_dir)), 0)
 
 
 def prune_cli(dev, root, common):
@@ -2560,6 +3234,8 @@ def kernels_line(rows, launches_by_path, aside=()):
                            "matrix neither built nor timed (PyTorch has no int8 convolution on "
                            "CUDA)",
         "dense_gelu": "torch.addmm + F.gelu(approximate='none') in bf16 (two launches)",
+        "dwconv_int8": "no PyTorch call computes an int8 depthwise convolution (PyTorch has no "
+                       "int8 convolution on CUDA)",
     }
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
@@ -2688,6 +3364,7 @@ def main() -> int:
     del model, x
 
     eff_rows, eff_launches = run_efficientnet(gen)
+    e_rows, e_launches = run_effnet_e_shapes(gen, np.random.default_rng(5))
     vit_rows, vit_launches = run_vit(gen)
     run_serve_rates(dev)
     server_launches = {
@@ -2704,6 +3381,9 @@ def main() -> int:
     run_float_r2_eval(dev, test)
     run_convert_r2(dev, calib, test)
     run_train_step_golden(dev)
+    run_train_step_golden(dev, EFF_TRAIN_STEP, EFF_TRAIN_GOLDEN, EFF_TRAIN_LIMITS,
+                          "effnet_train_step_golden")
+    run_convert_effnet(dev)
     with tempfile.TemporaryDirectory() as root:
         chain = run_training(dev, root)
         # the INT8 ResNet18 the chain made: each kernel call of its forward
@@ -2716,11 +3396,15 @@ def main() -> int:
             raise SmokeFailure("(a) kernels disagree with their plain versions on the stage "
                                "chain's model:\n" + "\n".join(fails))
         del fresh
-    emit({"kernels": kernels_line(rows + eff_rows + vit_rows + pipe_rows,
+        eff_pipe_rows, eff_pipe_launches = run_effnet_chain_int8(dev, gen,
+                                                                 chain["eff"]["quant_dir"])
+    emit({"kernels": kernels_line(rows + eff_rows + e_rows + vit_rows + pipe_rows + eff_pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
-                                   "resnet18_pipeline": chain["launches"], **vit_launches,
-                                   **server_launches},
-                                  aside={"resnet18_pipeline"})})
+                                   "efficientnet_b0_unfused": e_launches,
+                                   "resnet18_pipeline": chain["launches"],
+                                   "efficientnet_b0_pipeline": chain["eff"]["launches"],
+                                   **eff_pipe_launches, **vit_launches, **server_launches},
+                                  aside={"resnet18_pipeline", "efficientnet_b0_pipeline"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

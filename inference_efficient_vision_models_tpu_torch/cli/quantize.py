@@ -97,7 +97,7 @@ def run_quantize(cfg, logger, data, split, device=None):
         methods = {
             "fp32": lambda: (engine.folded, engine.float_forward()),
             "static_int8": lambda: engine.static_quantize(calib),
-            "static_int8_mixed": _not_ported("the mixed executor", "item 14"),
+            "static_int8_mixed": lambda: engine.static_quantize(calib, executor="mixed"),
             "static_int8_bf16": _not_ported("the bf16-carrier executor", "item 15"),
             "dynamic_int8": engine.dynamic_quantize,
             "fp16": lambda: engine.cast_half(torch.float16),

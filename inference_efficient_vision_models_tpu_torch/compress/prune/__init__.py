@@ -1,4 +1,4 @@
-"""Structured pruning (stage 3) of the ResNet family."""
+"""Structured pruning (stage 3) of the ResNet family and EfficientNet."""
 
 from .engine import StructuredPruningEngine, prune_model
 from .graph import group_slices

@@ -1,8 +1,9 @@
 """Structured pruning engine (select -> physically re-pack -> fine-tune), the
-port of the JAX package's ``compress/prune/engine.py`` for the ResNet family.
+port of the JAX package's ``compress/prune/engine.py`` for the ResNet family
+and EfficientNet.
 
 Channels are physically removed: the pruned model is an ordinary smaller
-ResNet whose spec serializes to JSON. The selection and the surgery run in
+network whose spec serializes to JSON. The selection and the surgery run in
 numpy on the JAX-layout trees (``params_to_jax``), as the JAX package runs
 them on the host, so the kept indices and the repacked leaves equal the
 JAX package's by construction; the engine moves the result back to its
@@ -17,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ...models.efficientnet import EfficientNetSpec
 from ...models.registry import params_from_jax, params_to_jax
 from ...models.widths import ResNetSpec
 from ...utils.device import resolve_device
@@ -34,7 +36,7 @@ def _keep_count(width: int, ratio: float, round_to: int) -> int:
     return int(min(max(keep, min(round_to, width), 1), width))
 
 
-def select_channels(spec: ResNetSpec, params, *, ratio: float, method: str = "l2",
+def select_channels(spec, params, *, ratio: float, method: str = "l2",
                     global_pruning: bool = False, round_to: int = 1,
                     rng: Optional[np.random.Generator] = None,
                     grads=None) -> Dict[GroupKey, np.ndarray]:
@@ -89,8 +91,7 @@ def select_channels(spec: ResNetSpec, params, *, ratio: float, method: str = "l2
     return keep
 
 
-def apply_pruning(spec, params, state, keep: Dict[GroupKey, np.ndarray]
-                  ) -> Tuple[ResNetSpec, dict, dict]:
+def apply_pruning(spec, params, state, keep: Dict[GroupKey, np.ndarray]):
     """Slice every coupled array of the JAX-layout numpy trees; return the
     smaller model (new spec, params, state), the inputs left as they were."""
     params = copy.deepcopy(params)
@@ -123,6 +124,8 @@ def apply_pruning(spec, params, state, keep: Dict[GroupKey, np.ndarray]
                 f"{len(idx)} kept of {g['width']} over {n_groups} groups"
             )
             set_path(params, path, np.take(np.asarray(get_path(params, path)), rel, axis=IN_AXIS))
+        for path in g.get("vectors", ()):  # 1-D biases (the SE convs)
+            set_path(params, path, np.take(np.asarray(get_path(params, path)), idx, axis=0))
         if g["fc_in"]:
             params["fc"]["w"] = np.take(np.asarray(params["fc"]["w"]), idx, axis=0)
         new_widths[key] = len(idx)
@@ -130,8 +133,36 @@ def apply_pruning(spec, params, state, keep: Dict[GroupKey, np.ndarray]
     return _rebuild_spec(spec, new_widths), params, state
 
 
-def _rebuild_spec(spec: ResNetSpec, new_widths: Dict[GroupKey, int]) -> ResNetSpec:
+def _rebuild_effnet_spec(spec: EfficientNetSpec, new_widths: Dict[GroupKey, int]
+                         ) -> EfficientNetSpec:
+    widths = list(spec.stage_widths)
+    hidden = [list(r) for r in spec.hidden_widths]
+    se = [list(r) for r in spec.se_widths]
+    stem, last = spec.stem_width, spec.last_width
+    for key, n in new_widths.items():
+        if key[0] == "stem":
+            stem = n
+        elif key[0] == "stage":
+            widths[key[1]] = n
+        elif key[0] == "hidden":
+            hidden[key[1]][key[2]] = n
+        elif key[0] == "se":
+            se[key[1]][key[2]] = n
+        elif key[0] == "last":
+            last = n
+    new = spec.with_widths(widths, hidden, stem, last, se_widths=se)
+    # a t=1 block's hidden width is its input group's
+    for s, depth in enumerate(new.depths):
+        for b in range(depth):
+            if not new.has_expand[s][b]:
+                hidden[s][b] = new.block_in_width(s, b)
+    return new.with_widths(hidden_widths=hidden)
+
+
+def _rebuild_spec(spec, new_widths: Dict[GroupKey, int]):
     """Record pruned widths into a fresh descriptor."""
+    if isinstance(spec, EfficientNetSpec):
+        return _rebuild_effnet_spec(spec, new_widths)
     stage_widths = list(spec.stage_widths)
     inner = [[list(blk) for blk in stg] for stg in spec.inner_widths]
     stem_width = spec.stem_width
@@ -183,15 +214,14 @@ def taylor_grads_accumulated(spec, params, state, batches):
 
 def prune_model(spec, params, state, *, ratio: float, method: str = "l2",
                 global_pruning: bool = False, round_to: int = 1, seed: int = 42, grads=None,
-                keep: Optional[Dict[GroupKey, np.ndarray]] = None
-                ) -> Tuple[ResNetSpec, dict, dict]:
+                keep: Optional[Dict[GroupKey, np.ndarray]] = None) -> Tuple[object, dict, dict]:
     """One-shot structured pruning of JAX-layout numpy trees (the reference's
     single ``pruner.step()``); ``random`` draws from ``default_rng(seed)`` in
     group order."""
-    if not isinstance(spec, ResNetSpec):
+    if not isinstance(spec, (ResNetSpec, EfficientNetSpec)):
         raise NotImplementedError(
             f"pruning {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 items "
-            f"13-15: compress/prune/vit_engine.py and the MBConv graphs)")
+            f"13 and 15: compress/prune/vit_engine.py and the MobileNetV2 graph)")
     if keep is None:
         keep = select_channels(spec, params, ratio=ratio, method=method,
                                global_pruning=global_pruning, round_to=round_to,

@@ -1,5 +1,6 @@
-"""Channel-dependency graph of a ResNet for structured pruning: the port's
-copy of the JAX package's ``compress/prune/graph.py`` (ResNet part).
+"""Channel-dependency graphs of a ResNet and an EfficientNet for structured
+pruning: the port's copy of the JAX package's ``compress/prune/graph.py``
+(ResNet and EfficientNet parts).
 
 Every prunable width is one coupled group of parameter slices, derived
 statically from the width descriptor:
@@ -11,16 +12,23 @@ statically from the width descriptor:
 
 Residual adds couple a whole stage: every block output of a stage (with the
 downsample branch, and the stem where it is tied to stage 0) shares one
-group. Paths are key tuples into the params/state trees in the JAX layout
-(``models.resnet.params_to_jax``): the surgery runs on those numpy trees,
-so the axes here are HWIO axes. The MobileNetV2 and EfficientNet graphs
-are not ported (ROADMAP queue 1 items 13-14).
+group. An EfficientNet adds two edges: a depthwise kernel (k, k, 1, C) is a
+PRODUCER (axis 3) of the group that carries its channels (the expand's
+group, or the block's input group in a t=1 block), and the SE gate couples
+twice (``se_expand``'s output columns and bias produce the hidden width,
+``se_reduce``'s input rows consume it; the SE squeeze width is a free group
+of its own). SE weights are (in, out) matrices, so their axes are 0 and 1;
+``vectors`` lists 1-D biases sliced on axis 0. Paths are key tuples into
+the params/state trees in the JAX layout (``params_to_jax``): the surgery
+runs on those numpy trees, so the axes here are HWIO axes. The MobileNetV2
+graph is not ported (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+from ...models.efficientnet import EfficientNetSpec
 from ...models.widths import ResNetSpec
 
 Path = Tuple[str, ...]
@@ -36,20 +44,93 @@ def _last_conv(spec: ResNetSpec) -> str:
 def group_slices(spec) -> List[Dict]:
     """Coupled groups with their parameter slices. Each group dict:
 
-      key:        ("stem",) | ("stage", s) | ("inner", s, b, i)
+      key:        ("stem",) | ("stage", s) | ("inner", s, b, i)   (ResNet)
+                  ("stem",) | ("stage", s) | ("hidden", s, b) | ("se", s, b)
+                  | ("last",)                                   (EfficientNet)
       width:      current channel count
-      producers:  [(conv_w_path, OUT_AXIS), ...]
+      producers:  [(w_path, axis), ...]   (conv OUT_AXIS, SE matrix 1)
       bns:        [bn_path_prefix, ...]   (scale/bias/mean/var, axis 0)
-      consumers:  [(conv_w_path, IN_AXIS), ...]
+      consumers:  [(w_path, axis), ...]   (conv IN_AXIS, SE matrix 0)
+      vectors:    [bias_path, ...]        (1-D, axis 0; EfficientNet SE)
       fc_in:      True if the fc kernel's rows (axis 0) are consumers
       lanes, grouped_in: a ResNeXt bottleneck's welded inner group, whose
                   channels go as whole lanes (see group_slices_resnet)
     """
+    if isinstance(spec, EfficientNetSpec):
+        return group_slices_effnet(spec)
     if not isinstance(spec, ResNetSpec):
         raise NotImplementedError(
             f"structured pruning of {type(spec).__name__[:-4]} is not ported yet (ROADMAP "
-            f"queue 1 items 13-15); the port prunes the ResNet family")
+            f"queue 1 items 13 and 15); the port prunes the ResNet family and EfficientNet")
     return group_slices_resnet(spec)
+
+
+def group_slices_effnet(spec: EfficientNetSpec) -> List[Dict]:
+    """Coupled groups of an EfficientNet: one group per stage (residual adds
+    couple every block's project output with the next blocks' inputs), the
+    stem, one free ``("hidden", s, b)`` group per block with an expand conv,
+    one free ``("se", s, b)`` group per block, and the head conv ``last``."""
+    groups: List[Dict] = []
+
+    def group(key, width, **kw) -> Dict:
+        g = {"key": key, "width": width, "producers": [], "bns": [], "consumers": [],
+             "vectors": [], "fc_in": False}
+        g.update(kw)
+        return g
+
+    def attach_consumer(g: Dict, s: int, b: int) -> None:
+        """Wire group g to block (s, b), whose INPUT carries g's width."""
+        base = (f"stage{s}", str(b))
+        if spec.has_expand[s][b]:
+            g["consumers"].append((base + ("expand", "w"), IN_AXIS))
+        else:
+            # t=1: the depthwise conv and the SE gate act on g's channels
+            g["producers"].append((base + ("dw", "w"), OUT_AXIS))
+            g["producers"].append((base + ("se_expand", "w"), 1))
+            g["vectors"].append(base + ("se_expand", "b"))
+            g["bns"].append(base + ("dw_bn",))
+            g["consumers"].append((base + ("project", "w"), IN_AXIS))
+            g["consumers"].append((base + ("se_reduce", "w"), 0))
+
+    stem = group(("stem",), spec.stem_width, producers=[(("stem", "w"), OUT_AXIS)],
+                 bns=[("stem_bn",)])
+    attach_consumer(stem, 0, 0)
+    groups.append(stem)
+
+    for s, depth in enumerate(spec.depths):
+        g = group(("stage", s), spec.stage_widths[s])
+        for b in range(depth):
+            base = (f"stage{s}", str(b))
+            g["producers"].append((base + ("project", "w"), OUT_AXIS))
+            g["bns"].append(base + ("project_bn",))
+            if b >= 1:
+                attach_consumer(g, s, b)
+        if s + 1 < len(spec.depths):
+            attach_consumer(g, s + 1, 0)
+        else:
+            g["consumers"].append((("last", "w"), IN_AXIS))
+        groups.append(g)
+
+    for s, depth in enumerate(spec.depths):
+        for b in range(depth):
+            base = (f"stage{s}", str(b))
+            if spec.has_expand[s][b]:
+                groups.append(group(
+                    ("hidden", s, b), spec.hidden_widths[s][b],
+                    producers=[(base + ("expand", "w"), OUT_AXIS), (base + ("dw", "w"), OUT_AXIS),
+                               (base + ("se_expand", "w"), 1)],
+                    bns=[base + ("expand_bn",), base + ("dw_bn",)],
+                    consumers=[(base + ("project", "w"), IN_AXIS), (base + ("se_reduce", "w"), 0)],
+                    vectors=[base + ("se_expand", "b")]))
+            groups.append(group(
+                ("se", s, b), spec.se_widths[s][b],
+                producers=[(base + ("se_reduce", "w"), 1)],
+                consumers=[(base + ("se_expand", "w"), 0)],
+                vectors=[base + ("se_reduce", "b")]))
+
+    groups.append(group(("last",), spec.last_width, producers=[(("last", "w"), OUT_AXIS)],
+                        bns=[("last_bn",)], fc_in=True))
+    return groups
 
 
 def group_slices_resnet(spec: ResNetSpec) -> List[Dict]:

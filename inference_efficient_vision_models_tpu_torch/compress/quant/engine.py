@@ -1,9 +1,11 @@
 """QuantizationEngine: the stage-4 API, the port of the JAX package's
-``compress/quant/engine.py`` for the ResNet family.
+``compress/quant/engine.py`` for the ResNet family and EfficientNet.
 
 Methods (reference parity):
   static_quantize    per-channel int8 weights + calibrated quint8
-                     activations -> the int8 forward on kernels A and B
+                     activations -> the int8 forward (ResNet: kernels A and
+                     B; EfficientNet: the unfused executor on kernels A and
+                     E, or ``executor="mixed"``: kernel A and a bf16 depthwise)
   dynamic_quantize   int8 fc with a per-batch activation scale; the convs
                      stay folded fp32 (torch ``quantize_dynamic({nn.Linear})``)
   weight_only_quantize  W8A16: int8 weight storage, bf16 compute
@@ -25,11 +27,12 @@ import torch
 
 from ...data.pipeline import Batches, normalize_images
 from ...metrics.profile import latency_ms, model_size_bytes, throughput_ips
+from ...models.efficientnet import EfficientNetSpec
 from ...models.registry import params_to_jax
 from ...models.widths import ResNetSpec
 from ...ops.space_to_depth import space_to_depth_u8
 from ...utils.device import exact_fp32, resolve_device
-from . import qresnet, wo8
+from . import qeffnet, qresnet, wo8
 from .observers import quantize_weight_per_channel
 
 
@@ -38,9 +41,11 @@ def quant_module(spec):
     calibrate / convert_static_int8 / apply_int8 / serializable)."""
     if isinstance(spec, ResNetSpec):
         return qresnet
+    if isinstance(spec, EfficientNetSpec):
+        return qeffnet
     raise NotImplementedError(
         f"stage-4 conversion of {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 "
-        f"items 13-15); the port converts the ResNet family")
+        f"items 13 and 15); the port converts the ResNet family and EfficientNet")
 
 
 def _dynamic_fc(feats: torch.Tensor, fcq: Dict) -> torch.Tensor:
@@ -86,7 +91,7 @@ def evaluate_accuracy_fn(cfg, apply_fn, test_d, host_preprocess=None, device=Non
 
 
 class QuantizationEngine:
-    """Quantize a (possibly pruned) ResNet given its spec and the port's
+    """Quantize a (possibly pruned) ResNet or EfficientNet given its spec and the port's
     params/state, on ``device`` (the GPU unless ``device="cpu"``). Folding,
     conversion and weight quantization run on the host in numpy; the
     calibration forwards and every returned ``apply_fn`` run on ``device``."""
@@ -105,20 +110,22 @@ class QuantizationEngine:
 
     def float_forward(self):
         """The fp32 baseline: ``apply_folded`` on normalized images."""
-        spec, f = self.spec, self.folded_dev
-        return lambda x_u8: qresnet.apply_folded(spec, f, normalize_images(x_u8))
+        spec, f, q = self.spec, self.folded_dev, self.q
+        return lambda x_u8: q.apply_folded(spec, f, normalize_images(x_u8))
 
     def static_quantize(self, calib_data: Tuple[np.ndarray, np.ndarray], *,
                         executor: str = "int8"):
         """Calibrate on at most cfg.calibration_images (the estimator from
         cfg.observer), then convert to int8; the forward runs the int8
-        executor on kernels A and B. Wall seconds of the two steps go to
+        executor (``executor="mixed"``: EfficientNet's mixed executor over the
+        same conversion). Wall seconds of the two steps go to
         ``self.timings`` (calibrate_s, convert_s): the observer ranges come
         back to the host as floats, so the first ends with the device's work."""
-        if executor != "int8":
+        mbconv = isinstance(self.spec, EfficientNetSpec)
+        if executor not in (("int8", "mixed") if mbconv else ("int8",)):
             raise NotImplementedError(
-                f"the {executor!r} executor is not ported yet (ROADMAP queue 1 items 14-15); "
-                f"the ResNet int8 executor is 'int8'")
+                f"{type(self.spec).__name__[:-4]} has no {executor!r} executor (the mixed one "
+                f"serves MBConv networks)")
         loader = Batches(calib_data[0], calib_data[1], self.cfg.batch_size, self.device)
         t0 = time.perf_counter()
         observers = self.q.calibrate(self.spec, self.folded_dev, loader,
@@ -127,10 +134,16 @@ class QuantizationEngine:
         t1 = time.perf_counter()
         qmodel = self.q.convert_static_int8(self.spec, self.folded, observers,
                                             image_size=tuple(self.cfg.image_size))
-        self.timings = {"calibrate_s": t1 - t0, "convert_s": time.perf_counter() - t1}
-        self.logger.info("static_int8: calibrate %.3f s, convert %.3f s",
-                         self.timings["calibrate_s"], self.timings["convert_s"])
-        model = qresnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device)
+        timings = {"calibrate_s": t1 - t0, "convert_s": time.perf_counter() - t1}
+        if executor == "int8":
+            self.timings = timings
+        self.logger.info("static_int8 (%s): calibrate %.3f s, convert %.3f s", executor,
+                         timings["calibrate_s"], timings["convert_s"])
+        if mbconv:
+            model = qeffnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device,
+                                            executor=executor)
+        else:
+            model = qresnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device)
         return qmodel, model
 
     def dynamic_quantize(self):
@@ -164,8 +177,10 @@ class QuantizationEngine:
 
     def static_preprocess(self, method: str):
         """Host-side layout transform of a method: space-to-depth for the
-        ResNet static-int8 stem, else None."""
-        return s2d_preprocess if method == "static_int8" else None
+        ResNet static-int8 stem, else None (EfficientNet's 3x3 stem takes raw
+        uint8)."""
+        return s2d_preprocess if method == "static_int8" and isinstance(
+            self.spec, ResNetSpec) else None
 
     def evaluate_accuracy(self, apply_fn, test_d, host_preprocess=None) -> float:
         return evaluate_accuracy_fn(self.cfg, apply_fn, test_d, host_preprocess, self.device)
@@ -202,9 +217,10 @@ def folded_forward(spec, folded, dtype, device=None):
     """uint8 images -> fp32 logits through the folded model (JAX layout)
     cast to ``dtype``, normalized in that dtype."""
     f = qresnet.place_folded(folded, device)
+    apply_folded = quant_module(spec).apply_folded
 
     def fwd(x_u8):
-        return qresnet.apply_folded(spec, f, normalize_images(x_u8, dtype)).float()
+        return apply_folded(spec, f, normalize_images(x_u8, dtype)).float()
 
     return fwd
 
@@ -213,9 +229,10 @@ def dynamic_forward(spec, model, device=None):
     """uint8 images -> logits of a dynamic-int8 model: the folded fp32 trunk
     (TF32 off), then the dynamic int8 fc."""
     m = qresnet.place_folded(model, device)
+    apply_folded = quant_module(spec).apply_folded
 
     def fwd(x_u8):
-        feats = qresnet.apply_folded(spec, m, normalize_images(x_u8), return_features=True)
+        feats = apply_folded(spec, m, normalize_images(x_u8), return_features=True)
         with exact_fp32():
             return _dynamic_fc(feats, m["fc_q"])
 

@@ -1,5 +1,6 @@
 """Conv–BatchNorm folding for the inference and quantization paths, the
-port of the JAX package's ``compress/quant/fold.py`` (ResNet part).
+port of the JAX package's ``compress/quant/fold.py`` (ResNet and
+EfficientNet parts).
 
 In eval mode a BatchNorm is a per-channel affine map, so it folds into the
 conv before it:
@@ -52,6 +53,35 @@ def fold_conv_bn(spec: ResNetSpec, params, state) -> Dict:
                 blk["down"] = dict(
                     zip("wb", _fold_one(bp["down_conv"]["w"], bp["down_bn"], bs["down_bn"])))
             out[lname][str(b)] = blk
+    out["fc"] = {"w": np.asarray(params["fc"]["w"], np.float32),
+                 "b": np.asarray(params["fc"]["b"], np.float32)}
+    return out
+
+
+def fold_effnet(spec, params, state) -> Dict:
+    """EfficientNet conv–BN fold, the layout of the params tree: stem /
+    stage{s}/{b}/{expand?, dw, project} / last / fc, each conv {"w": HWIO, "b"}
+    (a depthwise kernel folds on its HWIO output axis like any conv), and the
+    SE gate's bias-carrying, BN-free fc pair copied through as fp32."""
+    def fold(conv, bn, tree_p, tree_s):
+        return dict(zip("wb", _fold_one(tree_p[conv]["w"], tree_p[bn], tree_s[bn])))
+
+    out: Dict = {"stem": fold("stem", "stem_bn", params, state)}
+    for s, depth in enumerate(spec.depths):
+        sname = f"stage{s}"
+        out[sname] = {}
+        for b in range(depth):
+            bp, bs = params[sname][str(b)], state[sname][str(b)]
+            blk: Dict = {}
+            if spec.has_expand[s][b]:
+                blk["expand"] = fold("expand", "expand_bn", bp, bs)
+            blk["dw"] = fold("dw", "dw_bn", bp, bs)
+            blk["project"] = fold("project", "project_bn", bp, bs)
+            for k in ("se_reduce", "se_expand"):
+                blk[k] = {"w": np.asarray(bp[k]["w"], np.float32),
+                          "b": np.asarray(bp[k]["b"], np.float32)}
+            out[sname][str(b)] = blk
+    out["last"] = fold("last", "last_bn", params, state)
     out["fc"] = {"w": np.asarray(params["fc"]["w"], np.float32),
                  "b": np.asarray(params["fc"]["b"], np.float32)}
     return out

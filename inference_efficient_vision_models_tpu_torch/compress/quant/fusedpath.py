@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -30,11 +30,9 @@ from ...core.artifacts import load_checkpoint_raw
 from ...models.efficientnet import EfficientNetSpec
 from ...models.registry import spec_from_dict
 from ...ops.fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_device_packed
-from ...ops.int8_matmul import int8_matmul_requant, int8_matmul_requant_plain, pack_weight
 from ...utils.device import DeviceLike, resolve_device
-from . import qeffnet, stemfold
-from .observers import dequantize_affine_shifted
-from .qresnet import _conv_leaf, _t32
+from . import qeffnet
+from .qeffnet import block_plan, head_logits, stem_int8  # shared with the unfused executor
 
 __all__ = ["pack_fused", "apply_int8_fused", "QEffNetInt8", "from_jax_qmodel",
            "load_static_int8_fused"]
@@ -129,12 +127,6 @@ def pack_fused(spec, q: Dict) -> Dict:
 # --------------------------------------------------------------------------
 
 
-def block_plan(spec: EfficientNetSpec) -> List[Tuple[str, int, int, bool]]:
-    """(name, kernel, stride, residual) of every MBConv block, in order."""
-    return [(f"s{s}b{b}", spec.stage_kernels[s], spec.block_stride(s, b), spec.has_residual(s, b))
-            for s, depth in enumerate(spec.depths) for b in range(depth)]
-
-
 @dataclasses.dataclass
 class QEffNetInt8:
     """A static-INT8 EfficientNet on one device, run by the fused executor;
@@ -159,32 +151,7 @@ def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None)
             f"the fused executor serves EfficientNet here (MobileNetV2 needs qmobilenet, "
             f"not ported yet), got {type(spec).__name__}")
     qm = qeffnet.restore_derived(qmodel_np)
-    st = qm["stem"]
-    if "e" not in st:
-        raise NotImplementedError("only the normalization-folded u8 stem is ported")
-    n_stem = int(np.asarray(st["bias"]).shape[0])
-    q: Dict = {
-        "stem": {
-            "w": pack_weight(torch.from_numpy(np.array(st["w_q"], np.int8)).to(dev)),
-            "w_scale": _t32(st["w_scale"]).to(dev),
-            "bias": _t32(st["bias"]).to(dev),
-            "w_sum": torch.zeros(n_stem, dtype=torch.int32, device=dev),  # zp_s = 0
-            "e": _t32(st["e"]).to(dev),
-            "stride": int(st["stride"]),
-            "pad": int(st["pad"]),
-            "out_scale": float(np.float32(st["out_scale"])),
-            "out_zp": int(st["out_zp"]),
-        },
-        "last": _conv_leaf(qm["last"], dev),
-        "fc": {
-            **_conv_leaf(qm["fc"], dev),
-            "in_scale": float(np.float32(qm["fc"]["in_scale"])),
-            "in_zp": int(qm["fc"]["in_zp"]),
-        },
-    }
-    last_blk = qm[f"stage{len(spec.depths) - 1}"][str(spec.depths[-1] - 1)]
-    q["last"]["in_scale"] = float(np.float32(last_blk["out_scale"]))
-    q["last"]["in_zp"] = int(last_blk["out_zp"])
+    q = qeffnet.stem_and_head_leaves(spec, qm, dev)
     qf = {k: to_device_packed(v, dev) for k, v in pack_fused(spec, qm).items()}
     return QEffNetInt8(spec, q, qf)
 
@@ -199,26 +166,6 @@ def load_static_int8_fused(fold_dir: str, device: DeviceLike = None) -> QEffNetI
              if os.path.exists(os.path.join(fold_dir, "model_static_int8_fused.msgpack"))
              else "static_int8")
     return from_jax_qmodel(spec_dict, load_checkpoint_raw(fold_dir, which), device)
-
-
-def stem_int8(q: Dict, x: torch.Tensor, *, impl: str) -> torch.Tensor:
-    """Raw uint8 images -> the stem's int8 output (the first block's input)."""
-    stem = q["stem"]
-    y = stemfold.apply_u8_stem(stem, x, stride=stem["stride"], pad=stem["pad"], act="silu",
-                               impl=impl)
-    return qeffnet._requant(y, stem["out_scale"], stem["out_zp"])
-
-
-def head_logits(q: Dict, cur: torch.Tensor, *, impl: str) -> torch.Tensor:
-    """The last block's int8 output -> fp32 logits: 1x1 head conv + SiLU +
-    requant, mean pool of the dequantized map, int8 fc on the float features."""
-    last = q["last"]
-    cur = qeffnet.conv1x1_silu_requant(cur, last["in_zp"], last["in_scale"], last, impl=impl)
-    feats = dequantize_affine_shifted(cur, last["out_scale"], last["out_zp"]).mean(dim=(1, 2))
-    fc = q["fc"]
-    mm = int8_matmul_requant if impl == "kernel" else int8_matmul_requant_plain
-    return mm(feats, fc["w"], fc["w_scale"], fc["bias"], fc["w_sum"],
-              in_scale=fc["in_scale"], in_zp=fc["in_zp"])
 
 
 def apply_int8_fused(spec: EfficientNetSpec, q: Dict, qf: Dict, x: torch.Tensor, *,

@@ -26,8 +26,42 @@ from ...data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from ...ops.fused_mbconv import act_plain
 from ...ops.im2col import conv_int8_im2col, patch_matrix
 from ...ops.int8_matmul import int8_matmul_requant, int8_matmul_requant_plain
+from .observers import minmax_qparams_affine, quantize_weight_per_channel
 
 DERIVED_KEYS = ("e",)
+
+
+def _d(cin: int) -> np.ndarray:
+    return -(np.asarray(IMAGENET_MEAN[:cin], np.float32) / np.asarray(IMAGENET_STD[:cin], np.float32))
+
+
+def make_u8_stem(w, b, obs_out, *, stride: int, padding: int, image_size) -> Dict:
+    """Folded fp32 stem (w HWIO, b) + its output observer -> the u8-consuming
+    int8 stem, in numpy on the host as the JAX package makes it: W * k
+    quantized per channel, the output qparams from the observer. A VALID
+    stem (``padding=0``) stores its offset as a per-channel vector ``e``; a
+    padded one stores the exact folded kernel ``w_fp``, from which
+    ``restore_offsets`` derives the map ``e`` (never serialized)."""
+    w = np.asarray(w, np.float32)
+    b = np.asarray(b, np.float32)
+    cin = w.shape[2]
+    k = 1.0 / (255.0 * np.asarray(IMAGENET_STD[:cin], np.float32))
+    w_q, w_scale = quantize_weight_per_channel(w * k.reshape(1, 1, cin, 1), channel_axis=3)
+    scale, zp = minmax_qparams_affine(obs_out.min, obs_out.max)
+    stem = {
+        "w_q": w_q,
+        "w_scale": w_scale,
+        "bias": b,
+        "input_hw": np.asarray(image_size, np.int32),
+        "stride": np.int32(stride),
+        "pad": np.int32(padding),
+        "out_scale": np.float32(scale),
+        "out_zp": np.int32(zp),
+    }
+    if padding == 0:
+        e = _d(cin) @ w.sum(axis=(0, 1)) + 128.0 * w_scale * w_q.sum(axis=(0, 1, 2))
+        return {**stem, "e": e.astype(np.float32)}
+    return restore_offsets({**stem, "w_fp": w})
 
 
 def restore_offsets(stem: Dict) -> Dict:
@@ -35,7 +69,7 @@ def restore_offsets(stem: Dict) -> Dict:
     E = conv_zero-pad(d_img, w_fp) + 128 * s_w * sum(w_q)."""
     w_fp = torch.from_numpy(np.array(stem["w_fp"], np.float32))  # (kh, kw, C, O) HWIO
     cin = w_fp.shape[2]
-    d = -(np.asarray(IMAGENET_MEAN[:cin], np.float32) / np.asarray(IMAGENET_STD[:cin], np.float32))
+    d = _d(cin)
     h, wid = (int(v) for v in np.asarray(stem["input_hw"]))
     stride, pad = int(stem["stride"]), int(stem["pad"])
     w_q = np.asarray(stem["w_q"], np.float32)

@@ -1,5 +1,17 @@
-"""EfficientNet width descriptors: the port's copy of the spec part of the
-JAX package's ``models/efficientnet.py`` (the float model comes later).
+"""Functional float EfficientNet (MBConv: inverted residuals + squeeze-
+excitation), the port of the JAX package's ``models/efficientnet.py``.
+
+Plain functions on nested dicts of tensors with the JAX package's keys
+(``stem``, ``stem_bn``, ``stage{s}/{b}/{expand,dw,se_reduce,se_expand,project}``
+and their BatchNorms, ``last``, ``last_bn``, ``fc``), in the layouts of
+``models.resnet``: OIHW conv kernels (a depthwise kernel (C, 1, k, k)) in
+channels-last memory on the GPU, (in, out) SE and fc matrices;
+``params_from_jax`` / ``params_to_jax`` convert from and to the JAX layout
+(HWIO, a depthwise kernel (k, k, 1, C)) in which checkpoints are stored.
+Casts follow the JAX package: each conv computes in the compute dtype, the
+BatchNorms and the SE squeeze in fp32; fp32 forwards run with TF32 off.
+Stochastic depth and the classifier dropout are left out, as in the JAX
+package (both are the identity in eval).
 
 Structure (B0; B1..B7 via width/depth multipliers + the divisible-by-8 rule):
   3x3/2 stem conv -> BN -> SiLU
@@ -16,7 +28,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..utils.device import DeviceLike, exact_fp32, resolve_device
+from .resnet import _conv_w, batch_norm, conv2d, param_count, params_from_jax, params_to_jax
+
+__all__ = ["EfficientNetSpec", "efficientnet_spec", "init", "apply", "silu", "se_gate",
+           "depthwise_conv2d", "param_count", "params_from_jax", "params_to_jax"]
+
+Params = Dict[str, Any]
+State = Dict[str, Any]
 
 # stock B0 table: (expansion t, out channels c, repeats n, first stride s,
 # depthwise kernel k), torchvision efficientnet's bneck_conf rows
@@ -91,6 +114,19 @@ class EfficientNetSpec:
     def feature_width(self) -> int:
         return self.last_width
 
+    def with_widths(self, stage_widths=None, hidden_widths=None, stem_width: int | None = None,
+                    last_width: int | None = None, se_widths=None) -> "EfficientNetSpec":
+        """The same network at other widths (the pruner's edit)."""
+        return dataclasses.replace(
+            self,
+            stage_widths=tuple(stage_widths) if stage_widths is not None else self.stage_widths,
+            hidden_widths=(_freeze(hidden_widths) if hidden_widths is not None
+                           else self.hidden_widths),
+            stem_width=stem_width if stem_width is not None else self.stem_width,
+            last_width=last_width if last_width is not None else self.last_width,
+            se_widths=_freeze(se_widths) if se_widths is not None else self.se_widths,
+        )
+
     def to_dict(self) -> Dict:
         d = dataclasses.asdict(self)
         d["__kind__"] = "efficientnet"
@@ -158,3 +194,146 @@ def efficientnet_spec(
         num_classes=num_classes,
         in_chans=in_chans,
     )
+
+
+# --------------------------------------------------------------------------
+# init (torchvision's EfficientNet scheme)
+# --------------------------------------------------------------------------
+
+
+def init(spec: EfficientNetSpec, generator: torch.Generator, device: DeviceLike = None
+         ) -> Tuple[Params, State]:
+    """Random parameters drawn as the JAX ``init`` draws them (not the same
+    numbers: ``generator`` is torch's): Kaiming-normal fan_out convs (a
+    depthwise kernel's fan is k*k), unit BN, SE 1x1 convs as (in, out)
+    matrices with zero bias, a uniform ±1/sqrt(num_classes) fc with zero
+    bias. On the GPU unless ``device="cpu"``."""
+    dev = resolve_device(device)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=generator.device) * std).to(dev)
+
+    def conv(kh, kw, cin, cout):
+        return {"w": _conv_w(normal((cout, cin, kh, kw), math.sqrt(2.0 / (kh * kw * cout))))}
+
+    def dw(k, c):
+        return {"w": _conv_w(normal((c, 1, k, k), math.sqrt(2.0 / (k * k))))}
+
+    def se(cin, cout):
+        return {"w": normal((cin, cout), math.sqrt(2.0 / cout)),
+                "b": torch.zeros(cout, device=dev)}
+
+    def bn(c):
+        return ({"scale": torch.ones(c, device=dev), "bias": torch.zeros(c, device=dev)},
+                {"mean": torch.zeros(c, device=dev), "var": torch.ones(c, device=dev)})
+
+    params: Params = {"stem": conv(3, 3, spec.in_chans, spec.stem_width)}
+    state: State = {}
+    params["stem_bn"], state["stem_bn"] = bn(spec.stem_width)
+    for s, depth in enumerate(spec.depths):
+        k = spec.stage_kernels[s]
+        lp, ls = {}, {}
+        for b in range(depth):
+            cin, h, cout = spec.block_in_width(s, b), spec.hidden_widths[s][b], spec.stage_widths[s]
+            bp: Params = {}
+            bs: State = {}
+            if spec.has_expand[s][b]:
+                bp["expand"] = conv(1, 1, cin, h)
+                bp["expand_bn"], bs["expand_bn"] = bn(h)
+            elif h != cin:
+                raise ValueError(f"t=1 block ({s}, {b}) needs hidden width {h} == input {cin}")
+            bp["dw"] = dw(k, h)
+            bp["dw_bn"], bs["dw_bn"] = bn(h)
+            sq = spec.se_widths[s][b]
+            bp["se_reduce"] = se(h, sq)
+            bp["se_expand"] = se(sq, h)
+            bp["project"] = conv(1, 1, h, cout)
+            bp["project_bn"], bs["project_bn"] = bn(cout)
+            lp[str(b)], ls[str(b)] = bp, bs
+        params[f"stage{s}"], state[f"stage{s}"] = lp, ls
+    params["last"] = conv(1, 1, spec.stage_widths[-1], spec.last_width)
+    params["last_bn"], state["last_bn"] = bn(spec.last_width)
+    bound = 1.0 / math.sqrt(spec.num_classes)
+    u = torch.rand((spec.last_width, spec.num_classes), generator=generator,
+                   device=generator.device)
+    params["fc"] = {"w": (u * (2 * bound) - bound).to(dev),
+                    "b": torch.zeros(spec.num_classes, device=dev)}
+    return params, state
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def depthwise_conv2d(x, w, stride: int = 1, padding: int = 1, dtype=None):
+    """Depthwise conv of an NCHW view, kernel (C, 1, k, k), groups = C (the
+    JAX package's ``models/mobilenet.py:depthwise_conv2d``, which XLA's conv
+    computes; here cuDNN or PyTorch's own depthwise kernel)."""
+    return conv2d(x, w, stride=stride, padding=padding, dtype=dtype, groups=w.shape[0])
+
+
+def se_gate(h: torch.Tensor, p_reduce, p_expand) -> torch.Tensor:
+    """Squeeze-excitation: global mean -> reduce -> SiLU -> expand -> sigmoid
+    -> scale, the squeeze path in fp32 whatever ``h``'s dtype."""
+    pooled = h.float().mean(dim=(2, 3))
+    s = silu(pooled @ p_reduce["w"] + p_reduce["b"])
+    s = torch.sigmoid(s @ p_expand["w"] + p_expand["b"])
+    return h * s[:, :, None, None].to(h.dtype)
+
+
+def apply(
+    spec: EfficientNetSpec,
+    params: Params,
+    state: State,
+    x: torch.Tensor,
+    *,
+    train: bool = False,
+    compute_dtype=torch.float32,
+    return_features: bool = False,
+):
+    """Forward: NHWC float images -> (logits fp32, new_state), or with
+    ``return_features`` the pooled fp32 features instead of the logits."""
+    with exact_fp32():
+        new_state: State = {}
+        h = _conv_w(x.permute(0, 3, 1, 2))
+        h = conv2d(h, params["stem"]["w"], stride=2, padding=1, dtype=compute_dtype)
+        h, new_state["stem_bn"] = batch_norm(h, params["stem_bn"], state["stem_bn"], train=train)
+        h = silu(h)
+        for s, depth in enumerate(spec.depths):
+            sname = f"stage{s}"
+            new_state[sname] = {}
+            for b in range(depth):
+                h, new_state[sname][str(b)] = _apply_block(
+                    spec, params[sname][str(b)], state[sname][str(b)], h, s, b,
+                    train=train, compute_dtype=compute_dtype)
+        h = conv2d(h, params["last"]["w"], stride=1, padding=0, dtype=compute_dtype)
+        h, new_state["last_bn"] = batch_norm(h, params["last_bn"], state["last_bn"], train=train)
+        h = silu(h)
+        feats = h.float().mean(dim=(2, 3))
+        if return_features:
+            return feats, new_state
+        return feats @ params["fc"]["w"] + params["fc"]["b"], new_state
+
+
+def _apply_block(spec, p, st, x, s, b, *, train, compute_dtype):
+    k = spec.stage_kernels[s]
+    new_st: State = {}
+    h = x
+    if spec.has_expand[s][b]:
+        h = conv2d(h, p["expand"]["w"], stride=1, padding=0, dtype=compute_dtype)
+        h, new_st["expand_bn"] = batch_norm(h, p["expand_bn"], st["expand_bn"], train=train)
+        h = silu(h)
+    h = depthwise_conv2d(h, p["dw"]["w"], stride=spec.block_stride(s, b), padding=(k - 1) // 2,
+                         dtype=compute_dtype)
+    h, new_st["dw_bn"] = batch_norm(h, p["dw_bn"], st["dw_bn"], train=train)
+    h = se_gate(silu(h), p["se_reduce"], p["se_expand"])
+    h = conv2d(h, p["project"]["w"], stride=1, padding=0, dtype=compute_dtype)
+    h, new_st["project_bn"] = batch_norm(h, p["project_bn"], st["project_bn"], train=train)
+    if spec.has_residual(s, b):
+        h = h + x
+    return h, new_st

@@ -4,8 +4,8 @@ generic entry points (the port of the JAX package's ``models/registry.py``).
 Spec parsing covers the ResNet, EfficientNet and ViT families. The float
 forward, init and training entry points (``create_model``, ``apply_model``,
 ``features_and_logits``) cover the ResNet family (ResNeXt and Wide ResNet
-included); the other families' float models are not ported yet (ROADMAP
-queue 1 items 13-15) and raise.
+included) and EfficientNet; the float ViT's training and MobileNetV2 are not
+ported yet (ROADMAP queue 1 items 13 and 15) and raise.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
-from . import resnet
+from . import efficientnet, resnet
 from .efficientnet import EfficientNetSpec, efficientnet_spec
 from .vit import ViTSpec, vit_spec
 from .widths import ResNetSpec, resnet_spec
@@ -60,9 +60,12 @@ def model_module(spec):
     of a spec's float model."""
     if isinstance(spec, ResNetSpec):
         return resnet
+    if isinstance(spec, EfficientNetSpec):
+        return efficientnet
     raise NotImplementedError(
         f"the float {type(spec).__name__[:-4]} model is not ported for training yet "
-        f"(ROADMAP queue 1 items 13-15); the port trains the ResNet family")
+        f"(ROADMAP queue 1 items 13 and 15); the port trains the ResNet family and "
+        f"EfficientNet")
 
 
 def apply_model(spec, params, state, x, *, train=False, compute_dtype=None, **kw):
@@ -97,7 +100,7 @@ def create_model(
     pretrained: bool = False,
     logger=None,
     device: DeviceLike = None,
-) -> Tuple[ResNetSpec, Dict, Dict]:
+) -> Tuple[Union[ResNetSpec, EfficientNetSpec], Dict, Dict]:
     """Returns ``(spec, params, state)`` on ``device`` (the GPU unless
     ``device="cpu"``).
 

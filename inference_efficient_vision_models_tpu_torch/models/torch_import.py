@@ -122,7 +122,6 @@ def load_pretrained(spec, params, state, *, path: str | None = None):
     (random) classifier head; the result is on the head's device.
 
     Raises FileNotFoundError when no cache entry exists for ``spec.name``."""
-    _family_check(spec)
     if path is None:
         path = find_cached_weights(spec.name)
     if path is None:
@@ -130,6 +129,7 @@ def load_pretrained(spec, params, state, *, path: str | None = None):
             f"no cached weights for {spec.name!r} in "
             f"{cached_weight_dirs() or '$IEVM_WEIGHTS_DIR (unset)'}"
         )
+    _family_check(spec)
     sd = _strip(_load_state_dict(path))
     rows = int(sd["fc.weight"].shape[0])
     spec_full = dataclasses.replace(spec, num_classes=rows) if rows != spec.num_classes else spec

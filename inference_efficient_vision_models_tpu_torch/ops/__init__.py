@@ -2,6 +2,7 @@
 tensor) and layout helpers."""
 
 from .conv3x3 import conv3x3_s1_int8, conv3x3_s1_int8_plain
+from .dwconv_int8 import depthwise_conv_int8, depthwise_conv_int8_plain
 from .fused_dense import dense_gelu, dense_gelu_plain
 from .fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_device_packed
 from .im2col import conv_int8_im2col, extract_patches_nhwc
@@ -18,6 +19,8 @@ __all__ = [
     "conv3x3_s1_int8_plain",
     "conv_int8_im2col",
     "dense_gelu",
+    "depthwise_conv_int8",
+    "depthwise_conv_int8_plain",
     "dense_gelu_plain",
     "extract_patches_nhwc",
     "fused_mbconv_block",

@@ -32,6 +32,7 @@ import torch
 from .compress.quant import wo8
 from .compress.quant.engine import dynamic_forward, folded_forward
 from .compress.quant.fusedpath import load_static_int8_fused
+from .compress.quant.qeffnet import load_static_int8 as load_static_int8_effnet
 from .compress.quant.qresnet import load_static_int8
 from .compress.quant.qvit import load_static_int8 as load_static_int8_vit
 from .core.artifacts import load_checkpoint_raw
@@ -46,17 +47,19 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
                    device_preprocess: bool = False):
     """Restore a stage-4 artifact -> (spec, model, apply_fn, host_preprocess).
 
-    Dispatches on the artifact's spec: a ResNet serves ``"static_int8"``
+    Dispatches on the artifact's spec. A ResNet serves ``"static_int8"``
     through the int8 executor, whose stem takes the space-to-depth layout the
     host preprocess makes (``device_preprocess=True``: no host preprocess,
     the executor relayouts raw uint8 on the device, for hosts whose cores
-    are the scarce resource), and ``"dynamic_int8"``, ``"fp16"``, ``"bf16"`` and
+    are the scarce resource). An EfficientNet serves ``"static_int8"`` (the
+    unfused executor), ``"static_int8_mixed"`` (int8 1x1 convs, bf16
+    depthwise) and ``"static_int8_fused"`` (one fused kernel call per MBConv
+    block), each from its own ``model_<method>.msgpack`` or else the shared
+    ``model_static_int8.msgpack``, as the JAX package's loader falls back.
+    Both families serve ``"dynamic_int8"``, ``"fp16"``, ``"bf16"`` and
     ``"weight_only_int8"`` (any artifact of a float-compute method) through
-    the folded float forward on raw uint8; an EfficientNet serves ``"static_int8_fused"``
-    (one fused kernel call per MBConv block) from
-    ``model_static_int8_fused.msgpack`` or else the shared
-    ``model_static_int8.msgpack``; a ViT serves ``"static_int8"`` (fp32
-    activation carrier) and ``"static_int8_bf16"`` (bf16 carrier, from
+    the folded float forward on raw uint8. A ViT serves ``"static_int8"``
+    (fp32 activation carrier) and ``"static_int8_bf16"`` (bf16 carrier, from
     ``model_static_int8_bf16.msgpack`` or else the shared file). EfficientNet
     and ViT take raw uint8 images, with no host preprocess."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
@@ -72,29 +75,28 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
         if method == "static_int8_fused":
             model = load_static_int8_fused(fold_dir, device)
             return model.spec, model, model, None
-        if method == "static_int8":
-            raise NotImplementedError(
-                "the unfused EfficientNet int8 executor (qeffnet.apply_int8) is not ported yet; "
-                "serve 'static_int8_fused'")
-        raise NotImplementedError(f"method {method!r} is not ported yet for EfficientNet "
-                                  f"(have 'static_int8_fused')")
-    if method == "static_int8":
+        if method in ("static_int8", "static_int8_mixed"):
+            model = load_static_int8_effnet(
+                fold_dir, device, executor="mixed" if method.endswith("_mixed") else "int8")
+            return model.spec, model, model, None
+    elif method == "static_int8":
         model = load_static_int8(fold_dir, device)
         return model.spec, model, model, None if device_preprocess else space_to_depth_u8
-    return _load_resnet_float(spec, fold_dir, method, device)
+    return _load_float(spec, fold_dir, method, device)
 
 
-def _load_resnet_float(spec, fold_dir: str, method: str, device: DeviceLike):
-    """A ResNet artifact of the float-compute methods, told apart by its
-    leaves as the JAX package's loader tells them: weight-only int8 ({"q",
-    "s"} kernels, bf16 compute), dynamic int8 (an ``fc_q`` head, fp32
-    trunk), or a folded cast (fp16 / bf16 / fp32, computed in its own
-    dtype). Each forward normalizes the raw uint8 images on the device and
-    runs ``qresnet.apply_folded`` (the JAX loader folds the normalization
-    into an s2d float stem instead: the same function, rounded elsewhere)."""
+def _load_float(spec, fold_dir: str, method: str, device: DeviceLike):
+    """An artifact of the float-compute methods, told apart by its leaves as
+    the JAX package's loader tells them: weight-only int8 ({"q", "s"}
+    kernels, bf16 compute), dynamic int8 (an ``fc_q`` head, fp32 trunk), or
+    a folded cast (fp16 / bf16 / fp32, computed in its own dtype). Each
+    forward normalizes the raw uint8 images on the device and runs the
+    family's ``apply_folded`` (the JAX loader folds the normalization into
+    an s2d float stem instead: the same function, rounded elsewhere)."""
     if method.startswith(("static_int8_", "weight_only_int4")):
-        raise NotImplementedError(f"method {method!r} is not ported yet for ResNet (ROADMAP "
-                                  f"queue 1 items 11 and 14)")
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet for {type(spec).__name__[:-4]} (ROADMAP "
+            f"queue 1 items 11 and 15)")
     model = load_checkpoint_raw(fold_dir, method)
     if wo8.is_weight_only(model):
         fn = folded_forward(spec, wo8.dequantize(model, torch.bfloat16), torch.bfloat16, device)

@@ -380,3 +380,53 @@ def test_vit_init_defaults_to_the_gpu(cuda):
     assert params["norm"]["scale"].device.type == "cuda"
     ref = vit.init(spec, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(params["blocks"]["0"]["qkv"]["w"].cpu(), ref["blocks"]["0"]["qkv"]["w"])
+
+
+# B0's 16 depthwise calls (H, C, k, stride) at 224x224, and odd shapes:
+# byte loads (C 13, 1), odd H and W, k 5 s 2 at every border class
+DW_SHAPES = [(112, 32, 3, 1), (112, 96, 3, 2), (56, 144, 3, 1), (56, 144, 5, 2),
+             (28, 240, 5, 1), (28, 240, 3, 2), (14, 480, 3, 1), (14, 480, 5, 1),
+             (14, 672, 5, 1), (14, 672, 5, 2), (7, 1152, 5, 1), (7, 1152, 3, 1),
+             (13, 13, 5, 2), (9, 8, 3, 1), (11, 1, 5, 2), (10, 1152, 5, 2), (7, 40, 5, 2)]
+
+
+@pytest.mark.parametrize("h,c,k,stride", DW_SHAPES)
+@pytest.mark.parametrize("in_zp,out_zp", [(0, 255), (128, 128), (255, 0), (117, 31)])
+def test_dwconv_int8_kernel_matches_plain(cuda, h, c, k, stride, in_zp, out_zp):
+    """Kernel E equals its plain version bit for bit (SiLU epilogue)."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        depthwise_conv_int8, depthwise_conv_int8_plain)
+
+    rng = np.random.default_rng(h * c + k + stride + in_zp)
+    n = 4 if h > 28 else 16
+    w_dim = h + 2 if h % 2 else h  # a ragged width beside the height
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, w_dim, c), dtype=np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, 1, c), dtype=np.int8)).to(cuda)
+    ws = torch.from_numpy(rng.uniform(0.002, 0.02, c).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    kw = dict(stride=stride, in_scale=0.043, in_zp=in_zp, out_scale=0.031, out_zp=out_zp)
+    before = _lib.launches["dwconv_int8"]
+    got = depthwise_conv_int8(x, wq, ws, b, **kw)
+    ref = depthwise_conv_int8_plain(x, wq, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["dwconv_int8"] == before + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def test_served_effnet_unfused_kernel_path_matches_plain_path(cuda):
+    """The unfused executor (kernels A and E) on the committed artifact equals
+    its plain path; 34 kernel-A and 16 kernel-E launches per forward."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
+        load_static_int8 as load_effnet)
+
+    model = load_effnet(EFF_ARTIFACT, "cuda")
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (8, 224, 224, 3),
+                                                          dtype=np.uint8)).to(cuda)
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+        counts = dict(_lib.launches)
+        ref = model(x, impl="plain")
+    torch.cuda.synchronize()
+    assert counts == {"int8_matmul_requant": 34, "dwconv_int8": 16}
+    assert torch.equal(got, ref)

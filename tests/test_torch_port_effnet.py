@@ -154,10 +154,18 @@ def test_served_through_predictor(port_model, golden):
         ref = port_model(torch.from_numpy(imgs)).numpy()
     assert got.shape == (5, 6)
     np.testing.assert_array_equal(got, ref)
-    with pytest.raises(NotImplementedError, match="unfused"):
-        load_quantized(ARTIFACT, "static_int8", device="cpu")
-    with pytest.raises(NotImplementedError):
-        load_quantized(ARTIFACT, "static_int8_mixed", device="cpu")
+    # the unfused and mixed executors serve the same artifact (the shared
+    # model_static_int8.msgpack), each equal to its own plain path
+    for method, executor in (("static_int8", "int8"), ("static_int8_mixed", "mixed")):
+        spec, model, fn, pre = load_quantized(ARTIFACT, method, device="cpu")
+        assert pre is None and model.executor == executor
+        with torch.inference_mode():
+            got = fn(torch.from_numpy(imgs))
+            np.testing.assert_array_equal(got.numpy(),
+                                          model(torch.from_numpy(imgs), impl="plain").numpy())
+        assert got.shape == (5, 6) and torch.isfinite(got).all()
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        load_quantized(ARTIFACT, "static_int8_bf16", device="cpu")
 
 
 def test_artifact_reads_as_jax_does():
