@@ -35,9 +35,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    16 int8-depthwise launches per forward, logits against the plain path
    and the JAX golden) and both executors timed; kernel E (``dwconv_int8``)
    against its plain version, max abs err 0, at the 16 depthwise calls
-   (batch 256, timed beside its bound) and at odd shapes (C 1, 8, 13,
-   1,152; odd H and W; k 5 stride 2 at every border class; zero points 0,
-   128 and 255);
+   (batch 256, timed beside its bound and the bound's share of the time)
+   and at odd shapes (C 1, 8, 13, 1,152; odd H and W; k 5 stride 2 at
+   every border class; zero points 0, 128 and 255);
 4. ViT-Tiny path (the committed static-INT8 ViT-Tiny/16, and the float ViT
    from the same seeded weights): (a) kernel D (dense + GELU) against its
    plain version at odd shapes (offset views among them, both bf16 routes)
@@ -1352,7 +1352,7 @@ def e_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = Tru
     """Kernel E at one call, bit for bit against its plain version, its bound
     (bytes: x, out, the k*k x C weights and two fp32 C-vectors once; the
     depthwise MACs at the CUDA cores' FMA rate) and, ``timed``, its time
-    beside the plain version's."""
+    beside the plain version's and the bound's share of it."""
     from inference_efficient_vision_models_tpu_torch.ops import (
         depthwise_conv_int8, depthwise_conv_int8_plain)
 
@@ -1372,6 +1372,7 @@ def e_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = Tru
     if timed:
         row["ms"] = time_ms(lambda: depthwise_conv_int8(*args, **kw), spin=True)
         row["plain_ms"] = time_ms(lambda: depthwise_conv_int8_plain(*args, **kw), spin=True)
+        row["bound_share"] = max(row["bytes_ms"], row["dw_ms"]) / row["ms"]
     return row, [] if ok else [f"dwconv_int8 {path} {label} {tuple(x.shape)} {kw}: "
                                f"max abs err {err}"]
 
@@ -1389,10 +1390,11 @@ def check_e_main_shapes(model, gen: torch.Generator, path: str):
         fails += f
         emit({"phase": "effnet_e_shapes", **row})
         del x
+    ms, bound = sum(r["ms"] for r in rows), sum(max(r["bytes_ms"], r["dw_ms"]) for r in rows)
     emit({"phase": "effnet_e_forward", "path": path, "batch": BATCH, "calls": len(rows),
-          "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-          "bound_ms": sum(max(r["bytes_ms"], r["dw_ms"]) for r in rows),
-          "bytes": sum(r["bytes"] for r in rows), "dw_macs": sum(r["dw_macs"] for r in rows)})
+          "ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bound,
+          "bound_share": bound / ms, "bytes": sum(r["bytes"] for r in rows),
+          "dw_macs": sum(r["dw_macs"] for r in rows)})
     return rows, fails
 
 

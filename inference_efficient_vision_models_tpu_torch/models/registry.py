@@ -106,8 +106,10 @@ def create_model(
 
     ``pretrained=True`` initializes from a cached torch state_dict
     (``torch_import.find_cached_weights``: ``$IEVM_WEIGHTS_DIR`` or the torch
-    hub cache) and keeps the fresh head; without one it warns and keeps the
-    random init, as the JAX package does (nothing is downloaded)."""
+    hub cache) and keeps the fresh head; without one, or when it cannot be
+    read or converted, it warns and keeps the random init, as the JAX package
+    does (nothing is downloaded). A family whose converter is not ported
+    raises NotImplementedError."""
     spec = make_spec(model, num_classes=num_classes)
     dev = resolve_device(device)
     if generator is None:
@@ -118,7 +120,9 @@ def create_model(
 
         try:
             params, state = load_pretrained(spec, params, state)
-        except FileNotFoundError as e:
+        except NotImplementedError:
+            raise
+        except Exception as e:  # no cache, or a file that does not convert
             (logger or logging.getLogger("ievm")).warning(
                 "pretrained=True requested for %s but no local weight cache "
                 "has it (%s: %s) — falling back to RANDOM init (set "

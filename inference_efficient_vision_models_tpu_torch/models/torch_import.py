@@ -1,16 +1,18 @@
-"""Checkpoint interop: torchvision-style ResNet state_dicts -> the port's
-(params, state), the ResNet part of the JAX package's
-``models/torch_import.py``.
+"""Checkpoint interop: torchvision-style ResNet and EfficientNet state_dicts
+-> the port's (params, state), the ResNet and EfficientNet parts of the JAX
+package's ``models/torch_import.py``.
 
 The reference's artifacts are torch ``state_dict`` pickles, sometimes wrapped
 in ``{"model_state_dict": ...}`` and sometimes carrying a ``module.`` prefix
 from DataParallel training; ``_strip`` removes both. Conv kernels stay OIHW
-(the port's layout; ``resnet.place`` gives them their device's memory
-layout); linear (O, I) becomes (I, O).
+(the port's layout, a depthwise kernel (C, 1, k, k); ``resnet.place`` gives
+them their device's memory layout); linear (O, I) and an SE 1x1 conv
+(O, I, 1, 1) become (I, O).
 Pretrained weights come from an on-disk cache of ``.pth`` files only
 (``$IEVM_WEIGHTS_DIR``, then ``$TORCH_HOME/hub/checkpoints``): nothing is
-downloaded. The MobileNetV2, EfficientNet and ViT converters are not ported
-yet (ROADMAP queue 1: ``torch_import`` for the other families).
+downloaded. The MobileNetV2 and ViT converters are not ported yet (ROADMAP
+queue 1: ``torch_import`` for the other families): the port builds neither
+float model.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from .efficientnet import EfficientNetSpec
 from .resnet import place
 from .widths import ResNetSpec
 
@@ -40,7 +43,7 @@ def _strip(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def _family_check(spec) -> None:
-    if not isinstance(spec, ResNetSpec):
+    if not isinstance(spec, (ResNetSpec, EfficientNetSpec)):
         raise NotImplementedError(
             f"torch_import for {type(spec).__name__[:-4]} is not ported yet "
             f"(ROADMAP queue 1: torch_import for the other families)")
@@ -54,11 +57,7 @@ def from_torch_state_dict(spec: ResNetSpec, sd: Dict[str, Any]) -> Tuple[Dict, D
     def conv(key):
         return {"w": sd[key]}
 
-    def bn(prefix):
-        p = {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
-        s = {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
-        return p, s
-
+    bn = _bn(sd)
     params: Dict[str, Any] = {"conv1": conv("conv1.weight")}
     state: Dict[str, Any] = {}
     params["bn1"], state["bn1"] = bn("bn1")
@@ -80,6 +79,66 @@ def from_torch_state_dict(spec: ResNetSpec, sd: Dict[str, Any]) -> Tuple[Dict, D
     return params, state
 
 
+def _bn(sd):
+    def bn(prefix):
+        p = {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+        s = {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
+        return p, s
+    return bn
+
+
+def from_torch_state_dict_effnet(spec: EfficientNetSpec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    """(params, state) on the CPU from a torchvision-style EfficientNet
+    state_dict: ``features.0.{0,1}`` stem, ``features.{s+1}.{b}.block.{j}``
+    MBConv with j = expand?, dw, SE (``fc1``/``fc2``, 1x1 convs with bias),
+    project; ``features.{stages+1}.{0,1}`` last conv, ``classifier.1`` head."""
+    sd = _strip(sd)
+    bn = _bn(sd)
+
+    def conv(key):
+        return {"w": sd[key]}
+
+    def se_fc(prefix):
+        return {"w": sd[f"{prefix}.weight"][:, :, 0, 0].t().contiguous(),
+                "b": sd[f"{prefix}.bias"]}
+
+    params: Dict[str, Any] = {"stem": conv("features.0.0.weight")}
+    state: Dict[str, Any] = {}
+    params["stem_bn"], state["stem_bn"] = bn("features.0.1")
+    for s_i, depth in enumerate(spec.depths):
+        lp, ls = {}, {}
+        for b in range(depth):
+            pre = f"features.{s_i + 1}.{b}.block"
+            bp, bs = {}, {}
+            if spec.has_expand[s_i][b]:
+                bp["expand"] = conv(f"{pre}.0.0.weight")
+                bp["expand_bn"], bs["expand_bn"] = bn(f"{pre}.0.1")
+                dw_i, se_i, proj_i = 1, 2, 3
+            else:
+                dw_i, se_i, proj_i = 0, 1, 2
+            bp["dw"] = conv(f"{pre}.{dw_i}.0.weight")
+            bp["dw_bn"], bs["dw_bn"] = bn(f"{pre}.{dw_i}.1")
+            bp["se_reduce"] = se_fc(f"{pre}.{se_i}.fc1")
+            bp["se_expand"] = se_fc(f"{pre}.{se_i}.fc2")
+            bp["project"] = conv(f"{pre}.{proj_i}.0.weight")
+            bp["project_bn"], bs["project_bn"] = bn(f"{pre}.{proj_i}.1")
+            lp[str(b)], ls[str(b)] = bp, bs
+        params[f"stage{s_i}"], state[f"stage{s_i}"] = lp, ls
+    last_i = len(spec.depths) + 1
+    params["last"] = conv(f"features.{last_i}.0.weight")
+    params["last_bn"], state["last_bn"] = bn(f"features.{last_i}.1")
+    params["fc"] = {"w": sd["classifier.1.weight"].t().contiguous(), "b": sd["classifier.1.bias"]}
+    return params, state
+
+
+def _convert(spec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    """The family's converter, as the JAX package dispatches."""
+    _family_check(spec)
+    if isinstance(spec, EfficientNetSpec):
+        return from_torch_state_dict_effnet(spec, sd)
+    return from_torch_state_dict(spec, sd)
+
+
 def _load_state_dict(path: str) -> Dict[str, Any]:
     # a full pickled module (the reference's pruned artifacts) needs the
     # pickle path, as in the JAX package: load only files you trust
@@ -87,10 +146,9 @@ def _load_state_dict(path: str) -> Dict[str, Any]:
     return sd.state_dict() if hasattr(sd, "state_dict") else sd
 
 
-def load_torch_checkpoint(spec: ResNetSpec, path: str) -> Tuple[Dict, Dict]:
+def load_torch_checkpoint(spec, path: str) -> Tuple[Dict, Dict]:
     """Load a reference ``.pth`` checkpoint (torch pickle) from disk -> CPU (params, state)."""
-    _family_check(spec)
-    return from_torch_state_dict(spec, _load_state_dict(path))
+    return _convert(spec, _load_state_dict(path))
 
 
 def cached_weight_dirs():
@@ -121,7 +179,9 @@ def load_pretrained(spec, params, state, *, path: str | None = None):
     """ImageNet-init from a cached torch state_dict, keeping the given
     (random) classifier head; the result is on the head's device.
 
-    Raises FileNotFoundError when no cache entry exists for ``spec.name``."""
+    Raises FileNotFoundError when no cache entry exists for ``spec.name``,
+    ValueError when a converted leaf's shape differs from the given tree's
+    (a cache file of another model or width)."""
     if path is None:
         path = find_cached_weights(spec.name)
     if path is None:
@@ -131,10 +191,25 @@ def load_pretrained(spec, params, state, *, path: str | None = None):
         )
     _family_check(spec)
     sd = _strip(_load_state_dict(path))
-    rows = int(sd["fc.weight"].shape[0])
+    # the converters expect the checkpoint's own (ImageNet) head; ours replaces it
+    rows = next((int(sd[k].shape[0]) for k in ("fc.weight", "classifier.1.weight", "head.weight")
+                 if k in sd), spec.num_classes)
     spec_full = dataclasses.replace(spec, num_classes=rows) if rows != spec.num_classes else spec
-    p2, s2 = from_torch_state_dict(spec_full, sd)
+    p2, s2 = _convert(spec_full, sd)
     dev = params["fc"]["w"].device
     p2, s2 = place(p2, dev), place(s2, dev)
     p2["fc"] = params["fc"]
+    _check_shapes((p2, s2), (params, state))
     return p2, s2
+
+
+def _check_shapes(got, want, path: str = "") -> None:
+    if isinstance(want, (dict, tuple)):
+        keys = want.keys() if isinstance(want, dict) else range(len(want))
+        if (got.keys() if isinstance(got, dict) else range(len(got))) != keys:
+            raise ValueError(f"cached weights do not have the model's leaves at {path or '/'}")
+        for k in keys:
+            _check_shapes(got[k], want[k], f"{path}/{k}")
+    elif tuple(got.shape) != tuple(want.shape):
+        raise ValueError(f"cached weight {path} has shape {tuple(got.shape)}, the model "
+                         f"{tuple(want.shape)}")

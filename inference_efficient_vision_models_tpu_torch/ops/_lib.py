@@ -63,7 +63,7 @@ KERNELS = {
             [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] * 8 + [_P],
     }),
     "dwconv_int8": ("dwconv_int8", {
-        "ievm_dwconv_int8": [_P] * 5 + [_I] * 11 + [_F, _D, _F, _P],
+        "ievm_dwconv_int8": [_P] * 5 + [_I] * 7 + [_F, _D, _F] + [_I] * 6 + [_P],
     }),
     "dense_gelu": ("fused_dense", {
         "ievm_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -18,9 +18,17 @@ the JAX lowering step by step: pad with zp_s, the k*k shifted int32
 multiply-adds (``depthwise_acc_int32``), ``acc - zp_s * sum(w)``, the fp32
 epilogue, the requant by true division (a 0-d tensor divisor: CUDA divides
 by a Python scalar as a multiply by its reciprocal).
+
+``dw_plan`` chooses the kernel's tiles (bands of output rows at full width,
+tiles per block, a group of channels, outputs per thread along x, the copy
+width) and the wrapper passes them to the kernel, which refuses a plan it
+does not take.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -29,8 +37,8 @@ import torch.nn.functional as F
 from . import _lib
 from .fused_mbconv import act_plain
 
-__all__ = ["depthwise_acc_int32", "depthwise_conv_int8", "depthwise_conv_int8_plain",
-           "vector_width"]
+__all__ = ["DwPlan", "depthwise_acc_int32", "depthwise_conv_int8", "depthwise_conv_int8_plain",
+           "dw_plan", "make_dw_plan", "vector_width"]
 
 
 def _f32(v) -> float:
@@ -76,12 +84,143 @@ def depthwise_conv_int8_plain(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: to
 
 
 def vector_width(c: int, *tensors: torch.Tensor) -> int:
-    """The widest load along C the kernel may take: 16, 8 or 4 bytes where C
+    """The widest copy along C the kernel may take: 16, 8 or 4 bytes where C
     is a multiple and every tensor's address is aligned to it, else 1."""
     for v in (16, 8, 4):
         if c % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
             return v
     return 1
+
+
+# the kernel's launch (csrc/dwconv_int8.cu): threads per block, the shared
+# memory one block may take, and what an SM holds (H100 SXM)
+DW_THREADS = 256
+DW_SMEM_LIMIT = 232_448
+DW_MAX_GROUP = 128     # channels per block
+DW_REGS = 128          # registers per thread at most (__launch_bounds__(256, 2))
+NUM_SMS = 132
+SM_SMEM = 233_472      # 228 KB, 1 KB of it reserved per block
+OUTPUTS_PER_THREAD = (2, 4)
+ROWS_PER_THREAD = 2    # csrc/dwconv_int8.cu DWE_ROWS
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of the kernel one SM holds: registers, then shared memory."""
+    return min(65536 // (DW_THREADS * DW_REGS), SM_SMEM // (smem + 1024))
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """The kernel's tiles for one call. A block takes channel group
+    ``blockIdx.y`` (``cg`` channels, a multiple of 4; the last group ragged
+    past C) and ``nb`` consecutive tiles of the N x ``bands`` tiles (image,
+    band of ``bh`` output rows at full width), tile t being image t //
+    bands, band t % bands; it stages each tile's ``rh`` input rows x ``wp``
+    padded pixels (the halo, and the pixels the last run reads past Wo) x
+    ``cg`` bytes in shared memory (two buffers when ``nb`` > 1, the next
+    tile's copies in flight while this one is computed). A thread
+    computes ``p`` adjacent outputs along x in each of ``ROWS_PER_THREAD``
+    adjacent rows, for 4 channels (one word); a band of odd ``bh`` stages the
+    rows its last pair reads and skips that pair's second row.
+    ``vec`` is the copy width in bytes (16, 8 or 4 by cp.async, 1: bytes, for
+    C not a multiple of 4), the largest that divides C and ``cg``."""
+
+    n: int
+    ho: int
+    wo: int
+    c: int
+    k: int
+    stride: int
+    cg: int
+    bh: int
+    nb: int
+    p: int
+    vec: int
+    rh: int
+    wp: int
+    groups: int
+    bands: int
+    grid: tuple
+    smem: int
+
+
+def _out_hw(h: int, w: int, k: int, stride: int):
+    pad = (k - 1) // 2
+    return pad, (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+
+
+def dw_smem(k: int, cg: int, rh: int, wp: int, nb: int) -> int:
+    """Shared-memory bytes of a block: per channel of the group 2k tap-pair
+    words, the int zero-point correction, the fp32 scale (s_in * s_w) and
+    bias; then one tile buffer of rh x wp x cg bytes (rounded to 16) per
+    stage, two when the block takes more than one tile. The kernel's
+    DwLayout computes the same."""
+    return 4 * cg * (2 * k + 3) + min(nb, 2) * (-(-rh * wp * cg // 16) * 16)
+
+
+def make_dw_plan(n: int, h: int, w: int, c: int, k: int, stride: int, *, cg: int, bh: int,
+                 nb: int, p: int) -> DwPlan:
+    """A plan of the given tiles, its derived sizes filled in."""
+    _, ho, wo = _out_hw(h, w, k, stride)
+    # wp covers every thread's window, the last run's past Wo included
+    rows = -(-bh // ROWS_PER_THREAD) * ROWS_PER_THREAD
+    rh, wp = (rows - 1) * stride + k, (-(-wo // p) * p - 1) * stride + k
+    groups, bands = -(-c // cg), -(-ho // bh)
+    vec = next((v for v in (16, 8, 4) if c % v == 0 and cg % v == 0), 1)
+    return DwPlan(n, ho, wo, c, k, stride, cg, bh, nb, p, vec, rh, wp, groups, bands,
+                  (-(-n * bands // nb), groups), dw_smem(k, cg, rh, wp, nb))
+
+
+def _item_cost(k: int, stride: int, p: int) -> int:
+    """Issue slots of one thread's item, p outputs x 4 channels in each of
+    its rows: per staged row a window of (p - 1) s + k words loaded and its
+    input pairs built (a byte permute a pair and channel), (k + 1) / 2 dp2a
+    per output, channel and tap row, and ~34 per value of epilogue."""
+    r = ROWS_PER_THREAD
+    nw, nr = (p - 1) * stride + k, (r - 1) * stride + k
+    pairs = nw if stride == 1 else (nw + 1) // 2
+    return nr * (nw + 4 * pairs) + r * k * (2 + 4 * p * (k + 1) // 2) + r * 4 * p * 34
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(n: int, h: int, w: int, c: int, k: int, stride: int) -> DwPlan:
+    """The channel group that pads C least with at most 128 channels (a
+    multiple of 4), then the outputs per thread, band height and tiles per
+    block (up to 4: the next tile's copies fly during this one's compute)
+    that minimise an issue-slot estimate: every tile's thread passes over
+    its items (ragged passes, runs past Wo and channels past C included),
+    its staging copies (~16 a copy) and barriers (~4096 a tile), scaled by
+    the card's waves at the blocks an SM holds and by the share of two
+    blocks' warps an SM keeps in flight. A plan with two waves of blocks (at
+    one block per SM) beats one without."""
+    _, ho, wo = _out_hw(h, w, k, stride)
+    c4 = -(-c // 4) * 4
+    groups = -(-c4 // DW_MAX_GROUP)
+    cg = -(-(-(-c4 // groups)) // 4) * 4
+    best = None
+    for p in OUTPUTS_PER_THREAD:
+        runs = -(-wo // p)
+        per_item = _item_cost(k, stride, p)
+        for bh in range(1, ho + 1):
+            tiles = n * -(-ho // bh)
+            items = -(-bh // ROWS_PER_THREAD) * runs * (cg // 4)
+            for nb in range(1, min(4, tiles) + 1):
+                plan = make_dw_plan(n, h, w, c, k, stride, cg=cg, bh=bh, nb=nb, p=p)
+                if plan.smem > DW_SMEM_LIMIT:
+                    break
+                per_sm = blocks_per_sm(plan.smem)
+                staged = plan.rh * plan.wp * cg
+                tile = (-(-items // DW_THREADS) * DW_THREADS * per_item
+                        + staged // plan.vec * 16 + 4096)
+                blocks, slots = plan.grid[0] * groups, NUM_SMS * per_sm
+                cost = (tiles * groups * tile * (-(-blocks // slots) * slots / blocks)
+                        * 2 / min(per_sm, 2))
+                key = (blocks < 2 * NUM_SMS, cost, -bh)  # two waves first, where the grid allows
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    if best is None:
+        raise ValueError(f"no tile plan fits ({n}, {h}, {w}, {c}) k {k} stride {stride}")
+    return best[1]
 
 
 def depthwise_conv_int8(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -114,18 +253,19 @@ def depthwise_conv_int8(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Te
             raise ValueError(f"{name} must be a contiguous ({c},) float32 tensor on {dev}")
     if not (float(out_zp).is_integer() and 0 <= out_zp <= 255 and 0 <= int(in_zp) <= 255):
         raise ValueError(f"zero points must be integers in [0, 255], got {in_zp}, {out_zp}")
-    pad = (k - 1) // 2
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    _, ho, wo = _out_hw(h, w, k, stride)
     out = torch.empty((n, ho, wo, c), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
     if n * max(h * w, ho * wo) * c >= 2**31:
         raise ValueError("the tensors exceed the kernel's int32 pixel indexing")
-    vec = vector_width(c, x_s8, w_q, out)
+    plan = dw_plan(n, h, w, c, k, stride)
+    # the plan's copy width, lowered to what x's address allows
     rc = _lib.kernel_fn("dwconv_int8")(
         x_s8.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, h, w, c, ho, wo, k, stride, pad, vec, int(in_zp) - 128, _f32(in_scale),
-        1.0 / _f32(out_scale), float(out_zp), torch.cuda.current_stream(dev).cuda_stream,
+        n, h, w, c, k, stride, int(in_zp) - 128, _f32(in_scale), 1.0 / _f32(out_scale),
+        float(out_zp), plan.cg, plan.bh, plan.nb, plan.p, vector_width(plan.vec, x_s8),
+        plan.smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("dwconv_int8", rc)
     return out

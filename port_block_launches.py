@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device time of kernel C's three launches at every EfficientNet-B0 block,
-or (``--resnet``) of kernel B's calls and the whole ResNet18 forward by kernel.
+or (``--resnet``) of kernel B's calls and the whole ResNet18 forward by kernel,
+or (``--dwconv``) of kernel E's calls.
 
 Run from the repository root: ``python3 port_block_launches.py [--root DIR]
-[--resnet]``. It serves nothing. By default it loads the committed
+[--resnet | --dwconv [--ablate]]``. It serves nothing. By default it loads the committed
 static-INT8 EfficientNet-B0 (``testdata/effnet_b0_int8``) on the GPU, feeds
 each fused MBConv block int8 activations at batch 256 spread around the
 block's input zero point (from a seed), and times ``fused_mbconv_block`` per
@@ -13,8 +14,13 @@ launch (expand + depthwise, SE gate, project) as device time by
 ``conv3x3_s1_int8`` call of a batch-256 forward as that checkout's
 ``chip_smoke.py`` makes it (CUDA events, the device alone), and profiles
 three forwards: device ms and calls per forward of every kernel by name.
-``--root`` takes the port package (and, with ``--resnet``, its
-``chip_smoke.py``) from another checkout (for example the parent commit
+With ``--dwconv`` it loads the committed EfficientNet-B0 on the unfused
+executor and times every ``depthwise_conv_int8`` call of a batch-256
+forward as that checkout's ``chip_smoke.py`` makes it (CUDA events, the
+device alone); ``--ablate`` adds the same calls on copies of this
+checkout's kernel E with its epilogue, its taps or its staging taken out,
+the shares of its time no profiler on the card can break down. ``--root`` takes the port package (and, with ``--resnet`` or ``--dwconv``,
+its ``chip_smoke.py``) from another checkout (for example the parent commit
 unpacked with ``git archive``), so two versions can be timed in one run on
 one card. Prints one JSON object. ``chip_smoke.py`` uses ``launch_ms`` for
 its own per-block rows.
@@ -102,24 +108,120 @@ def resnet(root: str, batch: int) -> dict:
             "forward_ms": forward_ms, "profile": prof}
 
 
+# Kernel E with one part taken out (a text edit of csrc/dwconv_int8.cu; the
+# outputs are then wrong): the time it saves is that part's share, where
+# ncu cannot run. --ablate times each beside the kernel as it is.
+DW_ABLATIONS = {
+    "no_epilogue": ("        silu_requant(y, a.rs_out, zpm, q);",
+                    "        for (int u = 0; u < 8; ++u) q[u] = __float_as_uint(y[u]);"),
+    "no_taps": ("    for (int sr = 0; sr < NR; ++sr) {", "    for (int sr = 0; sr < 0; ++sr) {"),
+    "no_staging": ("  for (int r = 0; r < a.rh; ++r) {", "  for (int r = 0; r < 0; ++r) {"),
+}
+
+
+def ablated_kernels(root: str) -> dict:
+    """name -> the ctypes entry of kernel E built from the checkout's source
+    with that ablation's edit (one nvcc per variant, all at once)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from inference_efficient_vision_models_tpu_torch.ops import _lib
+
+    src = open(os.path.join(_lib.CSRC, "dwconv_int8.cu")).read()
+    procs = {}
+    for name, (old, new) in DW_ABLATIONS.items():
+        if old not in src:
+            raise RuntimeError(f"ablation {name}: its edit does not apply to {_lib.CSRC}")
+        d = os.path.join(_lib.BUILD_DIR, f"ablate_{name}")
+        os.makedirs(d, exist_ok=True)
+        for f in os.listdir(_lib.CSRC):
+            if f.endswith(".cuh"):
+                shutil.copy(os.path.join(_lib.CSRC, f), d)
+        with open(os.path.join(d, "dwconv_int8.cu"), "w") as f:
+            f.write(src.replace(old, new))
+        so = os.path.join(d, "libdwconv_int8.so")
+        procs[name] = (subprocess.Popen(
+            [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o", so,
+             os.path.join(d, "dwconv_int8.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    fns = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ablation {name} failed to build:\n{out}")
+        fn = ctypes.CDLL(so).ievm_dwconv_int8
+        fn.argtypes = _lib.KERNELS["dwconv_int8"][1]["ievm_dwconv_int8"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def dwconv(root: str, batch: int, ablate: bool = False) -> dict:
+    """Kernel E per call at the committed B0's 16 depthwise calls, for the
+    checkout at ``root``; with ``ablate``, also each of DW_ABLATIONS."""
+    import torch
+
+    import chip_smoke as cs
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
+        load_static_int8,
+    )
+    from inference_efficient_vision_models_tpu_torch.ops import _lib, depthwise_conv_int8
+
+    model = load_static_int8(os.path.join(root, "inference_efficient_vision_models_tpu_torch",
+                                          "testdata", "effnet_b0_int8"), "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    inputs = []
+    for name, shape, leaf, stride, in_s, in_z in cs.dw_calls(model, batch):
+        kw = dict(stride=stride, in_scale=in_s, in_zp=in_z, out_scale=leaf["out_scale"],
+                  out_zp=leaf["out_zp"])
+        inputs.append((name, (cs.int8_around(shape, in_z, gen), leaf["w_q"], leaf["w_scale"],
+                              leaf["bias"]), kw))
+
+    def timed():
+        return {name: cs.time_ms(lambda: depthwise_conv_int8(*args, **kw), spin=True)
+                for name, args, kw in inputs}
+
+    calls = timed()
+    out = {"dwconv_ms": calls, "dwconv_total_ms": sum(calls.values())}
+    if ablate:
+        kernel = _lib.kernel_fn("dwconv_int8")  # built and bound by the timed calls
+        out["ablations"] = {}
+        for name, fn in ablated_kernels(root).items():
+            _lib._fns["ievm_dwconv_int8"] = fn
+            per = timed()
+            out["ablations"][name] = {"total_ms": sum(per.values()), "ms": per}
+        _lib._fns["ievm_dwconv_int8"] = kernel
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="checkout whose port package to time")
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--resnet", action="store_true",
-                    help="kernel B's calls and the ResNet18 forward by kernel")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--resnet", action="store_true",
+                      help="kernel B's calls and the ResNet18 forward by kernel")
+    mode.add_argument("--dwconv", action="store_true", help="kernel E's calls")
+    ap.add_argument("--ablate", action="store_true",
+                    help="with --dwconv: also kernel E with its epilogue, taps or staging "
+                         "taken out")
     args = ap.parse_args()
+    if args.ablate and not args.dwconv:
+        ap.error("--ablate goes with --dwconv")
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
     if not torch.cuda.is_available():
         print("port_block_launches: no CUDA device", file=sys.stderr)
         return 1
-    if args.resnet:
-        print(json.dumps({"root": os.path.abspath(args.root), "batch": args.batch,
-                          "device": torch.cuda.get_device_name(0),
-                          **resnet(os.path.abspath(args.root), args.batch)}))
+    if args.resnet or args.dwconv:
+        root = os.path.abspath(args.root)
+        res = resnet(root, args.batch) if args.resnet else dwconv(root, args.batch, args.ablate)
+        print(json.dumps({"root": root, "batch": args.batch,
+                          "device": torch.cuda.get_device_name(0), **res}))
         return 0
     from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
         block_plan,

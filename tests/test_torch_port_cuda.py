@@ -383,11 +383,18 @@ def test_vit_init_defaults_to_the_gpu(cuda):
 
 
 # B0's 16 depthwise calls (H, C, k, stride) at 224x224, and odd shapes:
-# byte loads (C 13, 1), odd H and W, k 5 s 2 at every border class
+# byte loads (C 13, 1), odd H and W, k 5 s 2 at every border class; then the
+# edges of kernel E's tiles (ops/dwconv_int8.py:dw_plan at the test's N): Wo
+# not a multiple of the outputs per thread (59 at 2, 31 at 4), Ho not a
+# multiple of the band (7 at 2), C not a multiple of the channel group (920
+# at 116, 260 at 88), two bands per block with a ragged last block (15 bands),
+# and pruned widths C 24, 40 and 920
 DW_SHAPES = [(112, 32, 3, 1), (112, 96, 3, 2), (56, 144, 3, 1), (56, 144, 5, 2),
              (28, 240, 5, 1), (28, 240, 3, 2), (14, 480, 3, 1), (14, 480, 5, 1),
              (14, 672, 5, 1), (14, 672, 5, 2), (7, 1152, 5, 1), (7, 1152, 3, 1),
-             (13, 13, 5, 2), (9, 8, 3, 1), (11, 1, 5, 2), (10, 1152, 5, 2), (7, 40, 5, 2)]
+             (13, 13, 5, 2), (9, 8, 3, 1), (11, 1, 5, 2), (10, 1152, 5, 2), (7, 40, 5, 2),
+             (57, 24, 3, 1), (14, 920, 3, 2), (56, 40, 5, 2), (29, 260, 3, 1), (15, 520, 3, 1),
+             (28, 920, 5, 1)]
 
 
 @pytest.mark.parametrize("h,c,k,stride", DW_SHAPES)
@@ -411,6 +418,27 @@ def test_dwconv_int8_kernel_matches_plain(cuda, h, c, k, stride, in_zp, out_zp):
     torch.cuda.synchronize()
     assert _lib.launches["dwconv_int8"] == before + 1
     assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def test_dwconv_int8_kernel_matches_plain_at_1e7_outputs(cuda):
+    """Kernel E bit for bit at 16 M output values, so that rcp_ge1_fast's
+    rare unsettled reciprocals (about one in 10^6) are redone: three-row
+    bands at stride 2 (56 rows, a ragged band), four bands per block (19
+    bands, a ragged last block), Wo 57 at 4 outputs per thread."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        depthwise_conv_int8, depthwise_conv_int8_plain)
+
+    rng = np.random.default_rng(11)
+    n, h, w, c, k = 128, 111, 113, 40, 5
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, w, c), dtype=np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, 1, c), dtype=np.int8)).to(cuda)
+    ws = torch.from_numpy(rng.uniform(0.002, 0.02, c).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    kw = dict(stride=2, in_scale=0.043, in_zp=117, out_scale=0.031, out_zp=31)
+    got = depthwise_conv_int8(x, wq, ws, b, **kw)
+    ref = depthwise_conv_int8_plain(x, wq, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert got.numel() >= 10**7 and torch.equal(got, ref)
 
 
 def test_served_effnet_unfused_kernel_path_matches_plain_path(cuda):
