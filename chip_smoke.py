@@ -176,6 +176,14 @@ EFF_PER_FORWARD = {"int8_matmul_requant": 3, "fused_mbconv_block": 16 * 3}
 # A, 16 depthwise convs on kernel E; the mixed one: the same A, a bf16 depthwise
 EFF_UNFUSED_PER_FORWARD = {"int8_matmul_requant": 34, "dwconv_int8": 16}
 EFF_MIXED_PER_FORWARD = {"int8_matmul_requant": 34}
+# MobileNetV2: the unfused executor runs the stem, 16 expand, 17
+# project, the head conv and the fc on kernel A and 17 depthwise convs on
+# kernel E (ReLU6); the fused one the stem, head conv and fc on kernel A and
+# 17 blocks on kernel C, two launches each (no SE gate); the mixed one kernel
+# A's 36 and a bf16 depthwise
+MBV2_UNFUSED_PER_FORWARD = {"int8_matmul_requant": 36, "dwconv_int8": 17}
+MBV2_FUSED_PER_FORWARD = {"int8_matmul_requant": 3, "fused_mbconv_block": 17 * 2}
+MBV2_MIXED_PER_FORWARD = {"int8_matmul_requant": 36}
 # ViT-Tiny int8 (either carrier): patch embed, 12 x (qkv, proj, mlp1, mlp2), head
 VIT_PER_FORWARD = {"int8_matmul_requant": 50}
 # float ViT-Tiny with fused_mlp: one mlp1 + GELU per block
@@ -277,6 +285,37 @@ EFF_CONVERT_STATE = os.path.join(TESTDATA, "effnet_b0_convert_state_jax.npz")
 # calibration forwards sum in another order); recalibrated statistics within
 # fp32 1e-5 of each leaf's scale, the stage-3 tests' limit (the CPU: 2.49e-6)
 EFF_CONVERT_LIMITS = {"scale_rtol": 5.0e-6, "recal_rtol": 1e-5}
+# MobileNetV2: the same protocol on a seeded full-width MobileNetV2
+# (mbv2_params_from_seed) at 224x224 (``testdata/mbv2_convert_jax.json`` and
+# ``mbv2_convert_state_jax.npz``), then the JAX package's unfused and mixed
+# executors on 8 seeded 224x224 images (``testdata/mbv2_jax_logits.npz``), run
+# op by op on the CPU from that conversion
+# (``JAX_PLATFORMS=cpu python tests/test_torch_port_mbv2_quant.py`` writes all three)
+MBV2_CONVERT = dict(seed=0, size=224, per_class=8, image_seed=5, batch=16)
+MBV2_CONVERT_GOLDEN = os.path.join(TESTDATA, "mbv2_convert_jax.json")
+MBV2_CONVERT_STATE = os.path.join(TESTDATA, "mbv2_convert_state_jax.npz")
+MBV2_GOLDEN = os.path.join(TESTDATA, "mbv2_jax_logits.npz")
+MBV2_GOLDEN_IMAGES = dict(seed=3, n=8)
+# scales: twice the record's own fp32 error against an fp64 calibration of
+# the same images (1.94e-6, stage5/0/out_scale; the writer prints it): a
+# second fp32 computation that sums in another order may sit as far on the
+# other side. (Twice the port's CPU deviation, 9.22e-7 over 1 to 8 threads,
+# was the first limit; the card's calibration, PyTorch's CUDA convs with
+# cuDNN off, measured 2.52e-6 at that scale.) ``calib_spread.py`` measures
+# the card against this record and another seed's: on an H100 the fp32 runs
+# repeat exactly and read 2.52e-6 and 2.46e-6, the card's own fp32 error
+# against its fp64 run is 1.49e-6 and 2.46e-6, and calibrating in fp16 or
+# bf16 reads 8.8e-3 to 8.7e-2, which the limit refuses. The recalibrated
+# statistics: twice the CPU's 3.82e-5 of a leaf's scale (17 blocks of
+# train-mode sums)
+MBV2_CONVERT_LIMITS = {"scale_rtol": 3.9e-6, "recal_rtol": 7.7e-5}
+# the unfused and mixed logits against the JAX goldens: the CPU measures 0 for
+# both (every operation is the JAX executor's, the mixed depthwise sums of
+# bf16 products are exact in fp32 in any order: reversed taps measure 0 too),
+# so the card may differ only where a reduction's order moves the fc's
+# quantized input (the mean pool): by one fc quantum, in_scale * max w_scale *
+# 127 (1.8e-4 of the logit scale) per flipped feature; held within two
+MBV2_FC_QUANTA = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -425,13 +464,64 @@ def effnet_params_from_seed(spec, seed: int):
     return params, state
 
 
-def params_from_seed(spec, seed: int):
-    """Seeded (params, BN state) in the JAX layout of a ResNet or an EfficientNet."""
-    from inference_efficient_vision_models_tpu_torch.models.efficientnet import EfficientNetSpec
+def mbv2_params_from_seed(spec, seed: int):
+    """MobileNetV2 (params, BN state) in the JAX layout (HWIO convs, a
+    depthwise kernel (3, 3, 1, C), an (in, out) fc): nested dicts of fp32
+    numpy arrays drawn leaf by leaf, in the JAX init's order, from
+    ``np.random.default_rng(seed)``: convs N(0, 2 / fan_out) (Kaiming,
+    fan_out; a depthwise kernel's fan is 9), BN scale 1 + 0.1 N, bias 0.1 N,
+    running mean 0.1 N, running var 1 + 0.1 |N|, the fc weight
+    U(±1/sqrt(classes)) and bias 0.1 N."""
+    rng = np.random.default_rng(seed)
 
-    fn = effnet_params_from_seed if isinstance(spec, EfficientNetSpec) else \
-        resnet_params_from_seed
-    return fn(spec, seed)
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def conv(kh, kw, cin, cout, fan=None):
+        return {"w": normal((kh, kw, cin, cout), (2.0 / (fan or kh * kw * cout)) ** 0.5)}
+
+    def bn(c):
+        p = {"scale": (1 + normal((c,), 0.1)).astype(np.float32), "bias": normal((c,), 0.1)}
+        s = {"mean": normal((c,), 0.1),
+             "var": (1 + 0.1 * np.abs(rng.standard_normal(c))).astype(np.float32)}
+        return p, s
+
+    params, state = {"stem": conv(3, 3, spec.in_chans, spec.stem_width)}, {}
+    params["stem_bn"], state["stem_bn"] = bn(spec.stem_width)
+    for si, depth in enumerate(spec.depths):
+        lp, ls = {}, {}
+        for b in range(depth):
+            cin, h, cout = spec.block_in_width(si, b), spec.hidden_widths[si][b], \
+                spec.stage_widths[si]
+            bp, bs = {}, {}
+            if spec.has_expand[si][b]:
+                bp["expand"] = conv(1, 1, cin, h)
+                bp["expand_bn"], bs["expand_bn"] = bn(h)
+            bp["dw"] = conv(3, 3, 1, h, fan=9)
+            bp["dw_bn"], bs["dw_bn"] = bn(h)
+            bp["project"] = conv(1, 1, h, cout)
+            bp["project_bn"], bs["project_bn"] = bn(cout)
+            lp[str(b)], ls[str(b)] = bp, bs
+        params[f"stage{si}"], state[f"stage{si}"] = lp, ls
+    params["last"] = conv(1, 1, spec.stage_widths[-1], spec.last_width)
+    params["last_bn"], state["last_bn"] = bn(spec.last_width)
+    bound = spec.num_classes ** -0.5
+    params["fc"] = {"w": rng.uniform(-bound, bound, (spec.last_width, spec.num_classes))
+                    .astype(np.float32), "b": normal((spec.num_classes,), 0.1)}
+    return params, state
+
+
+def params_from_seed(spec, seed: int):
+    """Seeded (params, BN state) in the JAX layout of a ResNet, an EfficientNet
+    or a MobileNetV2."""
+    from inference_efficient_vision_models_tpu_torch.models.efficientnet import EfficientNetSpec
+    from inference_efficient_vision_models_tpu_torch.models.mobilenet import MobileNetV2Spec
+
+    if isinstance(spec, EfficientNetSpec):
+        return effnet_params_from_seed(spec, seed)
+    if isinstance(spec, MobileNetV2Spec):
+        return mbv2_params_from_seed(spec, seed)
+    return resnet_params_from_seed(spec, seed)
 
 
 def leaf_sums(tree) -> np.ndarray:
@@ -1022,11 +1112,11 @@ def block_cost(x: torch.Tensor, packed, kernel: int, stride: int, residual: bool
 def eff_block_inputs(model, b: int, gen: torch.Generator):
     """(name, x, kernel, stride, residual) at every block of the served model,
     batch b, int8 inputs spread around each block's input zero point."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
 
     h = model.q["stem"]["e"].shape[1]
     out = []
-    for name, k, stride, residual in block_plan(model.spec):
+    for name, k, stride, residual in quant_module(model.spec).block_plan(model.spec):
         sc = model.qf[name]["scal"]
         cin = model.qf[name]["we"].shape[0] if "we" in model.qf[name] else \
             model.qf[name]["wdw"].shape[-1]
@@ -1080,12 +1170,12 @@ def eff_check_odd_shapes(gen_np: np.random.Generator, gen: torch.Generator):
 def eff_kernel_a_calls(model, b: int):
     """Kernel A's three calls of one forward at batch b: stem (im2col patches,
     K = 27), the head conv (K = 320) and the fc (float input)."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
 
     q = model.q
     st, last, fc = q["stem"], q["last"], q["fc"]
     hs = hl = st["e"].shape[1]
-    for _, _, stride, _ in block_plan(model.spec):
+    for _, _, stride, _ in quant_module(model.spec).block_plan(model.spec):
         hl = (hl - 1) // stride + 1
     return [
         ("int8_matmul_requant", "stem", (b * hs * hs, st["w"].k), torch.int8, st,
@@ -1097,17 +1187,22 @@ def eff_kernel_a_calls(model, b: int):
     ]
 
 
-def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "efficientnet_b0"):
+def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "efficientnet_b0",
+                                   time_a: bool = False):
     """(a) kernel C at the 16 block shapes, bit for bit, and kernel A at its
     3, batch 256, then the timings: each block's three launches apart
     (device time, torch.profiler; on the committed model's path only)
     beside the whole call and its bound. ``path`` names the model's path in
-    the rows; kernel A is timed on the committed model's path only."""
+    the rows; kernel A is timed on the committed model's path and, with
+    ``time_a``, on ``path``."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
+
     main = path == "efficientnet_b0"
+    act = quant_module(model.spec).ACT
     rows, fails = [], []
     for name, x, k, stride, residual in eff_block_inputs(model, BATCH, gen):
         packed = model.qf[name]
-        kw = dict(kernel=k, stride=stride, act="silu", x_res=x if residual else None)
+        kw = dict(kernel=k, stride=stride, act=act, x_res=x if residual else None)
         ok, err, exact = compare_block(fused_mbconv_block(x, packed, **kw),
                                        fused_mbconv_block_plain(x, packed, **kw), 1.0)
         if not ok:
@@ -1117,7 +1212,7 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "eff
         rows.append({
             "path": path, "kernel": "fused_mbconv_block", "call": name,
             "x": list(x.shape), "ce": packed["wdw"].shape[-1], "n": packed["wp"].n,
-            "k": k, "stride": stride, "max_abs_err": err, "exact": exact,
+            "k": k, "stride": stride, "act": act, "max_abs_err": err, "exact": exact,
             "ms": time_ms(lambda: fused_mbconv_block(x, packed, **kw), spin=True),
             "plain_ms": time_ms(lambda: fused_mbconv_block_plain(x, packed, **kw), spin=True),
             "bytes": nbytes, "ops": ops, "dw_macs": dw,
@@ -1130,12 +1225,12 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "eff
         del x
     mine = [r for r in rows if r["kernel"] == "fused_mbconv_block"]
     if not main:
-        emit({"phase": "eff_c_blocks", "path": path, "batch": BATCH,
+        emit({"phase": "eff_c_blocks", "path": path, "batch": BATCH, "calls": len(mine),
               "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
               "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"], r["dw_ms"]) for r in mine)})
         for _, label, shape, dtype, leaf, kw in eff_kernel_a_calls(model, BATCH):
             row, f = kernel_a_row(path, label, make_input(shape, dtype, kw["in_zp"], gen), leaf,
-                                  kw, timed=False)
+                                  kw, timed=time_a)
             rows.append(row)
             fails += f
         return rows, fails
@@ -1212,6 +1307,158 @@ def logits_close(got: np.ndarray, ref: np.ndarray, tau: float):
     ok = (got.shape == ref.shape and np.isfinite(got).all() and err <= atol
           and bool((got.argmax(1) == ref.argmax(1))[wide].all()))
     return ok, err, atol
+
+
+def run_mbv2(dev, gen: torch.Generator, gen_np: np.random.Generator):
+    """The MobileNetV2 phases on a seeded full-width model at 224x224:
+    ``convert_mbv2`` (BN recalibration, calibration and conversion on the
+    card against the JAX CPU record); the JAX model exactly (the card's
+    integer leaves, equal to the record's by sha256, with the record's
+    activation qparams) on the unfused, mixed and fused executors:
+    ``mbv2_logits_vs_jax`` (launches per forward A 36 + E 17, A 36, A 3 +
+    C 34; kernel path equal to plain path; unfused and mixed logits against
+    the JAX goldens within MBV2_FC_QUANTA fc quanta), ``mbv2_fused_vs_unfused``
+    (teacher forcing, within one quantum, >= 98% exact); ``mbv2_e_shapes``
+    (kernel E's ReLU6 epilogue at the 17 calls at batch 256, bit for bit,
+    timed beside its bound and its plain version, then odd shapes),
+    ``mbv2_c_shapes`` (kernel C at the 17 blocks, bit for bit, timed, and
+    kernel A at the fused executor's 3 calls), ``mbv2_a_shapes`` (kernel A at
+    the unfused executor's 36 calls at batch 256, bit for bit, timed beside
+    its bound, its plain version and torch._int_mm) and ``mbv2_forward``.
+    -> (rows, {path: launches})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import fusedpath as tfp
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qmobilenet as tqm
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import stem_int8
+
+    with open(MBV2_CONVERT_GOLDEN) as f:
+        record = json.load(f)
+    spec, p, s, imgs, labels = effnet_convert_inputs("mobilenet_v2", MBV2_CONVERT)
+    ref_state = nested_from_npz(np.load(MBV2_CONVERT_STATE))
+    t0 = time.perf_counter()
+    recal = port_recal_effnet(spec, p, s, imgs, "cuda", MBV2_CONVERT)
+    torch.cuda.synchronize()
+    recal_s = time.perf_counter() - t0
+    recal_dev = state_deviation(recal, ref_state)
+    q, _, t = port_convert_effnet(spec, p, ref_state, imgs, labels, "cuda", MBV2_CONVERT)
+    report = compare_conversion(tqm.serializable(q), record, MBV2_CONVERT_LIMITS, _eff_tap_of)
+    ok = report["ok"] and recal_dev <= MBV2_CONVERT_LIMITS["recal_rtol"]
+    emit({"phase": "convert_mbv2", **_stage_card(dev), "model": spec.name, "images": len(imgs),
+          "size": MBV2_CONVERT["size"], "recal_s": recal_s, "recal_dev": recal_dev, **t,
+          "limits": MBV2_CONVERT_LIMITS, **report, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"convert_mbv2: outside the limits: recal {recal_dev}, {report}")
+
+    qj = with_record_qparams(q, record)
+    sd = spec.to_dict()
+    models = {"unfused": tqm.from_jax_qmodel(sd, qj, "cuda"),
+              "mixed": tqm.from_jax_qmodel(sd, qj, "cuda", executor="mixed"),
+              "fused": tfp.from_jax_qmodel(sd, qj, "cuda")}
+    per = {"unfused": MBV2_UNFUSED_PER_FORWARD, "mixed": MBV2_MIXED_PER_FORWARD,
+           "fused": MBV2_FUSED_PER_FORWARD}
+    golden = np.load(MBV2_GOLDEN)
+    x_np = mbv2_golden_images()
+    x = torch.from_numpy(x_np).cuda()
+    fc = qj["fc"]
+    quantum = float(np.float32(fc["in_scale"])) * float(np.abs(fc["w_scale"]).max()) * 127
+    launches_by, fails = {}, []
+    with torch.inference_mode():
+        for ex, model in models.items():
+            _lib.reset_launch_counts()  # the main path: one forward of the 8 images
+            kern = model(x)
+            torch.cuda.synchronize()
+            launches = dict(_lib.launches)
+            launches_by[f"mobilenet_v2_{ex}"] = launches
+            plain = model(x, impl="plain").cpu().numpy()
+            kern = kern.cpu().numpy()
+            rec = {"phase": "mbv2_logits_vs_jax", **_stage_card(dev), "executor": ex,
+                   "images": len(x_np), "launches_per_forward": launches,
+                   "expected_launches": per[ex], "kernel_equals_plain":
+                   bool(np.array_equal(kern, plain)),
+                   "kernel_vs_plain_max_abs_err": float(np.abs(kern - plain).max())}
+            ok = launches == per[ex] and rec["kernel_equals_plain"]
+            if ex in ("unfused", "mixed"):
+                ref = golden["int8" if ex == "unfused" else "mixed"]
+                tau = MBV2_FC_QUANTA * quantum / float(np.abs(ref).max())
+                l_ok, err, atol = logits_close(kern, ref, tau)
+                rec.update({"vs_jax_max_abs_err": err, "vs_jax_atol": atol, "tau": tau,
+                            "vs_jax_equal": bool(np.array_equal(kern, ref)),
+                            "logit_scale": float(np.abs(ref).max()),
+                            "argmax_identical": bool((kern.argmax(1) == ref.argmax(1)).all())})
+                ok = ok and l_ok
+            emit(rec)
+            if not ok:
+                fails.append(f"{ex}: {rec}")
+        unfused, fused = models["unfused"], models["fused"]
+        outs, per_block = block_outputs(unfused, x), []
+        prev = stem_int8(unfused.q, x, impl="plain", act=tqm.ACT)
+        for name, k, stride, residual in tqm.block_plan(spec):
+            got = fused_mbconv_block(prev, fused.qf[name], kernel=k, stride=stride, act="relu6",
+                                     x_res=prev if residual else None)
+            b_ok, b_err, exact = compare_block(got, outs[name])
+            per_block.append({"block": name, "max_abs_err": b_err, "exact": exact})
+            if not b_ok:
+                fails.append(f"fused block {name} vs unfused: max abs err {b_err}, exact {exact}")
+            prev = outs[name]
+    emit({"phase": "mbv2_fused_vs_unfused", "images": len(x_np),
+          "worst_exact": min(r["exact"] for r in per_block),
+          "max_abs_err": max(r["max_abs_err"] for r in per_block), "blocks": per_block})
+    if fails:
+        raise SmokeFailure("MobileNetV2 executors:\n" + "\n".join(fails))
+
+    rows, fails = check_e_main_shapes(unfused, gen, "mobilenet_v2_unfused", "mbv2_e_shapes")
+    odd = []
+    for n, h, w, c, k, stride in E_ODD_SHAPES:
+        leaf = {"w_q": torch.from_numpy(gen_np.integers(-127, 128, (k, k, 1, c),
+                                                        dtype=np.int8)).cuda(),
+                "w_scale": torch.from_numpy(gen_np.uniform(0.002, 0.02, c)
+                                            .astype(np.float32)).cuda(),
+                "bias": torch.from_numpy(gen_np.standard_normal(c).astype(np.float32)).cuda()}
+        for in_zp, out_zp in E_ZPS:
+            xo = int8_around((n, h, w, c), in_zp, gen)
+            kw = dict(stride=stride, in_scale=0.04, in_zp=in_zp, out_scale=0.03, out_zp=out_zp,
+                      act="relu6")
+            row, f = e_row("odd", f"{h}x{w}x{c} k{k} s{stride} relu6", xo, leaf, kw,
+                           timed=False)
+            odd.append(row)
+            fails += f
+    # requant ties: s_in * s_w = 2^-12, s_out = 2^-9, so y / s_out = acc / 8
+    xt = int8_around((8, 28, 28, 40), 128, gen)
+    tie_leaf = {"w_q": torch.from_numpy(gen_np.integers(-127, 128, (3, 3, 1, 40),
+                                                        dtype=np.int8)).cuda(),
+                "w_scale": torch.full((40,), 1 / 64, device="cuda"),
+                "bias": torch.zeros(40, device="cuda")}
+    for stride in (1, 2):
+        kw = dict(stride=stride, in_scale=1 / 64, in_zp=128, out_scale=1 / 512, out_zp=0,
+                  act="relu6")
+        row, f = e_row("odd", f"ties s{stride} relu6", xt, tie_leaf, kw, timed=False)
+        odd.append(row)
+        fails += f
+    emit({"phase": "mbv2_e_odd_shapes", "checks": len(odd),
+          "max_abs_err": max(r["max_abs_err"] for r in odd), "failed": fails})
+    c_rows, f2 = eff_check_and_time_main_shapes(fused, gen, "mobilenet_v2_fused", time_a=True)
+    rows += odd + c_rows
+    fails += f2
+    a_rows, f3 = check_unfused_a_shapes(unfused, gen, "mobilenet_v2_unfused", "mbv2_a_shapes")
+    rows += a_rows
+    fails += f3
+    emit({"phase": "mbv2_kernels", "checks": len(rows),
+          "max_abs_err": max(r["max_abs_err"] for r in rows), "failed": fails})
+    if fails:
+        raise SmokeFailure("kernels disagree at MobileNetV2's shapes:\n" + "\n".join(fails))
+
+    fwd = {}
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            xb = torch.from_numpy(np.random.default_rng(2).integers(
+                0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda()
+            for ex, model in models.items():
+                fwd[f"{ex}_forward_ms_b{b}"] = time_ms(lambda: model(xb))
+        for ex in models:
+            fwd[f"{ex}_images_per_s_b256"] = BATCH / fwd[f"{ex}_forward_ms_b{BATCH}"] * 1e3
+        emit({"phase": "mbv2_forward", **_stage_card(dev), **fwd,
+              "unfused_profile_b256": profile_forward(unfused, xb),
+              "fused_profile_b256": profile_forward(fused, xb)})
+    return rows, launches_by
 
 
 def run_efficientnet(gen: torch.Generator):
@@ -1303,15 +1550,15 @@ E_ZPS = ((0, 255), (128, 128), (255, 0))  # (input zero point, output zero point
 
 
 def dw_calls(model, b: int):
-    """Kernel E's 16 calls of one unfused forward at batch b: (block, x shape,
-    depthwise leaf, stride, in_scale, in_zp)."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
+    """Kernel E's calls of one unfused forward at batch b (16 for B0, 17 for
+    MobileNetV2): (block, x shape, depthwise leaf, stride, in_scale, in_zp)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
 
     q = model.q
     h = q["stem"]["e"].shape[1]
     cur_s, cur_z = q["stem"]["out_scale"], q["stem"]["out_zp"]
     out = []
-    for name, _, stride, _ in block_plan(model.spec):
+    for name, _, stride, _ in quant_module(model.spec).block_plan(model.spec):
         blk = q["blocks"][name]
         e = blk.get("expand")
         in_s, in_z = (e["out_scale"], e["out_zp"]) if e else (cur_s, cur_z)
@@ -1322,23 +1569,27 @@ def dw_calls(model, b: int):
 
 
 def unfused_a_calls(model, b: int):
-    """Kernel A's 34 calls of one unfused forward at batch b: the stem (im2col
-    patches), each expand and project (fp32 out), the head conv and the fc."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import block_plan
+    """Kernel A's calls of one unfused forward at batch b (34 for B0, 36 for
+    MobileNetV2): the stem (im2col patches), each expand and project (fp32
+    out; a project's input is the SE gate's output, or the depthwise conv's
+    without one), the head conv and the fc."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
 
     q = model.q
     st = q["stem"]
     h = st["e"].shape[1]
     calls = [("stem", (b * h * h, st["w"].k), torch.int8, st, dict(in_scale=1.0, in_zp=128))]
     cur_s, cur_z = st["out_scale"], st["out_zp"]
-    for name, _, stride, _ in block_plan(model.spec):
+    for name, _, stride, _ in quant_module(model.spec).block_plan(model.spec):
         blk = q["blocks"][name]
         if "expand" in blk:
             calls.append((f"{name}.expand", (b * h * h, blk["expand"]["w"].k), torch.int8,
                           blk["expand"], dict(in_scale=cur_s, in_zp=cur_z)))
         h = (h - 1) // stride + 1
+        p_in = ((blk["se_scale"], blk["se_zp"]) if "se_scale" in blk
+                else (blk["dw"]["out_scale"], blk["dw"]["out_zp"]))
         calls.append((f"{name}.project", (b * h * h, blk["project"]["w"].k), torch.int8,
-                      blk["project"], dict(in_scale=blk["se_scale"], in_zp=blk["se_zp"])))
+                      blk["project"], dict(in_scale=p_in[0], in_zp=p_in[1])))
         cur_s, cur_z = blk["out_scale"], blk["out_zp"]
     last, fc = q["last"], q["fc"]
     calls.append(("last", (b * h * h, last["w"].k), torch.int8, last,
@@ -1346,6 +1597,26 @@ def unfused_a_calls(model, b: int):
     calls.append(("fc", (b, fc["w"].k), torch.float32, fc,
                   dict(in_scale=fc["in_scale"], in_zp=fc["in_zp"])))
     return calls
+
+
+def check_unfused_a_shapes(model, gen: torch.Generator, path: str, phase: str):
+    """Kernel A at the unfused executor's calls of ``model`` at batch 256
+    (``unfused_a_calls``), bit for bit, each timed beside its bound, its
+    plain version and torch._int_mm, and their sum (``phase`` with
+    ``_forward`` for ``_shapes``). -> (rows, failures)."""
+    rows, fails = [], []
+    for label, shape, dtype, leaf, kw in unfused_a_calls(model, BATCH):
+        row, f = kernel_a_row(path, label, make_input(shape, dtype, kw["in_zp"], gen), leaf, kw)
+        emit({"phase": phase, **row})
+        rows.append(row)
+        fails += f
+    emit({"phase": phase.replace("_shapes", "_forward"), "path": path, "batch": BATCH,
+          "calls": len(rows),
+          **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bytes", "ops")},
+          "library_ms": (None if any(r["library_ms"] is None for r in rows)
+                         else sum(r["library_ms"] for r in rows)),
+          "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows)})
+    return rows, fails
 
 
 def e_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = True):
@@ -1364,7 +1635,8 @@ def e_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = Tru
     out = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * c
     nbytes, macs = x.numel() + out + k * k * c + 8 * c, out * k * k
     row = {"path": path, "kernel": "dwconv_int8", "call": label, "batch": n, "x": list(x.shape),
-           "n": c, "k": k, "stride": stride, "in_zp": int(kw["in_zp"]),
+           "n": c, "k": k, "stride": stride, "act": kw.get("act", "silu"),
+           "in_zp": int(kw["in_zp"]),
            "out_zp": int(kw["out_zp"]), "max_abs_err": err, "bytes": nbytes, "ops": 0,
            "dw_macs": macs, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
            "dw_ms": macs / FP32_FMA_PER_S * 1e3, "library_ms": None,
@@ -1377,21 +1649,24 @@ def e_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = Tru
                                f"max abs err {err}"]
 
 
-def check_e_main_shapes(model, gen: torch.Generator, path: str):
-    """Kernel E at the 16 depthwise calls of ``model`` at batch 256, bit for
-    bit and timed."""
+def check_e_main_shapes(model, gen: torch.Generator, path: str, phase: str = "effnet_e_shapes"):
+    """Kernel E at the depthwise calls of ``model`` at batch 256 (its
+    family's activation), bit for bit and timed."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
+
     rows, fails = [], []
     for name, shape, leaf, stride, in_s, in_z in dw_calls(model, BATCH):
         x = int8_around(shape, in_z, gen)
         kw = dict(stride=stride, in_scale=in_s, in_zp=in_z, out_scale=leaf["out_scale"],
-                  out_zp=leaf["out_zp"])
+                  out_zp=leaf["out_zp"], act=quant_module(model.spec).ACT)
         row, f = e_row(path, name, x, leaf, kw)
         rows.append(row)
         fails += f
-        emit({"phase": "effnet_e_shapes", **row})
+        emit({"phase": phase, **row})
         del x
     ms, bound = sum(r["ms"] for r in rows), sum(max(r["bytes_ms"], r["dw_ms"]) for r in rows)
-    emit({"phase": "effnet_e_forward", "path": path, "batch": BATCH, "calls": len(rows),
+    emit({"phase": phase.replace("_shapes", "_forward"), "path": path, "batch": BATCH,
+          "calls": len(rows),
           "ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bound,
           "bound_share": bound / ms, "bytes": sum(r["bytes"] for r in rows),
           "dw_macs": sum(r["dw_macs"] for r in rows)})
@@ -1404,8 +1679,9 @@ def run_effnet_e_shapes(gen: torch.Generator, gen_np: np.random.Generator):
     against the plain path within TAU_B and the JAX package's fused-executor
     golden within TAU_C), then ``effnet_e_shapes``: kernel E against its
     plain version, max abs err 0, at B0's 16 depthwise calls (batch 256,
-    timed) and at odd shapes, each at zero points 0, 128 and 255.
-    -> (rows, launches)."""
+    timed) and at odd shapes, each at zero points 0, 128 and 255, and
+    ``effnet_a_shapes``: kernel A at the executor's 34 calls, bit for bit,
+    timed. -> (rows, launches)."""
     from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
         load_static_int8 as load_unfused)
 
@@ -1444,6 +1720,9 @@ def run_effnet_e_shapes(gen: torch.Generator, gen_np: np.random.Generator):
               "unfused_profile_b256": profile_forward(model, x)})
     del mixed, x
     rows, fails = check_e_main_shapes(model, gen, "efficientnet_b0_unfused")
+    a_rows, f = check_unfused_a_shapes(model, gen, "efficientnet_b0_unfused", "effnet_a_shapes")
+    rows += a_rows
+    fails += f
     odd = []
     for n, h, w, c, k, stride in E_ODD_SHAPES:
         leaf = {"w_q": torch.from_numpy(gen_np.integers(-127, 128, (k, k, 1, c),
@@ -1460,7 +1739,8 @@ def run_effnet_e_shapes(gen: torch.Generator, gen_np: np.random.Generator):
     emit({"phase": "effnet_e_odd_shapes", "checks": len(odd),
           "max_abs_err": max(r["max_abs_err"] for r in odd), "failed": fails})
     if fails:
-        raise SmokeFailure("kernel E disagrees with its plain version:\n" + "\n".join(fails))
+        raise SmokeFailure("kernels E and A disagree with their plain versions at B0's "
+                           "unfused calls:\n" + "\n".join(fails))
     return rows, launches
 
 
@@ -1473,15 +1753,19 @@ def chain_images(size: int, n: int = 64) -> np.ndarray:
 
 def block_outputs(model, x: torch.Tensor, impl: str = "plain") -> dict:
     """Each block's int8 output in a forward of an unfused or mixed
-    EfficientNet (``qeffnet.QEffNetInt8Unfused``) on raw uint8 images."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant import qeffnet
+    EfficientNet or MobileNetV2 (``qeffnet.QEffNetInt8Unfused``) on raw
+    uint8 images."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
 
-    block = qeffnet.block_int8 if model.executor == "int8" else qeffnet.block_mixed
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import stem_int8
+
+    fam = quant_module(model.spec)
+    block = fam.block_int8 if model.executor == "int8" else fam.block_mixed
     q = model.q
-    cur = qeffnet.stem_int8(q, x, impl=impl)
+    cur = stem_int8(q, x, impl=impl, act=fam.ACT)
     cur_s, cur_z = q["stem"]["out_scale"], q["stem"]["out_zp"]
     outs = {}
-    for name, k, stride, residual in qeffnet.block_plan(model.spec):
+    for name, k, stride, residual in fam.block_plan(model.spec):
         blk = q["blocks"][name]
         cur = outs[name] = block(blk, cur, cur_s, cur_z, kernel=k, stride=stride,
                                  residual=residual, impl=impl)
@@ -1490,28 +1774,35 @@ def block_outputs(model, x: torch.Tensor, impl: str = "plain") -> dict:
 
 
 def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
-    """``effnet_chain_int8``: the chain's static-INT8 EfficientNet served three
-    ways through ``Predictor.from_artifact`` (launches counted per forward:
-    unfused A 34 + E 16, fused A 3 + C 48, mixed A 34), each forward held to
-    its own ``impl="plain"`` on 64 images (unfused and fused bit for bit,
-    mixed within TAU_B), every fused block to the unfused one (teacher
-    forcing, within one quantum, >= 98% exact), the forwards timed at batch 1
-    and 256; then each kernel at the chain model's shapes against its plain
+    """``effnet_chain_int8`` (``run_mbconv_chain_int8`` on the EfficientNet
+    chain's artifact: launches per forward unfused A 34 + E 16, fused A 3 +
+    C 48, mixed A 34)."""
+    return run_mbconv_chain_int8(dev, gen, quant_dir, "efficientnet_b0", "effnet", {
+        "static_int8": EFF_UNFUSED_PER_FORWARD, "static_int8_fused": EFF_PER_FORWARD,
+        "static_int8_mixed": EFF_MIXED_PER_FORWARD})
+
+
+def run_mbconv_chain_int8(dev, gen: torch.Generator, quant_dir: str, model_name: str,
+                          tag: str, per: dict):
+    """``{tag}_chain_int8``: a stage chain's static-INT8 MBConv network served
+    three ways through ``load_quantized`` -> ``Predictor.from_artifact``
+    (launches counted per forward against ``per``), each forward held to its
+    own ``impl="plain"`` on 64 images (unfused and fused bit for bit, mixed
+    within TAU_B), every fused block to the unfused one (teacher forcing,
+    within one quantum, >= 98% exact), the forwards timed at batch 1 and
+    256; then each kernel at the chain model's shapes against its plain
     version (kernels C and E timed; kept out of the kernels line's sums).
     -> (rows, {path: launches})."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
-        load_static_int8_fused)
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
-        block_plan, load_static_int8 as load_unfused, stem_int8)
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import stem_int8
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
 
-    models = {"static_int8": load_unfused(quant_dir, "cuda"),
-              "static_int8_fused": load_static_int8_fused(quant_dir, "cuda"),
-              "static_int8_mixed": load_unfused(quant_dir, "cuda", executor="mixed")}
+    models = {m: load_quantized(quant_dir, m, device="cuda")[1] for m in per}
+    fam = quant_module(models["static_int8"].spec)
     hw = 2 * models["static_int8"].q["stem"]["e"].shape[1]  # the size it was converted for
     imgs = chain_images(hw)
     x = torch.from_numpy(imgs).cuda()
-    per = {"static_int8": EFF_UNFUSED_PER_FORWARD, "static_int8_fused": EFF_PER_FORWARD,
-           "static_int8_mixed": EFF_MIXED_PER_FORWARD}
+    pipe = f"{model_name}_pipeline"
     logits, launches_by, fails = {}, {}, []
     with torch.inference_mode():
         for method, model in models.items():
@@ -1523,7 +1814,7 @@ def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
             served = pred.predict_logits(imgs)
             torch.cuda.synchronize()
             launches = dict(_lib.launches)
-            launches_by[f"efficientnet_b0_pipeline_{method}"] = launches
+            launches_by[f"{pipe}_{method}"] = launches
             kern, plain = model(x), model(x, impl="plain")
             torch.cuda.synchronize()
             kern, plain = kern.cpu().numpy(), plain.cpu().numpy()
@@ -1539,7 +1830,7 @@ def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
                     0, 256, (b, hw, hw, 3), dtype=np.uint8)).cuda()
                 fwd[f"forward_ms_b{b}"] = time_ms(lambda: model(xb))
             counts_ok = launches == per[method]
-            emit({"phase": "effnet_chain_int8", **_stage_card(dev), "method": method,
+            emit({"phase": f"{tag}_chain_int8", **_stage_card(dev), "method": method,
                   "images": len(imgs), "launches_per_forward": launches,
                   "expected_launches": per[method], "kernel_vs_plain_max_abs_err": err,
                   "kernel_vs_plain_ok": ok, "served_vs_plain_max_abs_err": s_err,
@@ -1549,15 +1840,15 @@ def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
                 fails.append(f"{method}: kernel vs plain {ok} ({err}), served {s_ok} ({s_err}), "
                              f"launches {launches} (expected {per[method]})")
             if method == "static_int8":
-                emit({"phase": "effnet_chain_int8_profile_b256",
+                emit({"phase": f"{tag}_chain_int8_profile_b256",
                       **profile_forward(model, xb)})
         # every fused block (kernel C) fed the unfused executor's input, against
         # the unfused block's output
         unfused, fused = models["static_int8"], models["static_int8_fused"]
         outs, per_block = block_outputs(unfused, x), []
-        prev = stem_int8(unfused.q, x, impl="plain")
-        for name, k, stride, residual in block_plan(unfused.spec):
-            got = fused_mbconv_block(prev, fused.qf[name], kernel=k, stride=stride, act="silu",
+        prev = stem_int8(unfused.q, x, impl="plain", act=fam.ACT)
+        for name, k, stride, residual in fam.block_plan(unfused.spec):
+            got = fused_mbconv_block(prev, fused.qf[name], kernel=k, stride=stride, act=fam.ACT,
                                      x_res=prev if residual else None)
             b_ok, b_err, exact = compare_block(got, outs[name])
             per_block.append({"block": name, "max_abs_err": b_err, "exact": exact})
@@ -1565,7 +1856,7 @@ def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
                 fails.append(f"fused block {name} vs unfused: max abs err {b_err}, exact {exact}")
             prev = outs[name]
     u, f = logits["static_int8"], logits["static_int8_fused"]
-    emit({"phase": "effnet_chain_fused_vs_unfused", "images": len(imgs),
+    emit({"phase": f"{tag}_chain_fused_vs_unfused", "images": len(imgs),
           "worst_exact": min(r["exact"] for r in per_block),
           "max_abs_err": max(r["max_abs_err"] for r in per_block), "blocks": per_block,
           "logits_max_abs_diff_over_scale": float(np.abs(f - u).max() / np.abs(u).max()),
@@ -1573,19 +1864,19 @@ def run_effnet_chain_int8(dev, gen: torch.Generator, quant_dir: str):
           "mixed_vs_unfused_over_scale": float(np.abs(logits["static_int8_mixed"] - u).max()
                                                / np.abs(u).max())})
     if fails:
-        raise SmokeFailure("effnet_chain_int8:\n" + "\n".join(fails))
+        raise SmokeFailure(f"{tag}_chain_int8:\n" + "\n".join(fails))
 
     # each kernel at the chain model's shapes against its plain version
-    rows, fails = check_e_main_shapes(unfused, gen, "efficientnet_b0_pipeline")
-    c_rows, f2 = eff_check_and_time_main_shapes(fused, gen, "efficientnet_b0_pipeline")
+    rows, fails = check_e_main_shapes(unfused, gen, pipe, f"{tag}_chain_e_shapes")
+    c_rows, f2 = eff_check_and_time_main_shapes(fused, gen, pipe)
     rows += c_rows
     fails += f2
     for label, shape, dtype, leaf, kw in unfused_a_calls(unfused, BATCH):
-        row, f3 = kernel_a_row("efficientnet_b0_pipeline", f"unfused.{label}",
+        row, f3 = kernel_a_row(pipe, f"unfused.{label}",
                                make_input(shape, dtype, kw["in_zp"], gen), leaf, kw, timed=False)
         rows.append(row)
         fails += f3
-    emit({"phase": "effnet_chain_kernels", "checks": len(rows),
+    emit({"phase": f"{tag}_chain_kernels", "checks": len(rows),
           "max_abs_err": max(r["max_abs_err"] for r in rows), "failed": fails})
     if fails:
         raise SmokeFailure("kernels disagree at the chain model's shapes:\n" + "\n".join(fails))
@@ -2169,52 +2460,78 @@ def nested_from_npz(npz) -> dict:
     return out
 
 
-def effnet_convert_inputs():
-    """``EFF_CONVERT``'s spec, seeded (params, BN state) and surrogate images."""
+def effnet_convert_inputs(name="efficientnet_b0", cfg=EFF_CONVERT):
+    """The spec of ``name`` (an MBConv network: EfficientNet-B0 by default,
+    or MobileNetV2 with ``MBV2_CONVERT``), its seeded (params, BN state) and
+    ``cfg``'s surrogate images."""
     from inference_efficient_vision_models_tpu_torch.data.synthetic import make_synthetic_neudet
-    from inference_efficient_vision_models_tpu_torch.models.efficientnet import (
-        efficientnet_spec)
+    from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
 
-    spec = efficientnet_spec("efficientnet_b0", 6)
-    p, s = effnet_params_from_seed(spec, EFF_CONVERT["seed"])
-    imgs, labels = make_synthetic_neudet(EFF_CONVERT["per_class"], image_size=EFF_CONVERT["size"],
-                                         seed=EFF_CONVERT["image_seed"])
+    spec = make_spec(name, 6)
+    p, s = params_from_seed(spec, cfg["seed"])
+    imgs, labels = make_synthetic_neudet(cfg["per_class"], image_size=cfg["size"],
+                                         seed=cfg["image_seed"])
     return spec, p, s, imgs, labels
 
 
-def port_recal_effnet(spec, p, s, imgs, device):
-    """The port's BN recalibration of ``EFF_CONVERT`` -> the JAX-layout state."""
+def port_recal_effnet(spec, p, s, imgs, device, cfg=EFF_CONVERT):
+    """The port's BN recalibration of ``cfg`` -> the JAX-layout state."""
     from inference_efficient_vision_models_tpu_torch.models.registry import (
         params_from_jax, params_to_jax)
     from inference_efficient_vision_models_tpu_torch.train.bn_recal import recalibrate_bn
 
-    b = EFF_CONVERT["batch"]
+    b = cfg["batch"]
     st = recalibrate_bn(spec, params_from_jax(spec, p, device), params_from_jax(spec, s, device),
                         imgs, batch_size=b, num_batches=len(imgs) // b)
     return params_to_jax(spec, st)
 
 
-def port_convert_effnet(spec, p, s, imgs, labels, device):
-    """fold -> calibrate (minmax, every image, on ``device``) -> convert ->
-    (the converted tree, observers, {fold_s, calibrate_s, convert_s})."""
-    from inference_efficient_vision_models_tpu_torch.compress.quant import qeffnet
+def port_convert_effnet(spec, p, s, imgs, labels, device, cfg=EFF_CONVERT):
+    """fold -> calibrate (minmax, every image, on ``device``) -> convert, by
+    the spec's quantization module -> (the converted tree, observers,
+    {fold_s, calibrate_s, convert_s})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
     from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import place_folded
     from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
 
+    qmod = quant_module(spec)
     t = {}
     t0 = time.perf_counter()
-    folded = qeffnet.fold(spec, p, s)
+    folded = qmod.fold(spec, p, s)
     t["fold_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    obs = qeffnet.calibrate(spec, place_folded(folded, device),
-                            Batches(imgs, labels, EFF_CONVERT["batch"], device),
-                            max_images=len(imgs))
+    obs = qmod.calibrate(spec, place_folded(folded, device),
+                         Batches(imgs, labels, cfg["batch"], device), max_images=len(imgs))
     t["calibrate_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    q = qeffnet.convert_static_int8(spec, folded, obs,
-                                    image_size=(EFF_CONVERT["size"], EFF_CONVERT["size"]))
+    q = qmod.convert_static_int8(spec, folded, obs, image_size=(cfg["size"], cfg["size"]))
     t["convert_s"] = time.perf_counter() - t0
     return q, obs, t
+
+
+def mbv2_golden_images() -> np.ndarray:
+    """The 8 seeded 224x224 uint8 images of ``MBV2_GOLDEN``."""
+    return np.random.default_rng(MBV2_GOLDEN_IMAGES["seed"]).integers(
+        0, 256, (MBV2_GOLDEN_IMAGES["n"], 224, 224, 3), dtype=np.uint8)
+
+
+def with_record_qparams(q: dict, rec: dict) -> dict:
+    """A converted tree (numpy) with every activation qparam set to the
+    conversion record's value (``rec["qparams"]``, by path): when the
+    record's other leaves equal the tree's (sha256), this is the recorded
+    model exactly."""
+    out = _copy_tree(q)
+    for path, v in rec["qparams"].items():
+        *keys, leaf = path.strip("/").split("/")
+        node = out
+        for k in keys:
+            node = node[k]
+        node[leaf] = np.float32(v) if isinstance(v, float) else np.int32(v)
+    return out
+
+
+def _copy_tree(tree):
+    return {k: _copy_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
 
 
 def state_deviation(got: dict, ref: dict) -> float:
@@ -2375,6 +2692,7 @@ def training(dev, root, q):
         time_train_steps(dev, steps)
         chain = stage_clis(dev, root)
         chain["eff"] = effnet_stage_clis(dev, root)
+        chain["mbv2"] = mbv2_stage_clis(dev, root)
         result = chain
         profile_train_steps(dev, steps)
     finally:
@@ -2451,17 +2769,37 @@ EFF_CHAIN_METHODS = ("static_int8", "static_int8_mixed", "dynamic_int8", "fp16",
 
 
 def effnet_stage_clis(dev, root):
-    """``effnet_chain``: EfficientNet-B0 through the port's four stage CLIs at
-    224x224 and full width, fold 0, one epoch, the synthetic surrogate (480
-    images a split), ``choice=2`` after each: the teacher (bf16, batch 32),
-    KD B0 -> B0 (alpha 0.5, T 4), prune (l2, ratio 0.2, round_to 8, one
-    fine-tune epoch) and quantize (minmax, 256 calibration images, the six
-    methods the port serves). Checks: finite losses, checkpoints in the JAX
-    layout with ``__kind__ == "efficientnet"``, pruned widths multiples of 8
-    (an SE squeeze width below 8 is kept whole), ``choice=2`` accuracy equal
-    to ``choice=1``'s, every method's summary row and an artifact that
-    ``load_quantized`` restores. The kernel launch counts are set to 0
-    before the chain and read after it. -> {"launches", "quant_dir"}."""
+    """``effnet_chain``: EfficientNet-B0 through the port's four stage CLIs
+    (``mbconv_stage_clis``)."""
+    return mbconv_stage_clis(dev, root, "efficientnet_b0", "smoke_eff", "effnet_chain",
+                             "efficientnet", (16, 24, 40, 80, 112, 192, 320))
+
+
+def mbv2_stage_clis(dev, root):
+    """``mbv2_chain``: MobileNetV2 through the port's four stage CLIs
+    (``mbconv_stage_clis``); the fused executor's artifact is the shared
+    static-int8 file, which ``load_quantized`` restores for it, as the JAX
+    package's loader falls back (neither stage-4 CLI writes a fused file)."""
+    return mbconv_stage_clis(dev, root, "mobilenet_v2", "smoke_mbv2", "mbv2_chain",
+                             "mobilenet_v2", (16, 24, 32, 64, 96, 160, 320),
+                             extra_restored=("static_int8_fused",))
+
+
+def mbconv_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, stock_widths,
+                      extra_restored=()):
+    """An MBConv network (EfficientNet-B0 or MobileNetV2) through the port's
+    four stage CLIs at 224x224 and full width, fold 0, one epoch, the
+    synthetic surrogate (480 images a split), ``choice=2`` after each: the
+    teacher (bf16, batch 32), KD of the model into itself (alpha 0.5, T 4),
+    prune (l2, ratio 0.2, round_to 8, one fine-tune epoch) and quantize
+    (minmax, 256 calibration images, the six methods the port serves).
+    Checks: finite losses, checkpoints in the JAX layout with ``__kind__ ==
+    kind``, pruned widths multiples of 8 (an SE squeeze width below 8 is
+    kept whole), ``choice=2`` accuracy equal to ``choice=1``'s, every
+    method's summary row and an artifact that ``load_quantized`` restores
+    (and the methods of ``extra_restored``, from the files there). The
+    kernel launch counts are set to 0 before the chain and read after it.
+    -> {"launches", "quant_dir"}."""
     import contextlib
 
     from inference_efficient_vision_models_tpu_torch.cli import kd, prune, quantize, teacher
@@ -2469,14 +2807,13 @@ def effnet_stage_clis(dev, root):
     from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
     from inference_efficient_vision_models_tpu_torch.serving import load_quantized
 
-    exp = "smoke_eff"
     common = [f"artifacts_root={root!r}", f"experiment_name={exp!r}", "folds=(0,)",
               "synthetic_size=480", "pretrained=False", "batch_size=32"]
     train_args = common + ["epochs=1", "compute_dtype='bfloat16'"]
     stages = [
-        ("teacher", teacher, "teacher_training", train_args + ["model_name='efficientnet_b0'"]),
+        ("teacher", teacher, "teacher_training", train_args + [f"model_name={model!r}"]),
         ("kd", kd, "knowledge_distillation", train_args + [
-            "teacher_model='efficientnet_b0'", "student_model='efficientnet_b0'",
+            f"teacher_model={model!r}", f"student_model={model!r}",
             f"teacher_exp_name={exp!r}", "alpha=0.5", "temperature=4.0"]),
         ("prune", prune, "pruning", common + [
             f"source_exp_name={exp!r}", "pruning_method='l2'", "pruning_ratio=0.2",
@@ -2486,8 +2823,7 @@ def effnet_stage_clis(dev, root):
             "observer='minmax'", f"methods={EFF_CHAIN_METHODS!r}"]),
     ]
     _lib.reset_launch_counts()
-    out = {"phase": "effnet_chain", **_stage_card(dev), "model": "efficientnet_b0",
-           "image_size": 224, "stages": {}}
+    out = {"phase": phase, **_stage_card(dev), "model": model, "image_size": 224, "stages": {}}
     checks = {}
     for name, mod, stage, argv in stages:
         t0 = time.perf_counter()
@@ -2510,7 +2846,7 @@ def effnet_stage_clis(dev, root):
                         "step_ms_median_steady": float(np.median(step_ms[2:])),
                         "epoch_s": hist["epoch_time"][0]})
             checks[f"{name}_losses_finite"] = bool(np.isfinite(losses).all())
-            checks[f"{name}_kind"] = spec_d.get("__kind__") == "efficientnet"
+            checks[f"{name}_kind"] = spec_d.get("__kind__") == kind
             checks[f"{name}_jax_layout"] = (_same_shapes(best["params"], ref_p)
                                             and _same_shapes(best["state"], ref_s))
             acc = "Accuracy" if name == "prune" else "test_acc"
@@ -2520,25 +2856,25 @@ def effnet_stage_clis(dev, root):
             spec = spec_from_dict(artifacts.load_spec_dict(fold_dir))
             widths = [spec.stem_width, spec.last_width, *spec.stage_widths,
                       *(h for r in spec.hidden_widths for h in r)]
+            se_widths = getattr(spec, "se_widths", ())
             rec["spec"] = {"stem_width": spec.stem_width, "stage_widths": spec.stage_widths,
-                           "hidden_widths": spec.hidden_widths, "se_widths": spec.se_widths,
+                           "hidden_widths": spec.hidden_widths, "se_widths": se_widths,
                            "last_width": spec.last_width}
             checks["prune_widths_multiple_of_8"] = all(w % 8 == 0 for w in widths) and all(
-                w % 8 == 0 or w < 8 for r in spec.se_widths for w in r)
-            checks["prune_pruned"] = spec.stage_widths != (16, 24, 40, 80, 112, 192, 320)
+                w % 8 == 0 or w < 8 for r in se_widths for w in r)
+            checks["prune_pruned"] = spec.stage_widths != tuple(stock_widths)
         if name == "quantize":
             rows = {r["method"]: r for r in first}
             reload = {r["method"]: r for r in second}
-            for m in EFF_CHAIN_METHODS:
+            for m in EFF_CHAIN_METHODS + tuple(extra_restored):
                 restored = True
                 try:
                     load_quantized(fold_dir, m, device="cuda")
                 except Exception as e:  # the check reports which method failed, and fails
                     restored = f"{type(e).__name__}: {e}"
-                checks[f"quantize_{m}"] = (
+                checks[f"quantize_{m}"] = restored is True and (m in extra_restored or (
                     m in rows and os.path.exists(os.path.join(fold_dir, f"model_{m}.msgpack"))
-                    and restored is True and m in reload
-                    and reload[m]["Accuracy"] == rows[m]["Accuracy"])
+                    and m in reload and reload[m]["Accuracy"] == rows[m]["Accuracy"]))
             quant_dir = fold_dir
             from inference_efficient_vision_models_tpu_torch.core.provenance import (
                 read_provenance)
@@ -2549,10 +2885,10 @@ def effnet_stage_clis(dev, root):
     out.update({"launches": launches, "checks": checks})
     emit(out)
     if not all(v is True for v in checks.values()):
-        raise SmokeFailure(f"effnet_chain: {checks}")
+        raise SmokeFailure(f"{phase}: {checks}")
     for k in ("int8_matmul_requant", "dwconv_int8"):
         if not launches.get(k):
-            raise SmokeFailure(f"effnet_chain: {k} was not launched by the stage chain")
+            raise SmokeFailure(f"{phase}: {k} was not launched by the stage chain")
     return {"launches": launches, "quant_dir": quant_dir}
 
 
@@ -3386,6 +3722,7 @@ def main() -> int:
     run_train_step_golden(dev, EFF_TRAIN_STEP, EFF_TRAIN_GOLDEN, EFF_TRAIN_LIMITS,
                           "effnet_train_step_golden")
     run_convert_effnet(dev)
+    mbv2_rows, mbv2_launches = run_mbv2(dev, gen, np.random.default_rng(7))
     with tempfile.TemporaryDirectory() as root:
         chain = run_training(dev, root)
         # the INT8 ResNet18 the chain made: each kernel call of its forward
@@ -3400,13 +3737,22 @@ def main() -> int:
         del fresh
         eff_pipe_rows, eff_pipe_launches = run_effnet_chain_int8(dev, gen,
                                                                  chain["eff"]["quant_dir"])
-    emit({"kernels": kernels_line(rows + eff_rows + e_rows + vit_rows + pipe_rows + eff_pipe_rows,
+        mbv2_pipe_rows, mbv2_pipe_launches = run_mbconv_chain_int8(
+            dev, gen, chain["mbv2"]["quant_dir"], "mobilenet_v2", "mbv2", {
+                "static_int8": MBV2_UNFUSED_PER_FORWARD,
+                "static_int8_fused": MBV2_FUSED_PER_FORWARD,
+                "static_int8_mixed": MBV2_MIXED_PER_FORWARD})
+    emit({"kernels": kernels_line(rows + eff_rows + e_rows + vit_rows + pipe_rows + eff_pipe_rows
+                                  + mbv2_rows + mbv2_pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
                                    "efficientnet_b0_unfused": e_launches,
                                    "resnet18_pipeline": chain["launches"],
                                    "efficientnet_b0_pipeline": chain["eff"]["launches"],
-                                   **eff_pipe_launches, **vit_launches, **server_launches},
-                                  aside={"resnet18_pipeline", "efficientnet_b0_pipeline"})})
+                                   "mobilenet_v2_pipeline": chain["mbv2"]["launches"],
+                                   **eff_pipe_launches, **mbv2_pipe_launches, **mbv2_launches,
+                                   **vit_launches, **server_launches},
+                                  aside={"resnet18_pipeline", "efficientnet_b0_pipeline",
+                                         "mobilenet_v2_pipeline"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

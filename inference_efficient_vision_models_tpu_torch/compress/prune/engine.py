@@ -1,6 +1,6 @@
 """Structured pruning engine (select -> physically re-pack -> fine-tune), the
-port of the JAX package's ``compress/prune/engine.py`` for the ResNet family
-and EfficientNet.
+port of the JAX package's ``compress/prune/engine.py`` for the ResNet family,
+EfficientNet and MobileNetV2.
 
 Channels are physically removed: the pruned model is an ordinary smaller
 network whose spec serializes to JSON. The selection and the surgery run in
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...models.efficientnet import EfficientNetSpec
+from ...models.mobilenet import MobileNetV2Spec
 from ...models.registry import params_from_jax, params_to_jax
 from ...models.widths import ResNetSpec
 from ...utils.device import resolve_device
@@ -159,10 +160,35 @@ def _rebuild_effnet_spec(spec: EfficientNetSpec, new_widths: Dict[GroupKey, int]
     return new.with_widths(hidden_widths=hidden)
 
 
+def _rebuild_mbv2_spec(spec: MobileNetV2Spec, new_widths: Dict[GroupKey, int]
+                       ) -> MobileNetV2Spec:
+    widths = list(spec.stage_widths)
+    hidden = [list(r) for r in spec.hidden_widths]
+    stem, last = spec.stem_width, spec.last_width
+    for key, n in new_widths.items():
+        if key[0] == "stem":
+            stem = n
+        elif key[0] == "stage":
+            widths[key[1]] = n
+        elif key[0] == "hidden":
+            hidden[key[1]][key[2]] = n
+        elif key[0] == "last":
+            last = n
+    new = spec.with_widths(widths, hidden, stem, last)
+    # a t=1 block's hidden width is its input group's
+    for s, depth in enumerate(new.depths):
+        for b in range(depth):
+            if not new.has_expand[s][b]:
+                hidden[s][b] = new.block_in_width(s, b)
+    return new.with_widths(hidden_widths=hidden)
+
+
 def _rebuild_spec(spec, new_widths: Dict[GroupKey, int]):
     """Record pruned widths into a fresh descriptor."""
     if isinstance(spec, EfficientNetSpec):
         return _rebuild_effnet_spec(spec, new_widths)
+    if isinstance(spec, MobileNetV2Spec):
+        return _rebuild_mbv2_spec(spec, new_widths)
     stage_widths = list(spec.stage_widths)
     inner = [[list(blk) for blk in stg] for stg in spec.inner_widths]
     stem_width = spec.stem_width
@@ -218,10 +244,10 @@ def prune_model(spec, params, state, *, ratio: float, method: str = "l2",
     """One-shot structured pruning of JAX-layout numpy trees (the reference's
     single ``pruner.step()``); ``random`` draws from ``default_rng(seed)`` in
     group order."""
-    if not isinstance(spec, (ResNetSpec, EfficientNetSpec)):
+    if not isinstance(spec, (ResNetSpec, EfficientNetSpec, MobileNetV2Spec)):
         raise NotImplementedError(
-            f"pruning {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 items "
-            f"13 and 15: compress/prune/vit_engine.py and the MobileNetV2 graph)")
+            f"pruning {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 item "
+            f"15: compress/prune/vit_engine.py)")
     if keep is None:
         keep = select_channels(spec, params, ratio=ratio, method=method,
                                global_pruning=global_pruning, round_to=round_to,

@@ -1,6 +1,6 @@
-"""Channel-dependency graphs of a ResNet and an EfficientNet for structured
-pruning: the port's copy of the JAX package's ``compress/prune/graph.py``
-(ResNet and EfficientNet parts).
+"""Channel-dependency graphs of a ResNet, an EfficientNet and a MobileNetV2
+for structured pruning: the port's copy of the JAX package's
+``compress/prune/graph.py`` (its CNN parts).
 
 Every prunable width is one coupled group of parameter slices, derived
 statically from the width descriptor:
@@ -12,16 +12,15 @@ statically from the width descriptor:
 
 Residual adds couple a whole stage: every block output of a stage (with the
 downsample branch, and the stem where it is tied to stage 0) shares one
-group. An EfficientNet adds two edges: a depthwise kernel (k, k, 1, C) is a
+group. The MBConv families add the depthwise edge: a depthwise kernel (k, k, 1, C) is a
 PRODUCER (axis 3) of the group that carries its channels (the expand's
-group, or the block's input group in a t=1 block), and the SE gate couples
-twice (``se_expand``'s output columns and bias produce the hidden width,
+group, or the block's input group in a t=1 block); an EfficientNet's SE gate
+couples twice (``se_expand``'s output columns and bias produce the hidden width,
 ``se_reduce``'s input rows consume it; the SE squeeze width is a free group
 of its own). SE weights are (in, out) matrices, so their axes are 0 and 1;
 ``vectors`` lists 1-D biases sliced on axis 0. Paths are key tuples into
 the params/state trees in the JAX layout (``params_to_jax``): the surgery
-runs on those numpy trees, so the axes here are HWIO axes. The MobileNetV2
-graph is not ported (ROADMAP queue 1 item 13).
+runs on those numpy trees, so the axes here are HWIO axes.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 from ...models.efficientnet import EfficientNetSpec
+from ...models.mobilenet import MobileNetV2Spec
 from ...models.widths import ResNetSpec
 
 Path = Tuple[str, ...]
@@ -46,7 +46,8 @@ def group_slices(spec) -> List[Dict]:
 
       key:        ("stem",) | ("stage", s) | ("inner", s, b, i)   (ResNet)
                   ("stem",) | ("stage", s) | ("hidden", s, b) | ("se", s, b)
-                  | ("last",)                                   (EfficientNet)
+                  | ("last",)                       (EfficientNet; MobileNetV2
+                                                    without "se")
       width:      current channel count
       producers:  [(w_path, axis), ...]   (conv OUT_AXIS, SE matrix 1)
       bns:        [bn_path_prefix, ...]   (scale/bias/mean/var, axis 0)
@@ -58,11 +59,71 @@ def group_slices(spec) -> List[Dict]:
     """
     if isinstance(spec, EfficientNetSpec):
         return group_slices_effnet(spec)
+    if isinstance(spec, MobileNetV2Spec):
+        return group_slices_mbv2(spec)
     if not isinstance(spec, ResNetSpec):
         raise NotImplementedError(
             f"structured pruning of {type(spec).__name__[:-4]} is not ported yet (ROADMAP "
-            f"queue 1 items 13 and 15); the port prunes the ResNet family and EfficientNet")
+            f"queue 1 item 15); the port prunes the ResNet family, EfficientNet and "
+            f"MobileNetV2")
     return group_slices_resnet(spec)
+
+
+def _group(key, width, **kw) -> Dict:
+    g = {"key": key, "width": width, "producers": [], "bns": [], "consumers": [],
+         "vectors": [], "fc_in": False}
+    g.update(kw)
+    return g
+
+
+def group_slices_mbv2(spec: MobileNetV2Spec) -> List[Dict]:
+    """Coupled groups of a MobileNetV2: the stem, one group per stage
+    (residual adds couple every block's project output with the next blocks'
+    inputs), one free ``("hidden", s, b)`` group per block with an expand
+    conv (expand output + depthwise kernel and BN + project input), and the
+    head conv ``last``. A t=1 block has no hidden group: its depthwise
+    kernel and BN ride its input's group."""
+    groups: List[Dict] = []
+
+    def attach_consumer(g: Dict, s: int, b: int) -> None:
+        """Wire group g to block (s, b), whose INPUT carries g's width."""
+        base = (f"stage{s}", str(b))
+        if spec.has_expand[s][b]:
+            g["consumers"].append((base + ("expand", "w"), IN_AXIS))
+        else:
+            g["producers"].append((base + ("dw", "w"), OUT_AXIS))
+            g["bns"].append(base + ("dw_bn",))
+            g["consumers"].append((base + ("project", "w"), IN_AXIS))
+
+    stem = _group(("stem",), spec.stem_width, producers=[(("stem", "w"), OUT_AXIS)],
+                  bns=[("stem_bn",)])
+    attach_consumer(stem, 0, 0)
+    groups.append(stem)
+    for s, depth in enumerate(spec.depths):
+        g = _group(("stage", s), spec.stage_widths[s])
+        for b in range(depth):
+            base = (f"stage{s}", str(b))
+            g["producers"].append((base + ("project", "w"), OUT_AXIS))
+            g["bns"].append(base + ("project_bn",))
+            if b >= 1:
+                attach_consumer(g, s, b)
+        if s + 1 < len(spec.depths):
+            attach_consumer(g, s + 1, 0)
+        else:
+            g["consumers"].append((("last", "w"), IN_AXIS))
+        groups.append(g)
+    for s, depth in enumerate(spec.depths):
+        for b in range(depth):
+            if spec.has_expand[s][b]:
+                base = (f"stage{s}", str(b))
+                groups.append(_group(
+                    ("hidden", s, b), spec.hidden_widths[s][b],
+                    producers=[(base + ("expand", "w"), OUT_AXIS), (base + ("dw", "w"), OUT_AXIS)],
+                    bns=[base + ("expand_bn",), base + ("dw_bn",)],
+                    consumers=[(base + ("project", "w"), IN_AXIS)]))
+    groups.append(_group(("last",), spec.last_width, producers=[(("last", "w"), OUT_AXIS)],
+                         bns=[("last_bn",)], fc_in=True))
+    return groups
 
 
 def group_slices_effnet(spec: EfficientNetSpec) -> List[Dict]:
@@ -71,12 +132,7 @@ def group_slices_effnet(spec: EfficientNetSpec) -> List[Dict]:
     stem, one free ``("hidden", s, b)`` group per block with an expand conv,
     one free ``("se", s, b)`` group per block, and the head conv ``last``."""
     groups: List[Dict] = []
-
-    def group(key, width, **kw) -> Dict:
-        g = {"key": key, "width": width, "producers": [], "bns": [], "consumers": [],
-             "vectors": [], "fc_in": False}
-        g.update(kw)
-        return g
+    group = _group
 
     def attach_consumer(g: Dict, s: int, b: int) -> None:
         """Wire group g to block (s, b), whose INPUT carries g's width."""

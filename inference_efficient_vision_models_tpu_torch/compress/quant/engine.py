@@ -1,11 +1,13 @@
 """QuantizationEngine: the stage-4 API, the port of the JAX package's
-``compress/quant/engine.py`` for the ResNet family and EfficientNet.
+``compress/quant/engine.py`` for the ResNet family, EfficientNet and
+MobileNetV2.
 
 Methods (reference parity):
   static_quantize    per-channel int8 weights + calibrated quint8
                      activations -> the int8 forward (ResNet: kernels A and
-                     B; EfficientNet: the unfused executor on kernels A and
-                     E, or ``executor="mixed"``: kernel A and a bf16 depthwise)
+                     B; EfficientNet and MobileNetV2: the unfused executor
+                     on kernels A and E, or ``executor="mixed"``: kernel A
+                     and a bf16 depthwise)
   dynamic_quantize   int8 fc with a per-batch activation scale; the convs
                      stay folded fp32 (torch ``quantize_dynamic({nn.Linear})``)
   weight_only_quantize  W8A16: int8 weight storage, bf16 compute
@@ -28,11 +30,12 @@ import torch
 from ...data.pipeline import Batches, normalize_images
 from ...metrics.profile import latency_ms, model_size_bytes, throughput_ips
 from ...models.efficientnet import EfficientNetSpec
+from ...models.mobilenet import MobileNetV2Spec
 from ...models.registry import params_to_jax
 from ...models.widths import ResNetSpec
 from ...ops.space_to_depth import space_to_depth_u8
 from ...utils.device import exact_fp32, resolve_device
-from . import qeffnet, qresnet, wo8
+from . import qeffnet, qmobilenet, qresnet, wo8
 from .observers import quantize_weight_per_channel
 
 
@@ -43,9 +46,11 @@ def quant_module(spec):
         return qresnet
     if isinstance(spec, EfficientNetSpec):
         return qeffnet
+    if isinstance(spec, MobileNetV2Spec):
+        return qmobilenet
     raise NotImplementedError(
         f"stage-4 conversion of {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 "
-        f"items 13 and 15); the port converts the ResNet family and EfficientNet")
+        f"item 15); the port converts the ResNet family, EfficientNet and MobileNetV2")
 
 
 def _dynamic_fc(feats: torch.Tensor, fcq: Dict) -> torch.Tensor:
@@ -91,9 +96,9 @@ def evaluate_accuracy_fn(cfg, apply_fn, test_d, host_preprocess=None, device=Non
 
 
 class QuantizationEngine:
-    """Quantize a (possibly pruned) ResNet or EfficientNet given its spec and the port's
-    params/state, on ``device`` (the GPU unless ``device="cpu"``). Folding,
-    conversion and weight quantization run on the host in numpy; the
+    """Quantize a (possibly pruned) ResNet, EfficientNet or MobileNetV2 given
+    its spec and the port's params/state, on ``device`` (the GPU unless
+    ``device="cpu"``). Folding, conversion and weight quantization run on the host in numpy; the
     calibration forwards and every returned ``apply_fn`` run on ``device``."""
 
     def __init__(self, cfg, spec, params, state, logger, device=None):
@@ -117,11 +122,11 @@ class QuantizationEngine:
                         executor: str = "int8"):
         """Calibrate on at most cfg.calibration_images (the estimator from
         cfg.observer), then convert to int8; the forward runs the int8
-        executor (``executor="mixed"``: EfficientNet's mixed executor over the
-        same conversion). Wall seconds of the two steps go to
+        executor (``executor="mixed"``: an MBConv network's mixed executor
+        over the same conversion). Wall seconds of the two steps go to
         ``self.timings`` (calibrate_s, convert_s): the observer ranges come
         back to the host as floats, so the first ends with the device's work."""
-        mbconv = isinstance(self.spec, EfficientNetSpec)
+        mbconv = isinstance(self.spec, (EfficientNetSpec, MobileNetV2Spec))
         if executor not in (("int8", "mixed") if mbconv else ("int8",)):
             raise NotImplementedError(
                 f"{type(self.spec).__name__[:-4]} has no {executor!r} executor (the mixed one "
@@ -140,8 +145,8 @@ class QuantizationEngine:
         self.logger.info("static_int8 (%s): calibrate %.3f s, convert %.3f s", executor,
                          timings["calibrate_s"], timings["convert_s"])
         if mbconv:
-            model = qeffnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device,
-                                            executor=executor)
+            model = self.q.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device,
+                                           executor=executor)
         else:
             model = qresnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device)
         return qmodel, model
@@ -177,8 +182,8 @@ class QuantizationEngine:
 
     def static_preprocess(self, method: str):
         """Host-side layout transform of a method: space-to-depth for the
-        ResNet static-int8 stem, else None (EfficientNet's 3x3 stem takes raw
-        uint8)."""
+        ResNet static-int8 stem, else None (the MBConv families' 3x3 stem
+        takes raw uint8)."""
         return s2d_preprocess if method == "static_int8" and isinstance(
             self.spec, ResNetSpec) else None
 

@@ -1,6 +1,6 @@
 """Conv–BatchNorm folding for the inference and quantization paths, the
-port of the JAX package's ``compress/quant/fold.py`` (ResNet and
-EfficientNet parts).
+port of the JAX package's ``compress/quant/fold.py`` (ResNet, EfficientNet
+and MobileNetV2 parts).
 
 In eval mode a BatchNorm is a per-channel affine map, so it folds into the
 conv before it:
@@ -63,6 +63,15 @@ def fold_effnet(spec, params, state) -> Dict:
     stage{s}/{b}/{expand?, dw, project} / last / fc, each conv {"w": HWIO, "b"}
     (a depthwise kernel folds on its HWIO output axis like any conv), and the
     SE gate's bias-carrying, BN-free fc pair copied through as fp32."""
+    return _fold_mbconv(spec, params, state, se=True)
+
+
+def fold_mbv2(spec, params, state) -> Dict:
+    """MobileNetV2 conv–BN fold: ``fold_effnet``'s layout without the SE gate."""
+    return _fold_mbconv(spec, params, state, se=False)
+
+
+def _fold_mbconv(spec, params, state, *, se: bool) -> Dict:
     def fold(conv, bn, tree_p, tree_s):
         return dict(zip("wb", _fold_one(tree_p[conv]["w"], tree_p[bn], tree_s[bn])))
 
@@ -77,7 +86,7 @@ def fold_effnet(spec, params, state) -> Dict:
                 blk["expand"] = fold("expand", "expand_bn", bp, bs)
             blk["dw"] = fold("dw", "dw_bn", bp, bs)
             blk["project"] = fold("project", "project_bn", bp, bs)
-            for k in ("se_reduce", "se_expand"):
+            for k in ("se_reduce", "se_expand") if se else ():
                 blk[k] = {"w": np.asarray(bp[k]["w"], np.float32),
                           "b": np.asarray(bp[k]["b"], np.float32)}
             out[sname][str(b)] = blk

@@ -1,4 +1,4 @@
-"""Whole-block fused int8 MBConv forward (EfficientNet).
+"""Whole-block fused int8 MBConv forward (EfficientNet and MobileNetV2).
 
 The port of the JAX package's ``compress/quant/fusedpath.py``. ``pack_fused``
 packs each converted static-int8 MBConv block into the operand layout of
@@ -7,13 +7,17 @@ zp * sum(w) corrections folded into bias vectors, depthwise weights as exact
 fp32 integers. ``apply_int8_fused`` then runs the network with one
 ``fused_mbconv_block`` call per block (every block, stride 2 included: the
 CUDA kernels have no lowering envelope, so ``fusable`` / ``pick_nb`` of the
-TPU path have no counterpart here). The stem and the head conv run the int8
-matmul kernel; SiLU, requant, the mean pool and the fc's float input stay as
-in ``qeffnet``.
+TPU path have no counterpart here). An EfficientNet block takes SiLU and its
+SE gate (three launches), a MobileNetV2 block ReLU6 and no gate (two). The
+stem and the head conv run the int8 matmul kernel; the activation, requant,
+the mean pool and the fc's float input stay as in the unfused executor
+(``qeffnet``); the family module (``engine.quant_module``: ``qeffnet`` or
+``qmobilenet``) gives the activation and the block plan.
 
-``QEffNetInt8`` is the served model: ``load_static_int8_fused(fold_dir)``
-reads a stage-4 EfficientNet artifact, ``from_jax_qmodel`` carries the JAX
-package's converted pytree (numpy leaves) onto a device.
+``QEffNetInt8`` is the served model of either family:
+``load_static_int8_fused(fold_dir)`` reads a stage-4 artifact,
+``from_jax_qmodel`` carries the JAX package's converted pytree (numpy
+leaves) onto a device.
 """
 
 from __future__ import annotations
@@ -28,11 +32,15 @@ import torch
 
 from ...core.artifacts import load_checkpoint_raw
 from ...models.efficientnet import EfficientNetSpec
+from ...models.mobilenet import MobileNetV2Spec
 from ...models.registry import spec_from_dict
 from ...ops.fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_device_packed
 from ...utils.device import DeviceLike, resolve_device
 from . import qeffnet
-from .qeffnet import block_plan, head_logits, stem_int8  # shared with the unfused executor
+from .engine import quant_module
+# the stem and head of both families (``act`` picks the family's), and
+# EfficientNet's block plan, which callers import from here
+from .qeffnet import block_plan, head_logits, stem_int8  # noqa: F401
 
 __all__ = ["pack_fused", "apply_int8_fused", "QEffNetInt8", "from_jax_qmodel",
            "load_static_int8_fused"]
@@ -129,10 +137,10 @@ def pack_fused(spec, q: Dict) -> Dict:
 
 @dataclasses.dataclass
 class QEffNetInt8:
-    """A static-INT8 EfficientNet on one device, run by the fused executor;
-    call it on raw uint8 images (B, H, W, 3)."""
+    """A static-INT8 EfficientNet or MobileNetV2 on one device, run by the
+    fused executor; call it on raw uint8 images (B, H, W, 3)."""
 
-    spec: EfficientNetSpec
+    spec: object  # EfficientNetSpec | MobileNetV2Spec
     q: Dict    # stem, last, fc leaves on the device
     qf: Dict   # per-block packed operands on the device
 
@@ -141,15 +149,14 @@ class QEffNetInt8:
 
 
 def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None) -> QEffNetInt8:
-    """The JAX package's converted static-int8 EfficientNet pytree (nested
-    dicts of numpy arrays, as ``msgpack_restore`` gives it) -> the port's
-    fused-executor model on ``device``."""
+    """The JAX package's converted static-int8 EfficientNet or MobileNetV2
+    pytree (nested dicts of numpy arrays, as ``msgpack_restore`` gives it) ->
+    the port's fused-executor model on ``device``."""
     dev = resolve_device(device)
     spec = spec_from_dict(spec_dict)
-    if not isinstance(spec, EfficientNetSpec):
-        raise NotImplementedError(
-            f"the fused executor serves EfficientNet here (MobileNetV2 needs qmobilenet, "
-            f"not ported yet), got {type(spec).__name__}")
+    if not isinstance(spec, (EfficientNetSpec, MobileNetV2Spec)):
+        raise NotImplementedError(f"the fused executor serves MBConv networks, got "
+                                  f"{type(spec).__name__}")
     qm = qeffnet.restore_derived(qmodel_np)
     q = qeffnet.stem_and_head_leaves(spec, qm, dev)
     qf = {k: to_device_packed(v, dev) for k, v in pack_fused(spec, qm).items()}
@@ -157,7 +164,7 @@ def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None)
 
 
 def load_static_int8_fused(fold_dir: str, device: DeviceLike = None) -> QEffNetInt8:
-    """A stage-4 EfficientNet artifact directory (``spec.json`` and
+    """A stage-4 EfficientNet or MobileNetV2 artifact directory (``spec.json`` and
     ``model_static_int8_fused.msgpack``, else ``model_static_int8.msgpack``,
     the file the fused executor shares with the unfused one) -> the model."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
@@ -168,17 +175,19 @@ def load_static_int8_fused(fold_dir: str, device: DeviceLike = None) -> QEffNetI
     return from_jax_qmodel(spec_dict, load_checkpoint_raw(fold_dir, which), device)
 
 
-def apply_int8_fused(spec: EfficientNetSpec, q: Dict, qf: Dict, x: torch.Tensor, *,
+def apply_int8_fused(spec, q: Dict, qf: Dict, x: torch.Tensor, *,
                      impl: str = "kernel") -> torch.Tensor:
     """Static-int8 forward with one fused block call per MBConv block ->
-    fp32 logits (B, num_classes). ``x`` is raw uint8 NHWC; ``impl="plain"``
-    runs every kernel's plain PyTorch version (the reference the kernel path
-    is held against on the GPU); a CPU tensor always takes them."""
+    fp32 logits (B, num_classes), with the family's stem, activation and
+    head. ``x`` is raw uint8 NHWC; ``impl="plain"`` runs every kernel's plain
+    PyTorch version (the reference the kernel path is held against on the
+    GPU); a CPU tensor always takes them."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    fam = quant_module(spec)
     block = fused_mbconv_block if impl == "kernel" else fused_mbconv_block_plain
-    cur = stem_int8(q, x, impl=impl)
-    for name, k, stride, residual in block_plan(spec):
-        cur = block(cur, qf[name], kernel=k, stride=stride, act="silu",
+    cur = stem_int8(q, x, impl=impl, act=fam.ACT)
+    for name, k, stride, residual in fam.block_plan(spec):
+        cur = block(cur, qf[name], kernel=k, stride=stride, act=fam.ACT,
                     x_res=cur if residual else None)
-    return head_logits(q, cur, impl=impl)
+    return head_logits(q, cur, impl=impl, act=fam.ACT)

@@ -23,9 +23,12 @@ mixed static-INT8 forwards, the port of the JAX package's
 
 Activations are shifted quint8 (int8 ``q - 128``) NHWC, requantized by true
 division as the JAX executors do. ``impl="plain"`` runs every kernel's
-plain PyTorch version on any device; a CPU tensor always takes them.
-``fusedpath`` runs the fused executor over the same artifact and shares the
-stem, the head and the loaded leaves with this module.
+plain PyTorch version on any device; a CPU tensor always takes them. The
+executors, the stem, the head, the device leaves, ``QEffNetInt8Unfused`` and
+its loader serve MobileNetV2 too, with ``qmobilenet``'s blocks and ReLU6
+(the family module is ``engine.quant_module(spec)``). ``fusedpath`` runs the
+fused executor over the same artifact and shares the stem, the head and the
+loaded leaves with this module.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 
 from ...core.artifacts import load_checkpoint_raw
 from ...models.efficientnet import EfficientNetSpec
+from ...models.mobilenet import MobileNetV2Spec
 from ...models.registry import spec_from_dict
 from ...models.resnet import _conv_w
 from ...ops.dwconv_int8 import depthwise_conv_int8, depthwise_conv_int8_plain
@@ -61,11 +65,20 @@ __all__ = ["fold", "apply_folded", "calibrate", "convert_static_int8", "serializ
            "from_jax_qmodel", "load_static_int8"]
 
 
+ACT = "silu"  # the family's activation, as the kernels name it
+
+
 def _silu(y: torch.Tensor) -> torch.Tensor:
     """y * sigmoid(y), the JAX package's ``_silu``: the SiLU of the code that
     runs as PyTorch ops here (the folded forward, the SE gate, the glue after
     a 1x1 conv's fp32 output); the kernels keep their own."""
     return y * torch.sigmoid(y)
+
+
+def _glue_act(y: torch.Tensor, act: str) -> torch.Tensor:
+    """The activation after a 1x1 conv's fp32 output, as the family's JAX
+    ``_conv_q`` applies it: ``_silu``, or ReLU6 as min(max(y, 0), 6)."""
+    return _silu(y) if act == "silu" else torch.clamp(y, 0.0, 6.0)
 
 
 # --------------------------------------------------------------------------
@@ -266,21 +279,27 @@ def stem_and_head_leaves(spec: EfficientNetSpec, qm: Dict, dev: torch.device) ->
 
 
 def _block_leaves(blk: Dict, dev: torch.device, mixed: bool) -> Dict:
+    """One converted block's leaves on ``dev``: the depthwise conv, the SE
+    gate where the block has one (EfficientNet), the project conv, the
+    block-out qparams, the expand conv where there is one and, ``mixed``, the
+    bf16 depthwise kernel."""
     d = blk["dw"]
     out: Dict = {
         "dw": {"w_q": torch.from_numpy(np.array(d["w_q"], np.int8)).to(dev),
                "w_scale": _t32(d["w_scale"]).to(dev), "bias": _t32(d["bias"]).to(dev),
                "out_scale": float(np.float32(d["out_scale"])), "out_zp": int(d["out_zp"])},
-        "se_reduce": {"w": torch.from_numpy(_deq_se(blk["se_reduce"])).to(dev),
-                      "b": _t32(blk["se_reduce"]["b"]).to(dev)},
-        "se_expand": {"w": torch.from_numpy(_deq_se(blk["se_expand"])).to(dev),
-                      "b": _t32(blk["se_expand"]["b"]).to(dev)},
-        "se_scale": float(np.float32(blk["se_scale"])),
-        "se_zp": int(blk["se_zp"]),
         "project": _conv_leaf(blk["project"], dev),
         "out_scale": float(np.float32(blk["out_scale"])),
         "out_zp": int(blk["out_zp"]),
     }
+    if "se_reduce" in blk:
+        out.update({
+            "se_reduce": {"w": torch.from_numpy(_deq_se(blk["se_reduce"])).to(dev),
+                          "b": _t32(blk["se_reduce"]["b"]).to(dev)},
+            "se_expand": {"w": torch.from_numpy(_deq_se(blk["se_expand"])).to(dev),
+                          "b": _t32(blk["se_expand"]["b"]).to(dev)},
+            "se_scale": float(np.float32(blk["se_scale"])),
+            "se_zp": int(blk["se_zp"])})
     if "expand" in blk:
         out["expand"] = _conv_leaf(blk["expand"], dev)
     if mixed:
@@ -311,13 +330,14 @@ def conv1x1(x_s: torch.Tensor, zp: int, in_scale: float, qc: Dict, *, impl: str)
     return y.reshape(n, h, w, -1)
 
 
-def conv1x1_silu_requant(x_s: torch.Tensor, zp: int, in_scale: float, qc: Dict, *,
-                         impl: str) -> torch.Tensor:
+def conv1x1_act_requant(x_s: torch.Tensor, zp: int, in_scale: float, qc: Dict, *,
+                        impl: str, act: str = ACT) -> torch.Tensor:
     """``_conv_q(..., 1, 0, act=True, requant=True)`` of a 1x1 conv (an expand
     conv, the head conv ``last``): the int8 matmul kernel with fp32 out, then
-    SiLU and the requant as glue (the kernel's contract has no SiLU)."""
-    return _requant(_silu(conv1x1(x_s, zp, in_scale, qc, impl=impl)), qc["out_scale"],
-                    qc["out_zp"])
+    the activation (SiLU, or MobileNetV2's ReLU6) and the requant by true
+    division as glue (the kernel's int8-out route multiplies by 1/s_out)."""
+    return _requant(_glue_act(conv1x1(x_s, zp, in_scale, qc, impl=impl), act),
+                    qc["out_scale"], qc["out_zp"])
 
 
 def _se_requant(h_f: torch.Tensor, blk: Dict) -> torch.Tensor:
@@ -329,19 +349,46 @@ def _se_requant(h_f: torch.Tensor, blk: Dict) -> torch.Tensor:
     return _requant(h_f * g[:, None, None, :], blk["se_scale"], blk["se_zp"])
 
 
-def _project_out(h: torch.Tensor, blk: Dict, x_in, in_s, in_z, residual: bool, impl: str):
-    y = conv1x1(h, blk["se_zp"], blk["se_scale"], blk["project"], impl=impl)
+def _project_out(h: torch.Tensor, h_s: float, h_z: int, blk: Dict, x_in, in_s, in_z,
+                 residual: bool, impl: str):
+    """The project conv of ``h`` (int8 in the (h_s, h_z) domain: the SE gate's
+    output, or the depthwise conv's without one) on kernel A with fp32 out,
+    the residual, the requant into the block-out domain."""
+    y = conv1x1(h, h_z, h_s, blk["project"], impl=impl)
     if residual:
         y = y + dequantize_affine_shifted(x_in, in_s, in_z)
     return _requant(y, blk["out_scale"], blk["out_zp"])
 
 
-def _expand(blk: Dict, x_in, in_s, in_z, impl: str):
+def _expand(blk: Dict, x_in, in_s, in_z, impl: str, act: str = ACT):
     if "expand" not in blk:
         return x_in, in_s, in_z
     e = blk["expand"]
-    return (conv1x1_silu_requant(x_in, in_z, in_s, e, impl=impl), e["out_scale"],
+    return (conv1x1_act_requant(x_in, in_z, in_s, e, impl=impl, act=act), e["out_scale"],
             e["out_zp"])
+
+
+def _dw_int8(h: torch.Tensor, h_s: float, h_z: int, d: Dict, stride: int, impl: str,
+             act: str = ACT) -> torch.Tensor:
+    """The depthwise conv on kernel E (its plain version with ``impl="plain"``)
+    with the family's activation, requantized into its calibrated domain."""
+    dw = depthwise_conv_int8 if impl == "kernel" else depthwise_conv_int8_plain
+    return dw(h, d["w_q"], d["w_scale"], d["bias"], stride=stride, in_scale=h_s, in_zp=h_z,
+              out_scale=d["out_scale"], out_zp=d["out_zp"], act=act)
+
+
+def _dw_bf16(h: torch.Tensor, h_s: float, h_z: int, d: Dict, kernel: int,
+             stride: int) -> torch.Tensor:
+    """The mixed executor's depthwise conv: bf16-rounded operands, an fp32
+    accumulator and output plus the bias (the JAX package's bf16 conv with
+    ``preferred_element_type=f32``; TF32 off) -> fp32 NHWC, before the
+    activation."""
+    pad = (kernel - 1) // 2
+    h_bf = dequantize_affine_shifted(h, h_s, h_z).to(torch.bfloat16).float()
+    with exact_fp32():
+        acc = F.conv2d(_conv_w(h_bf.permute(0, 3, 1, 2)), d["w_bf16"], stride=stride,
+                       padding=pad, groups=d["w_bf16"].shape[0])
+    return acc.permute(0, 2, 3, 1) + d["bias"]
 
 
 def block_int8(blk: Dict, x_in: torch.Tensor, in_s: float, in_z: int, *, kernel: int,
@@ -352,45 +399,36 @@ def block_int8(blk: Dict, x_in: torch.Tensor, in_s: float, in_z: int, *, kernel:
     del kernel  # the depthwise kernel's size is its weight's
     h, h_s, h_z = _expand(blk, x_in, in_s, in_z, impl)
     d = blk["dw"]
-    dw = depthwise_conv_int8 if impl == "kernel" else depthwise_conv_int8_plain
-    h = dw(h, d["w_q"], d["w_scale"], d["bias"], stride=stride, in_scale=h_s, in_zp=h_z,
-           out_scale=d["out_scale"], out_zp=d["out_zp"])
+    h = _dw_int8(h, h_s, h_z, d, stride, impl)
     h = _se_requant(dequantize_affine_shifted(h, d["out_scale"], d["out_zp"]), blk)
-    return _project_out(h, blk, x_in, in_s, in_z, residual, impl)
+    return _project_out(h, blk["se_scale"], blk["se_zp"], blk, x_in, in_s, in_z, residual, impl)
 
 
 def block_mixed(blk: Dict, x_in: torch.Tensor, in_s: float, in_z: int, *, kernel: int,
                 stride: int, residual: bool, impl: str = "kernel") -> torch.Tensor:
     """The mixed-precision MBConv block: the 1x1 expand and project stay int8
-    (kernel A), the depthwise conv takes bf16-rounded operands with an fp32
-    accumulator and output (the JAX package's bf16 conv with
-    ``preferred_element_type=f32``; TF32 off), and its SiLU output feeds the
-    fp32 SE gate directly: no depthwise requant."""
+    (kernel A), the depthwise conv runs ``_dw_bf16``, and its SiLU output
+    feeds the fp32 SE gate directly: no depthwise requant."""
     h, h_s, h_z = _expand(blk, x_in, in_s, in_z, impl)
-    d = blk["dw"]
-    pad = (kernel - 1) // 2
-    h_bf = dequantize_affine_shifted(h, h_s, h_z).to(torch.bfloat16).float()
-    with exact_fp32():
-        acc = F.conv2d(_conv_w(h_bf.permute(0, 3, 1, 2)), d["w_bf16"], stride=stride,
-                       padding=pad, groups=d["w_bf16"].shape[0])
-    h_f = _silu(acc.permute(0, 2, 3, 1) + d["bias"])
-    h = _se_requant(h_f, blk)
-    return _project_out(h, blk, x_in, in_s, in_z, residual, impl)
+    h = _se_requant(_silu(_dw_bf16(h, h_s, h_z, blk["dw"], kernel, stride)), blk)
+    return _project_out(h, blk["se_scale"], blk["se_zp"], blk, x_in, in_s, in_z, residual, impl)
 
 
-def stem_int8(q: Dict, x: torch.Tensor, *, impl: str) -> torch.Tensor:
-    """Raw uint8 images -> the stem's int8 output (the first block's input)."""
+def stem_int8(q: Dict, x: torch.Tensor, *, impl: str, act: str = ACT) -> torch.Tensor:
+    """Raw uint8 images -> the stem's int8 output (the first block's input);
+    ``act`` is the family's ("relu6" for MobileNetV2)."""
     stem = q["stem"]
-    y = stemfold.apply_u8_stem(stem, x, stride=stem["stride"], pad=stem["pad"], act="silu",
+    y = stemfold.apply_u8_stem(stem, x, stride=stem["stride"], pad=stem["pad"], act=act,
                                impl=impl)
     return _requant(y, stem["out_scale"], stem["out_zp"])
 
 
-def head_logits(q: Dict, cur: torch.Tensor, *, impl: str) -> torch.Tensor:
-    """The last block's int8 output -> fp32 logits: 1x1 head conv + SiLU +
-    requant, mean pool of the dequantized map, int8 fc on the float features."""
+def head_logits(q: Dict, cur: torch.Tensor, *, impl: str, act: str = ACT) -> torch.Tensor:
+    """The last block's int8 output -> fp32 logits: 1x1 head conv + the
+    family's activation + requant, mean pool of the dequantized map, int8 fc
+    on the float features."""
     last = q["last"]
-    cur = conv1x1_silu_requant(cur, last["in_zp"], last["in_scale"], last, impl=impl)
+    cur = conv1x1_act_requant(cur, last["in_zp"], last["in_scale"], last, impl=impl, act=act)
     feats = dequantize_affine_shifted(cur, last["out_scale"], last["out_zp"]).mean(dim=(1, 2))
     fc = q["fc"]
     return _mm(impl)(feats, fc["w"], fc["w_scale"], fc["bias"], fc["w_sum"],
@@ -403,40 +441,51 @@ def block_plan(spec: EfficientNetSpec):
             for s, depth in enumerate(spec.depths) for b in range(depth)]
 
 
-def _apply_with_blocks(spec: EfficientNetSpec, q: Dict, x: torch.Tensor, block_fn, *,
+# --------------------------------------------------------------------------
+# the unfused and mixed executors of both MBConv families
+# --------------------------------------------------------------------------
+
+
+def _apply_with_blocks(spec, q: Dict, x: torch.Tensor, *, mixed: bool,
                        impl: str) -> torch.Tensor:
+    """The stem, every block by the family's ``block_int8`` (``block_mixed``
+    with ``mixed``) in its ``block_plan``, the head, with its ``ACT``; the
+    family module is ``quant_module(spec)`` (this module or ``qmobilenet``)."""
+    from .engine import quant_module
+
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
-    cur = stem_int8(q, x, impl=impl)
+    fam = quant_module(spec)
+    block_fn = fam.block_mixed if mixed else fam.block_int8
+    cur = stem_int8(q, x, impl=impl, act=fam.ACT)
     cur_s, cur_z = q["stem"]["out_scale"], q["stem"]["out_zp"]
-    for name, k, stride, residual in block_plan(spec):
+    for name, k, stride, residual in fam.block_plan(spec):
         blk = q["blocks"][name]
         cur = block_fn(blk, cur, cur_s, cur_z, kernel=k, stride=stride, residual=residual,
                        impl=impl)
         cur_s, cur_z = blk["out_scale"], blk["out_zp"]
-    return head_logits(q, cur, impl=impl)
+    return head_logits(q, cur, impl=impl, act=fam.ACT)
 
 
-def apply_int8(spec: EfficientNetSpec, q: Dict, x: torch.Tensor, *,
-               impl: str = "kernel") -> torch.Tensor:
-    """Static-INT8 forward of the unfused executor -> fp32 logits; ``x`` is
-    raw uint8 NHWC."""
-    return _apply_with_blocks(spec, q, x, block_int8, impl=impl)
+def apply_int8(spec, q: Dict, x: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+    """Static-INT8 forward of the unfused executor of an EfficientNet or a
+    MobileNetV2 -> fp32 logits; ``x`` is raw uint8 NHWC."""
+    return _apply_with_blocks(spec, q, x, mixed=False, impl=impl)
 
 
-def apply_int8_mixed(spec: EfficientNetSpec, q: Dict, x: torch.Tensor, *,
-                     impl: str = "kernel") -> torch.Tensor:
-    """The mixed-precision executor over the same artifact (``block_mixed``)."""
-    return _apply_with_blocks(spec, q, x, block_mixed, impl=impl)
+def apply_int8_mixed(spec, q: Dict, x: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+    """The mixed-precision executor over the same artifact (the family's
+    ``block_mixed``)."""
+    return _apply_with_blocks(spec, q, x, mixed=True, impl=impl)
 
 
 @dataclasses.dataclass
 class QEffNetInt8Unfused:
-    """A static-INT8 EfficientNet on one device, run by the unfused
-    (``executor="int8"``) or the mixed (``"mixed"``) executor; call it on raw
-    uint8 images (B, H, W, 3)."""
+    """A static-INT8 EfficientNet or MobileNetV2 on one device, run by the
+    unfused (``executor="int8"``) or the mixed (``"mixed"``) executor; call it
+    on raw uint8 images (B, H, W, 3)."""
 
-    spec: EfficientNetSpec
+    spec: object  # EfficientNetSpec | MobileNetV2Spec
     q: Dict
     executor: str = "int8"
 
@@ -447,15 +496,17 @@ class QEffNetInt8Unfused:
 
 def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None, *,
                     executor: str = "int8") -> QEffNetInt8Unfused:
-    """A converted static-int8 EfficientNet tree (nested dicts of numpy
-    arrays, as ``convert_static_int8`` or ``msgpack_restore`` gives it) -> the
-    port's model on ``device``, for the ``"int8"`` or ``"mixed"`` executor."""
+    """A converted static-int8 EfficientNet or MobileNetV2 tree (nested dicts
+    of numpy arrays, as ``convert_static_int8`` or ``msgpack_restore`` gives
+    it) -> the port's model on ``device``, for the ``"int8"`` or ``"mixed"``
+    executor."""
     if executor not in ("int8", "mixed"):
         raise ValueError(f"unknown executor {executor!r}")
     dev = resolve_device(device)
     spec = spec_from_dict(spec_dict)
-    if not isinstance(spec, EfficientNetSpec):
-        raise NotImplementedError(f"qeffnet serves EfficientNet, got {type(spec).__name__}")
+    if not isinstance(spec, (EfficientNetSpec, MobileNetV2Spec)):
+        raise NotImplementedError(f"the unfused executors serve EfficientNet and MobileNetV2, "
+                                  f"got {type(spec).__name__}")
     qm = restore_derived(qmodel_np)
     q = stem_and_head_leaves(spec, qm, dev)
     q["blocks"] = {f"s{s}b{b}": _block_leaves(qm[f"stage{s}"][str(b)], dev, executor == "mixed")
@@ -465,9 +516,9 @@ def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None,
 
 def load_static_int8(fold_dir: str, device: DeviceLike = None, *,
                      executor: str = "int8") -> QEffNetInt8Unfused:
-    """A stage-4 EfficientNet artifact directory -> the model. The mixed
-    executor reads ``model_static_int8_mixed.msgpack``, else the shared
-    ``model_static_int8.msgpack``."""
+    """A stage-4 EfficientNet or MobileNetV2 artifact directory -> the model.
+    The mixed executor reads ``model_static_int8_mixed.msgpack``, else the
+    shared ``model_static_int8.msgpack``."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
         spec_dict = json.load(f)
     which = "static_int8"

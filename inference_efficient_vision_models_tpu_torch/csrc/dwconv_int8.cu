@@ -1,14 +1,16 @@
 // dwconv_int8 on Hopper: the int8 depthwise conv of the unfused static-INT8
-// MBConv executor (compress/quant/qeffnet.py:block_int8). It replaces no
+// MBConv executors (compress/quant/qeffnet.py:block_int8 with SiLU,
+// compress/quant/qmobilenet.py:block_int8 with ReLU6). It replaces no
 // Pallas kernel: the JAX package computes
 // inference_efficient_vision_models_tpu/ops/dwconv_int8.py:depthwise_conv_int8
 // (:50) with XLA (k*k shifted int32 multiply-adds, or its grouped conv on a
-// TPU), and then the epilogue of compress/quant/qeffnet.py:_conv_q; PyTorch
-// has no int8 convolution on CUDA, so the port needs this kernel. The
-// contract and the plain version are in ops/dwconv_int8.py:
+// TPU), and then the epilogue of compress/quant/qeffnet.py:_conv_q or
+// qmobilenet.py:_conv_q; PyTorch has no int8 convolution on CUDA, so the
+// port needs this kernel. The contract and the plain version are in
+// ops/dwconv_int8.py:
 //
 //   acc[n, i, j, c] = sum_{dy, dx} (x[n, i s + dy - p, j s + dx - p, c] - zp_s) * w[dy, dx, c]
-//   y   = silu(acc * (s_in * s_w[c]) + b[c])
+//   y   = act(acc * (s_in * s_w[c]) + b[c])      act: SiLU or ReLU6 (min(max(., 0), 6))
 //   out = clip(rint(y / s_out) + zp_out, 0, 255) - 128   (int8, shifted quint8)
 //
 // with x shifted quint8 (q - 128), zp_s = zp_in - 128, and the halo at zp_s:
@@ -55,10 +57,13 @@
 // - Epilogue, bit for bit the plain version's: __fmul_rn/__fadd_rn so nvcc
 //   cannot contract; SiLU as y * RN(1 / RN(1 + expf(-y))), the reciprocal by
 //   rcp_ge1_fast, and a group of eight values with one it cannot settle
-//   redone by rcp_rn_ge1 after the loop (no per-element branch); y / s_out
-//   as div_rn_by (equal to __fdiv_rn for every input); rint and the clip as
-//   magic-constant additions (int8_gemm.cuh clip_u8), four bytes packed by
-//   byte permutes into one 32-bit store. Build without --use_fast_math.
+//   redone by rcp_rn_ge1 after the loop (no per-element branch); ReLU6 as
+//   fminf(fmaxf(y, 0), 6), exact; y / s_out as div_rn_by (equal to
+//   __fdiv_rn for every input); rint and the clip as magic-constant
+//   additions (int8_gemm.cuh clip_u8), four bytes packed by byte permutes
+//   into one 32-bit store. The activation is a template parameter, one
+//   instance each: a runtime switch per value would serialise the loop.
+//   Build without --use_fast_math.
 #include "int8_gemm.cuh"
 #include "sm90.cuh"
 
@@ -69,6 +74,7 @@ constexpr int DWE_SMEM_LIMIT = 232448;
 constexpr int DWE_MAX_GROUP = 128;
 constexpr int DWE_ROWS = 2;  // output rows per thread (ops/dwconv_int8.py ROWS_PER_THREAD)
 constexpr float MAGIC_I2F = 12582912.f;  // 1.5 * 2^23: bits 0x4B400000 + v is this + v, |v| < 2^22
+enum DwAct { DW_SILU = 0, DW_RELU6 = 1 };  // ops/dwconv_int8.py _ACTS
 
 struct DwArgs {
   const int8_t* x;       // (N, H, W, C)
@@ -158,16 +164,24 @@ __device__ __forceinline__ int pair16(uint32_t lo, uint32_t hi, int ch) {
   return (int)r;
 }
 
-// q[i]: low byte clip(rint(silu(y[i]) / s_out) + zp_out, 0, 255) (zpm =
-// RINT_MAGIC - zp_out), bit for bit as the plain version takes it: SiLU as
+// q[i]: low byte clip(rint(act(y[i]) / s_out) + zp_out, 0, 255) (zpm =
+// RINT_MAGIC - zp_out), bit for bit as the plain version takes it: ReLU6 by
+// fminf/fmaxf; SiLU as
 // y * RN(1 / RN(1 + expf(-y))) with the reciprocals by rcp_ge1_fast (1 +
 // e^-y >= 1, or +inf), and where any of them is unsettled (about one group
 // in 10^5) all of the group's by rcp_rn_ge1 after the loop (a settled one is
 // the same value); the quotient by div_rn_by; rint + zp as (q + M) - (M -
 // zp), exact for |q| < 2^22 and past the clip on the same side beyond.
-template <int NV>
-__device__ __forceinline__ void silu_requant(const float (&y)[NV], double rs_out, float zpm,
-                                             uint32_t (&q)[NV]) {
+template <int ACT, int NV>
+__device__ __forceinline__ void act_requant(const float (&y)[NV], double rs_out, float zpm,
+                                            uint32_t (&q)[NV]) {
+  if constexpr (ACT == DW_RELU6) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      q[i] = clip_bits(__fsub_rn(
+          __fadd_rn(div_rn_by(fminf(fmaxf(y[i], 0.f), 6.f), rs_out), RINT_MAGIC), zpm));
+    return;
+  }
   float t[NV];
   bool redo = false;
 #pragma unroll
@@ -189,7 +203,7 @@ __device__ __forceinline__ void silu_requant(const float (&y)[NV], double rs_out
 // tile. Item (pair, run, cw), cw fastest: output rows oy0 + ROWS pair .. +
 // ROWS - 1 (a row past the band or Ho skipped), outputs run * P .. + P - 1
 // along x, channels c0 + 4 cw .. + 3; thread t takes items t, t + 256, ...
-template <int K, int S, int P>
+template <int K, int S, int P, int ACT>
 __device__ __forceinline__ void compute_band(const DwArgs& a, const uint8_t* buf, const int* wpair,
                                              const int* base, const float* scv, const float* bv,
                                              int n, int c0, int oy0) {
@@ -276,7 +290,7 @@ __device__ __forceinline__ void compute_band(const DwArgs& a, const uint8_t* buf
           y[u] = __fadd_rn(__fmul_rn(s, sc[u % 4]), bs[u % 4]);
         }
         uint32_t q[8];
-        silu_requant(y, a.rs_out, zpm, q);
+        act_requant<ACT>(y, a.rs_out, zpm, q);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (ox0 + p + h >= a.Wo) continue;
@@ -307,7 +321,7 @@ __device__ __forceinline__ void compute_band(const DwArgs& a, const uint8_t* buf
 
 // At most 128 registers a thread, so that two blocks share an SM; dw_plan
 // weighs the blocks its shared memory lets an SM hold.
-template <int K, int S, int P>
+template <int K, int S, int P, int ACT>
 __global__ void __launch_bounds__(DWE_THREADS, 2) dw_band_kernel(const DwArgs a) {
   extern __shared__ __align__(16) uint8_t dw_smem[];
   const DwLayout L(K, a.cg, a.rh, a.wp, a.nb);
@@ -363,36 +377,52 @@ __global__ void __launch_bounds__(DWE_THREADS, 2) dw_band_kernel(const DwArgs a)
     }
     __syncthreads();
     const int t = t0 + i, n = t / a.bands;
-    compute_band<K, S, P>(a, dw_smem + L.buf + (i & 1) * L.buf_bytes, wpair, base, scv, bv, n,
-                          c0, (t - n * a.bands) * a.bh);
+    compute_band<K, S, P, ACT>(a, dw_smem + L.buf + (i & 1) * L.buf_bytes, wpair, base, scv,
+                               bv, n, c0, (t - n * a.bands) * a.bh);
     __syncthreads();
   }
 }
 
-template <int K, int S, int P>
+template <int K, int S, int P, int ACT>
 static cudaError_t launch(const DwArgs& a, dim3 grid, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(dw_band_kernel<K, S, P>,
+    const cudaError_t e = cudaFuncSetAttribute(dw_band_kernel<K, S, P, ACT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  dw_band_kernel<K, S, P><<<grid, DWE_THREADS, smem, stream>>>(a);
+  dw_band_kernel<K, S, P, ACT><<<grid, DWE_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int ACT>
+static cudaError_t launch_act(int key, const DwArgs& a, dim3 grid, int smem, cudaStream_t s) {
+  switch (key) {
+    case 312: return launch<3, 1, 2, ACT>(a, grid, smem, s);
+    case 314: return launch<3, 1, 4, ACT>(a, grid, smem, s);
+    case 322: return launch<3, 2, 2, ACT>(a, grid, smem, s);
+    case 324: return launch<3, 2, 4, ACT>(a, grid, smem, s);
+    case 512: return launch<5, 1, 2, ACT>(a, grid, smem, s);
+    case 514: return launch<5, 1, 4, ACT>(a, grid, smem, s);
+    case 522: return launch<5, 2, 2, ACT>(a, grid, smem, s);
+    default: return launch<5, 2, 4, ACT>(a, grid, smem, s);
+  }
 }
 
 }  // namespace ievm
 
-// x, w, w_scale, bias, out: device pointers (see DwArgs); the plan (cg, bh,
-// nb, p, vec, smem) is ops/dwconv_int8.py:dw_plan's, with vec lowered to the
-// alignment of x. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments or a plan the kernel does not take.
+// x, w, w_scale, bias, out: device pointers (see DwArgs); act: DW_SILU or
+// DW_RELU6; the plan (cg, bh, nb, p, vec, smem) is ops/dwconv_int8.py:dw_plan's,
+// with vec lowered to the alignment of x. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for arguments, an act code or a plan
+// the kernel does not take.
 extern "C" int ievm_dwconv_int8(const void* x, const void* w, const void* w_scale,
                                 const void* bias, void* out, int N, int H, int W, int C, int k,
-                                int stride, int zp_s, float in_scale, double rs_out, float out_zp,
-                                int cg, int bh, int nb, int p, int vec, int smem, void* stream) {
+                                int stride, int act, int zp_s, float in_scale, double rs_out,
+                                float out_zp, int cg, int bh, int nb, int p, int vec, int smem,
+                                void* stream) {
   using namespace ievm;
   if ((k != 3 && k != 5) || (stride != 1 && stride != 2) || (p != 2 && p != 4) || N <= 0 ||
-      H <= 0 || W <= 0 || C <= 0)
+      H <= 0 || W <= 0 || C <= 0 || (act != DW_SILU && act != DW_RELU6))
     return (int)cudaErrorInvalidValue;
   const int pad = (k - 1) / 2;
   const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
@@ -416,14 +446,6 @@ extern "C" int ievm_dwconv_int8(const void* x, const void* w, const void* w_scal
   const dim3 grid((N * bands + nb - 1) / nb, groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int key = k * 100 + stride * 10 + p;
-  switch (key) {
-    case 312: return (int)launch<3, 1, 2>(a, grid, smem, s);
-    case 314: return (int)launch<3, 1, 4>(a, grid, smem, s);
-    case 322: return (int)launch<3, 2, 2>(a, grid, smem, s);
-    case 324: return (int)launch<3, 2, 4>(a, grid, smem, s);
-    case 512: return (int)launch<5, 1, 2>(a, grid, smem, s);
-    case 514: return (int)launch<5, 1, 4>(a, grid, smem, s);
-    case 522: return (int)launch<5, 2, 2>(a, grid, smem, s);
-    default: return (int)launch<5, 2, 4>(a, grid, smem, s);
-  }
+  return (int)(act == DW_RELU6 ? launch_act<DW_RELU6>(key, a, grid, smem, s)
+                               : launch_act<DW_SILU>(key, a, grid, smem, s));
 }

@@ -1,11 +1,11 @@
 """Model zoo: spec JSON / names -> spec dataclasses, and the float models'
 generic entry points (the port of the JAX package's ``models/registry.py``).
 
-Spec parsing covers the ResNet, EfficientNet and ViT families. The float
-forward, init and training entry points (``create_model``, ``apply_model``,
-``features_and_logits``) cover the ResNet family (ResNeXt and Wide ResNet
-included) and EfficientNet; the float ViT's training and MobileNetV2 are not
-ported yet (ROADMAP queue 1 items 13 and 15) and raise.
+Spec parsing covers the ResNet, EfficientNet, MobileNetV2 and ViT families.
+The float forward, init and training entry points (``create_model``,
+``apply_model``, ``features_and_logits``) cover the ResNet family (ResNeXt
+and Wide ResNet included), EfficientNet and MobileNetV2; the float ViT's
+training is not ported yet (ROADMAP queue 1 item 15) and raises.
 """
 
 from __future__ import annotations
@@ -16,33 +16,35 @@ from typing import Dict, Tuple, Union
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
-from . import efficientnet, resnet
+from . import efficientnet, mobilenet, resnet
 from .efficientnet import EfficientNetSpec, efficientnet_spec
+from .mobilenet import MobileNetV2Spec, mobilenet_v2_spec
 from .vit import ViTSpec, vit_spec
 from .widths import ResNetSpec, resnet_spec
 
-SpecLike = Union[str, Dict, ResNetSpec, ViTSpec, EfficientNetSpec]
+SpecLike = Union[str, Dict, ResNetSpec, ViTSpec, EfficientNetSpec, MobileNetV2Spec]
 
 
-def spec_from_dict(d: Dict) -> Union[ResNetSpec, EfficientNetSpec, ViTSpec]:
-    """Spec JSON -> ResNetSpec, EfficientNetSpec or ViTSpec, dispatched as the
-    JAX package's ``spec_from_dict`` does; MobileNetV2 dicts (``__kind__`` or
-    ``hidden_widths``) are not ported yet."""
+def spec_from_dict(d: Dict) -> Union[ResNetSpec, EfficientNetSpec, MobileNetV2Spec, ViTSpec]:
+    """Spec JSON -> ResNetSpec, EfficientNetSpec, MobileNetV2Spec or ViTSpec,
+    dispatched as the JAX package's ``spec_from_dict`` does (by ``__kind__``,
+    else by the keys only one family has)."""
     kind = d.get("__kind__")
     if kind == "vit" or (kind is None and "patch" in d):
         return ViTSpec.from_dict(d)
     if kind == "efficientnet" or (kind is None and "se_widths" in d):
         return EfficientNetSpec.from_dict(d)
-    if kind is not None or "hidden_widths" in d:
-        raise NotImplementedError(f"model family {kind or 'mobilenet_v2'} is not ported yet")
+    if kind == "mobilenet_v2" or (kind is None and "hidden_widths" in d):
+        return MobileNetV2Spec.from_dict(d)
+    if kind is not None:
+        raise NotImplementedError(f"model family {kind} is not ported yet")
     return ResNetSpec.from_dict(d)
 
 
 def make_spec(model: SpecLike, num_classes: int = 6, in_chans: int = 3):
     """A spec, a spec dict or a name -> the spec (names as the JAX package
-    resolves them; MobileNetV2 names and registered custom names are not
-    ported)."""
-    if isinstance(model, (ResNetSpec, ViTSpec, EfficientNetSpec)):
+    resolves them; registered custom names are not ported)."""
+    if isinstance(model, (ResNetSpec, ViTSpec, EfficientNetSpec, MobileNetV2Spec)):
         return model
     if isinstance(model, dict):
         return spec_from_dict(model)
@@ -51,7 +53,7 @@ def make_spec(model: SpecLike, num_classes: int = 6, in_chans: int = 3):
     if model.startswith("efficientnet"):
         return efficientnet_spec(model, num_classes=num_classes, in_chans=in_chans)
     if model.startswith("mobilenet_v2"):
-        raise NotImplementedError("MobileNetV2 is not ported yet (ROADMAP queue 1 item 13)")
+        return mobilenet_v2_spec(model, num_classes=num_classes, in_chans=in_chans)
     return resnet_spec(model, num_classes=num_classes, in_chans=in_chans)
 
 
@@ -62,10 +64,12 @@ def model_module(spec):
         return resnet
     if isinstance(spec, EfficientNetSpec):
         return efficientnet
+    if isinstance(spec, MobileNetV2Spec):
+        return mobilenet
     raise NotImplementedError(
         f"the float {type(spec).__name__[:-4]} model is not ported for training yet "
-        f"(ROADMAP queue 1 items 13 and 15); the port trains the ResNet family and "
-        f"EfficientNet")
+        f"(ROADMAP queue 1 item 15); the port trains the ResNet family, EfficientNet and "
+        f"MobileNetV2")
 
 
 def apply_model(spec, params, state, x, *, train=False, compute_dtype=None, **kw):
@@ -100,7 +104,7 @@ def create_model(
     pretrained: bool = False,
     logger=None,
     device: DeviceLike = None,
-) -> Tuple[Union[ResNetSpec, EfficientNetSpec], Dict, Dict]:
+) -> Tuple[Union[ResNetSpec, EfficientNetSpec, MobileNetV2Spec], Dict, Dict]:
     """Returns ``(spec, params, state)`` on ``device`` (the GPU unless
     ``device="cpu"``).
 

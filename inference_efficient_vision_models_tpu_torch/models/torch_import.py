@@ -1,5 +1,5 @@
-"""Checkpoint interop: torchvision-style ResNet and EfficientNet state_dicts
--> the port's (params, state), the ResNet and EfficientNet parts of the JAX
+"""Checkpoint interop: torchvision-style ResNet, EfficientNet and MobileNetV2
+state_dicts -> the port's (params, state), the CNN parts of the JAX
 package's ``models/torch_import.py``.
 
 The reference's artifacts are torch ``state_dict`` pickles, sometimes wrapped
@@ -10,9 +10,8 @@ them their device's memory layout); linear (O, I) and an SE 1x1 conv
 (O, I, 1, 1) become (I, O).
 Pretrained weights come from an on-disk cache of ``.pth`` files only
 (``$IEVM_WEIGHTS_DIR``, then ``$TORCH_HOME/hub/checkpoints``): nothing is
-downloaded. The MobileNetV2 and ViT converters are not ported yet (ROADMAP
-queue 1: ``torch_import`` for the other families): the port builds neither
-float model.
+downloaded. The ViT converter is not ported yet (ROADMAP queue 1 item 15):
+the port does not build the float ViT from a torch checkpoint.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .efficientnet import EfficientNetSpec
+from .mobilenet import MobileNetV2Spec
 from .resnet import place
 from .widths import ResNetSpec
 
@@ -43,10 +43,10 @@ def _strip(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def _family_check(spec) -> None:
-    if not isinstance(spec, (ResNetSpec, EfficientNetSpec)):
+    if not isinstance(spec, (ResNetSpec, EfficientNetSpec, MobileNetV2Spec)):
         raise NotImplementedError(
             f"torch_import for {type(spec).__name__[:-4]} is not ported yet "
-            f"(ROADMAP queue 1: torch_import for the other families)")
+            f"(ROADMAP queue 1 item 15)")
 
 
 def from_torch_state_dict(spec: ResNetSpec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
@@ -131,11 +131,53 @@ def from_torch_state_dict_effnet(spec: EfficientNetSpec, sd: Dict[str, Any]) -> 
     return params, state
 
 
+def from_torch_state_dict_mbv2(spec: MobileNetV2Spec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    """(params, state) on the CPU from a torchvision-style MobileNetV2
+    state_dict: ``features.0.{0,1}`` stem, ``features.i.conv.{0.0, 0.1, 1.0,
+    1.1, 2, 3}`` inverted residuals (t > 1) or ``conv.{0.0, 0.1, 1, 2}``
+    (t = 1), numbered i = 1, 2, ... over all blocks, then the last conv
+    ``features.{i}.{0,1}`` and the ``classifier.1`` head."""
+    sd = _strip(sd)
+    bn = _bn(sd)
+
+    def conv(key):
+        return {"w": sd[key]}
+
+    params: Dict[str, Any] = {"stem": conv("features.0.0.weight")}
+    state: Dict[str, Any] = {}
+    params["stem_bn"], state["stem_bn"] = bn("features.0.1")
+    feat_i = 1
+    for s_i, depth in enumerate(spec.depths):
+        lp, ls = {}, {}
+        for b in range(depth):
+            pre = f"features.{feat_i}.conv"
+            bp, bs = {}, {}
+            if spec.has_expand[s_i][b]:
+                bp["expand"] = conv(f"{pre}.0.0.weight")
+                bp["expand_bn"], bs["expand_bn"] = bn(f"{pre}.0.1")
+                dw_pre, proj_i = f"{pre}.1", 2
+            else:
+                dw_pre, proj_i = f"{pre}.0", 1
+            bp["dw"] = conv(f"{dw_pre}.0.weight")
+            bp["dw_bn"], bs["dw_bn"] = bn(f"{dw_pre}.1")
+            bp["project"] = conv(f"{pre}.{proj_i}.weight")
+            bp["project_bn"], bs["project_bn"] = bn(f"{pre}.{proj_i + 1}")
+            lp[str(b)], ls[str(b)] = bp, bs
+            feat_i += 1
+        params[f"stage{s_i}"], state[f"stage{s_i}"] = lp, ls
+    params["last"] = conv(f"features.{feat_i}.0.weight")
+    params["last_bn"], state["last_bn"] = bn(f"features.{feat_i}.1")
+    params["fc"] = {"w": sd["classifier.1.weight"].t().contiguous(), "b": sd["classifier.1.bias"]}
+    return params, state
+
+
 def _convert(spec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     """The family's converter, as the JAX package dispatches."""
     _family_check(spec)
     if isinstance(spec, EfficientNetSpec):
         return from_torch_state_dict_effnet(spec, sd)
+    if isinstance(spec, MobileNetV2Spec):
+        return from_torch_state_dict_mbv2(spec, sd)
     return from_torch_state_dict(spec, sd)
 
 

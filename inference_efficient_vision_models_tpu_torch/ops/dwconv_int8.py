@@ -3,13 +3,14 @@
 No Pallas kernel stands behind it: the JAX package computes
 ``inference_efficient_vision_models_tpu/ops/dwconv_int8.py:depthwise_conv_int8``
 with XLA (k*k shifted int32 multiply-adds, or the grouped conv on a TPU)
-and then the epilogue of ``compress/quant/qeffnet.py:_conv_q``. PyTorch has
-no int8 convolution on CUDA, so on the GPU this runs the hand-written kernel
-of ``csrc/dwconv_int8.cu`` (its header says what bounds it and how it is
-laid out). On shifted-quint8 int8 NHWC:
+and then the epilogue of ``compress/quant/qeffnet.py:_conv_q`` (SiLU) or
+``qmobilenet.py:_conv_q`` (ReLU6). PyTorch has no int8 convolution on
+CUDA, so on the GPU this runs the hand-written kernel of
+``csrc/dwconv_int8.cu`` (its header says what bounds it and how it is laid
+out). On shifted-quint8 int8 NHWC:
 
     acc = sum_taps (x - zp_s) * w          (int32, the halo at zp_s adds nothing)
-    y   = silu(acc * (s_in * s_w) + b)     (fp32)
+    y   = act(acc * (s_in * s_w) + b)      (fp32; act "silu" or "relu6")
     out = clip(round(y / s_out) + zp_out, 0, 255) - 128
 
 ``depthwise_conv_int8`` launches the kernel for a CUDA tensor and runs
@@ -39,6 +40,9 @@ from .fused_mbconv import act_plain
 
 __all__ = ["DwPlan", "depthwise_acc_int32", "depthwise_conv_int8", "depthwise_conv_int8_plain",
            "dw_plan", "make_dw_plan", "vector_width"]
+
+
+_ACTS = {"silu": 0, "relu6": 1}  # csrc/dwconv_int8.cu DwAct
 
 
 def _f32(v) -> float:
@@ -71,15 +75,17 @@ def _requant_div(y: torch.Tensor, scale, zp) -> torch.Tensor:
 
 def depthwise_conv_int8_plain(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                               bias: torch.Tensor, *, stride: int, in_scale, in_zp, out_scale,
-                              out_zp) -> torch.Tensor:
+                              out_zp, act: str = "silu") -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: (N, H, W, C) int8
     and a (k, k, 1, C) int8 kernel -> (N, Ho, Wo, C) int8, padding (k - 1) // 2."""
+    if act not in _ACTS:
+        raise ValueError(f"unknown act {act!r}")
     k = w_q.shape[0]
     pad = (k - 1) // 2
     zp_s = int(in_zp) - 128
     xp = F.pad(x_s8, (0, 0, pad, pad, pad, pad), value=zp_s)
     acc = depthwise_acc_int32(xp, w_q, stride) - zp_s * w_q.to(torch.int32).sum(dim=(0, 1, 2))
-    y = act_plain(acc.float() * (w_scale * _f32(in_scale)) + bias, "silu")
+    y = act_plain(acc.float() * (w_scale * _f32(in_scale)) + bias, act)
     return _requant_div(y, out_scale, out_zp)
 
 
@@ -225,14 +231,16 @@ def dw_plan(n: int, h: int, w: int, c: int, k: int, stride: int) -> DwPlan:
 
 def depthwise_conv_int8(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                         bias: torch.Tensor, *, stride: int, in_scale, in_zp, out_scale,
-                        out_zp) -> torch.Tensor:
+                        out_zp, act: str = "silu") -> torch.Tensor:
     """int8 depthwise conv + epilogue -> (N, Ho, Wo, C) int8 in the output's
     shifted quint8 domain; ``w_q`` is the (k, k, 1, C) int8 kernel (k 3 or 5,
-    stride 1 or 2, padding (k - 1) // 2)."""
+    stride 1 or 2, padding (k - 1) // 2), ``act`` "silu" or "relu6"."""
     if x_s8.device.type == "cpu":
         return depthwise_conv_int8_plain(x_s8, w_q, w_scale, bias, stride=stride,
                                          in_scale=in_scale, in_zp=in_zp, out_scale=out_scale,
-                                         out_zp=out_zp)
+                                         out_zp=out_zp, act=act)
+    if act not in _ACTS:
+        raise ValueError(f"unknown act {act!r}")
     if x_s8.device.type != "cuda":
         raise ValueError(f"depthwise_conv_int8 runs on cpu or cuda, not {x_s8.device}")
     dev = x_s8.device
@@ -263,9 +271,9 @@ def depthwise_conv_int8(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Te
     # the plan's copy width, lowered to what x's address allows
     rc = _lib.kernel_fn("dwconv_int8")(
         x_s8.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, h, w, c, k, stride, int(in_zp) - 128, _f32(in_scale), 1.0 / _f32(out_scale),
-        float(out_zp), plan.cg, plan.bh, plan.nb, plan.p, vector_width(plan.vec, x_s8),
-        plan.smem, torch.cuda.current_stream(dev).cuda_stream,
+        n, h, w, c, k, stride, _ACTS[act], int(in_zp) - 128, _f32(in_scale),
+        1.0 / _f32(out_scale), float(out_zp), plan.cg, plan.bh, plan.nb, plan.p,
+        vector_width(plan.vec, x_s8), plan.smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("dwconv_int8", rc)
     return out

@@ -32,11 +32,12 @@ import torch
 from .compress.quant import wo8
 from .compress.quant.engine import dynamic_forward, folded_forward
 from .compress.quant.fusedpath import load_static_int8_fused
-from .compress.quant.qeffnet import load_static_int8 as load_static_int8_effnet
+from .compress.quant.qeffnet import load_static_int8 as load_static_int8_mbconv
 from .compress.quant.qresnet import load_static_int8
 from .compress.quant.qvit import load_static_int8 as load_static_int8_vit
 from .core.artifacts import load_checkpoint_raw
 from .models.efficientnet import EfficientNetSpec
+from .models.mobilenet import MobileNetV2Spec
 from .models.registry import spec_from_dict
 from .models.vit import ViTSpec
 from .ops.space_to_depth import space_to_depth_u8
@@ -51,17 +52,18 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
     through the int8 executor, whose stem takes the space-to-depth layout the
     host preprocess makes (``device_preprocess=True``: no host preprocess,
     the executor relayouts raw uint8 on the device, for hosts whose cores
-    are the scarce resource). An EfficientNet serves ``"static_int8"`` (the
-    unfused executor), ``"static_int8_mixed"`` (int8 1x1 convs, bf16
-    depthwise) and ``"static_int8_fused"`` (one fused kernel call per MBConv
-    block), each from its own ``model_<method>.msgpack`` or else the shared
-    ``model_static_int8.msgpack``, as the JAX package's loader falls back.
-    Both families serve ``"dynamic_int8"``, ``"fp16"``, ``"bf16"`` and
-    ``"weight_only_int8"`` (any artifact of a float-compute method) through
-    the folded float forward on raw uint8. A ViT serves ``"static_int8"``
-    (fp32 activation carrier) and ``"static_int8_bf16"`` (bf16 carrier, from
-    ``model_static_int8_bf16.msgpack`` or else the shared file). EfficientNet
-    and ViT take raw uint8 images, with no host preprocess."""
+    are the scarce resource). An EfficientNet or a MobileNetV2 serves
+    ``"static_int8"`` (the unfused executor), ``"static_int8_mixed"`` (int8
+    1x1 convs, bf16 depthwise) and ``"static_int8_fused"`` (one fused kernel
+    call per MBConv block), each from its own ``model_<method>.msgpack`` or
+    else the shared ``model_static_int8.msgpack``, as the JAX package's
+    loader falls back. The CNN families serve ``"dynamic_int8"``, ``"fp16"``,
+    ``"bf16"`` and ``"weight_only_int8"`` (any artifact of a float-compute
+    method) through the folded float forward on raw uint8. A ViT serves
+    ``"static_int8"`` (fp32 activation carrier) and ``"static_int8_bf16"``
+    (bf16 carrier, from ``model_static_int8_bf16.msgpack`` or else the
+    shared file). The MBConv families and ViT take raw uint8 images, with no
+    host preprocess."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
         spec = spec_from_dict(json.load(f))
     if isinstance(spec, ViTSpec):
@@ -71,12 +73,12 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
         act = torch.bfloat16 if method == "static_int8_bf16" else torch.float32
         model = load_static_int8_vit(fold_dir, device, act_dtype=act)
         return model.spec, model, model, None
-    if isinstance(spec, EfficientNetSpec):
+    if isinstance(spec, (EfficientNetSpec, MobileNetV2Spec)):
         if method == "static_int8_fused":
             model = load_static_int8_fused(fold_dir, device)
             return model.spec, model, model, None
         if method in ("static_int8", "static_int8_mixed"):
-            model = load_static_int8_effnet(
+            model = load_static_int8_mbconv(
                 fold_dir, device, executor="mixed" if method.endswith("_mixed") else "int8")
             return model.spec, model, model, None
     elif method == "static_int8":

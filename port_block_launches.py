@@ -112,7 +112,7 @@ def resnet(root: str, batch: int) -> dict:
 # outputs are then wrong): the time it saves is that part's share, where
 # ncu cannot run. --ablate times each beside the kernel as it is.
 DW_ABLATIONS = {
-    "no_epilogue": ("        silu_requant(y, a.rs_out, zpm, q);",
+    "no_epilogue": ("        act_requant<ACT>(y, a.rs_out, zpm, q);",
                     "        for (int u = 0; u < 8; ++u) q[u] = __float_as_uint(y[u]);"),
     "no_taps": ("    for (int sr = 0; sr < NR; ++sr) {", "    for (int sr = 0; sr < 0; ++sr) {"),
     "no_staging": ("  for (int r = 0; r < a.rh; ++r) {", "  for (int r = 0; r < 0; ++r) {"),

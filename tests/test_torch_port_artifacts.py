@@ -94,5 +94,7 @@ def test_specs_match_jax():
     pruned = os.path.join(BENCH, "pruning", "r2", "fold_0")
     assert tart.load_spec_dict(pruned, "best") == jart.load_spec_dict(pruned, "best")
     assert tart.load_spec_dict(pruned, "last") is None
-    with pytest.raises(NotImplementedError):
-        t_spec({"__kind__": "mobilenet_v2", "hidden_widths": [[16]]})
+    from inference_efficient_vision_models_tpu.models.mobilenet import mobilenet_v2_spec
+
+    d = mobilenet_v2_spec("mobilenet_v2_050", 6).to_dict()
+    assert t_spec(d).to_dict() == j_spec(d).to_dict()

@@ -441,6 +441,70 @@ def test_dwconv_int8_kernel_matches_plain_at_1e7_outputs(cuda):
     assert got.numel() >= 10**7 and torch.equal(got, ref)
 
 
+# MobileNetV2's 17 depthwise calls at 224x224 (H, C, stride; k 3), their 10
+# distinct shapes, and odd ones: C 32 at 112 (s0b0), C not a multiple of 4
+# (13, 6), odd H and W, stride 2 on odd H (13, 7), a 7x7 map with C 960
+MBV2_DW_SHAPES = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1),
+                  (28, 192, 2), (14, 384, 1), (14, 576, 1), (14, 576, 2), (7, 960, 1),
+                  (13, 13, 2), (9, 6, 1), (7, 960, 2), (15, 52, 2), (11, 96, 1)]
+
+
+@pytest.mark.parametrize("h,c,stride", MBV2_DW_SHAPES)
+@pytest.mark.parametrize("in_zp,out_zp", [(0, 255), (128, 128), (255, 0), (117, 31)])
+def test_dwconv_int8_relu6_kernel_matches_plain(cuda, h, c, stride, in_zp, out_zp):
+    """Kernel E with its ReLU6 epilogue equals its plain version bit for bit."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        depthwise_conv_int8, depthwise_conv_int8_plain)
+
+    rng = np.random.default_rng(h * c + stride + in_zp + 3)
+    n = 4 if h > 28 else 16
+    w_dim = h + 2 if h % 2 else h  # a ragged width beside the height
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, w_dim, c), dtype=np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-127, 128, (3, 3, 1, c), dtype=np.int8)).to(cuda)
+    ws = torch.from_numpy(rng.uniform(0.002, 0.02, c).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    kw = dict(stride=stride, in_scale=0.043, in_zp=in_zp, out_scale=0.031, out_zp=out_zp,
+              act="relu6")
+    before = _lib.launches["dwconv_int8"]
+    got = depthwise_conv_int8(x, wq, ws, b, **kw)
+    ref = depthwise_conv_int8_plain(x, wq, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["dwconv_int8"] == before + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dwconv_int8_relu6_exact_at_rounding_ties(cuda, stride):
+    """s_in * s_w = 2^-12 and s_out = 2^-9: y / s_out = acc / 8, a requant tie
+    wherever acc = 4 (mod 8); rint rounds them to even as the plain version."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        depthwise_conv_int8, depthwise_conv_int8_plain)
+
+    rng = np.random.default_rng(stride)
+    n, h, c = 8, 28, 40
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, c), dtype=np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-127, 128, (3, 3, 1, c), dtype=np.int8)).to(cuda)
+    ws = torch.full((c,), 1 / 64, device=cuda)
+    b = torch.zeros(c, device=cuda)
+    kw = dict(stride=stride, in_scale=1 / 64, in_zp=128, out_scale=1 / 512, out_zp=0,
+              act="relu6")
+    got = depthwise_conv_int8(x, wq, ws, b, **kw)
+    ref = depthwise_conv_int8_plain(x, wq, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_dwconv_int8_refuses_an_unknown_act(cuda):
+    from inference_efficient_vision_models_tpu_torch.ops import depthwise_conv_int8
+
+    x = torch.zeros((1, 8, 8, 8), dtype=torch.int8, device=cuda)
+    wq = torch.zeros((3, 3, 1, 8), dtype=torch.int8, device=cuda)
+    ws, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError):
+        depthwise_conv_int8(x, wq, ws, b, stride=1, in_scale=0.1, in_zp=128, out_scale=0.1,
+                            out_zp=0, act="gelu")
+
+
 def test_served_effnet_unfused_kernel_path_matches_plain_path(cuda):
     """The unfused executor (kernels A and E) on the committed artifact equals
     its plain path; 34 kernel-A and 16 kernel-E launches per forward."""

@@ -331,3 +331,28 @@ def test_replay_of_dw_plan_equals_plain_sums(n, h, w, c, k, stride):
     plan = dw_plan(n, h, w, c, k, stride)
     np.testing.assert_array_equal(replay(x, w_q, plan, 117),
                                   plain_acc(x, w_q, stride, 117).astype(np.float64))
+
+
+def mbv2_calls():
+    """MobileNetV2's 17 depthwise calls at 224x224: (H, W, C, k, stride)."""
+    from inference_efficient_vision_models_tpu_torch.models.mobilenet import mobilenet_v2_spec
+
+    spec, h, calls = mobilenet_v2_spec("mobilenet_v2", 6), 112, []
+    for s, depth in enumerate(spec.depths):
+        for b in range(depth):
+            stride = spec.block_stride(s, b)
+            calls.append((h, h, spec.hidden_widths[s][b], 3, stride))
+            h = (h - 1) // stride + 1
+    return calls
+
+
+def test_plan_at_mbv2_calls():
+    """Kernel E's plan takes MobileNetV2's 17 calls at batch 256, C 32 at 112^2
+    (s0b0) and the 7^2 maps with C 960 among them."""
+    calls = mbv2_calls()
+    assert len(calls) == 17
+    assert calls[0] == (112, 112, 32, 3, 1) and calls[-1] == (7, 7, 960, 3, 1)
+    for h, w, c, k, stride in calls:
+        p = check_plan(BATCH, h, w, c, k, stride, waves=True)
+        assert covered_once(p), (h, c, stride)
+        thread_items(p)

@@ -209,7 +209,13 @@ def test_spec_errors():
     with pytest.raises(ValueError):
         teff.efficientnet_spec("efficientnet_b9")
     with pytest.raises(NotImplementedError):
-        t_spec({"__kind__": "mobilenet_v2", "hidden_widths": [[16]]})
+        t_spec({"__kind__": "convnext"})
+    # a MobileNetV2 dict (by __kind__, or by its hidden_widths) is no error now
+    from inference_efficient_vision_models_tpu.models.mobilenet import mobilenet_v2_spec
+
+    d = mobilenet_v2_spec("mobilenet_v2", 6).to_dict()
+    assert t_spec(d).to_dict() == d
+    assert t_spec({k: v for k, v in d.items() if k != "__kind__"}).to_dict() == d
 
 
 def _logit_stats(logits: np.ndarray) -> str:

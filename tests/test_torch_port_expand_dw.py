@@ -246,3 +246,21 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     p_np["wdw"] = p_np["wdw"] + 0.5
     with pytest.raises(ValueError):
         to_device_packed(p_np, "cpu")
+
+
+@pytest.mark.parametrize("batch", [256, 1])
+def test_mbv2_blocks_have_a_valid_plan(batch):
+    """Kernel C's first launch takes MobileNetV2's 17 blocks (k 3, stride 1
+    or 2, 112^2 down to 7^2; s0b0 without expand at Cin = Ce = 32, s1b0
+    expanding 16 -> 96 at 112^2 with stride 2), three blocks to an SM."""
+    from inference_efficient_vision_models_tpu_torch.models.mobilenet import mobilenet_v2_spec
+
+    spec, h, n = mobilenet_v2_spec("mobilenet_v2", 6), 112, 0
+    for s, depth in enumerate(spec.depths):
+        for b in range(depth):
+            stride, cin, ce = spec.block_stride(s, b), spec.block_in_width(s, b), \
+                spec.hidden_widths[s][b]
+            p = check_plan(batch, h, h, cin, ce, 3, stride, spec.has_expand[s][b])
+            assert 3 * p.smem <= DW_SMEM_LIMIT, (s, b)
+            h, n = (h - 1) // stride + 1, n + 1
+    assert n == 17 and h == 7

@@ -197,7 +197,41 @@ def test_whole_model_blockwise_then_end_to_end(effnet64):
     assert_logits_close(got, ref)
 
 
-def test_mobilenet_model_is_refused(mbv2_64):
+def test_mobilenet_model_blockwise_then_end_to_end(mbv2_64):
+    """The fused executor serves MobileNetV2 (ReLU6, no SE gate, the relu6
+    stem and head): each block fed JAX's own input within one quantum, then
+    the port (plain) end to end against JAX apply_int8_fused(interpret=True):
+    equal (ReLU6 is exact and both sides requantize alike; the CPU measures 0)."""
+    from inference_efficient_vision_models_tpu.compress.quant import qmobilenet as jqm
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qmobilenet as tqm
+
     spec, q = mbv2_64
-    with pytest.raises(NotImplementedError):
-        tfp.from_jax_qmodel(spec.to_dict(), q, device="cpu")
+    imgs = np.random.default_rng(5).integers(0, 256, (4, SIZE, SIZE, 3), dtype=np.uint8)
+    model = tfp.from_jax_qmodel(spec.to_dict(), q, device="cpu")
+    qj = jax.tree.map(jnp.asarray, q)
+    j_packed = jfp.pack_fused(spec, q)
+    stem = qj["stem"]
+    cur_j = jqm._requant(jsf.apply_u8_stem(stem, jnp.asarray(imgs), stride=2, pad=1, relu6=True),
+                         stem["out_scale"], stem["out_zp"])
+    with torch.inference_mode():
+        cur_t = tfp.stem_int8(model.q, torch.from_numpy(imgs), impl="plain", act=tqm.ACT)
+    np.testing.assert_array_equal(cur_t.numpy(), np.asarray(cur_j))
+    plan = tqm.block_plan(model.spec)
+    assert len(plan) == 17 and all(k == 3 for _, k, _, _ in plan)
+    for name, k, stride, residual in plan:
+        x_np = np.array(cur_j)
+        nxt = j_block(cur_j, j_packed[name], kernel=k, stride=stride, act="relu6",
+                      x_res=cur_j if residual else None, interpret=True)
+        xt = torch.from_numpy(x_np)
+        with torch.inference_mode():
+            got = fused_mbconv_block_plain(xt, model.qf[name], kernel=k, stride=stride,
+                                           act="relu6", x_res=xt if residual else None)
+        assert_within_one_quantum(got.numpy(), np.asarray(nxt))
+        cur_j = nxt
+
+    ref = np.asarray(jfp.apply_int8_fused(spec, qj, j_packed, jnp.asarray(imgs), interpret=True))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(imgs)).numpy()
+        plain = model(torch.from_numpy(imgs), impl="plain").numpy()
+    np.testing.assert_array_equal(got, plain)  # a CPU tensor takes the plain versions
+    np.testing.assert_array_equal(got, ref)

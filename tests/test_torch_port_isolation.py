@@ -1,4 +1,4 @@
-"""The port and its GPU script import neither JAX, flax, msgpack nor the JAX
+"""The port and its GPU scripts import neither JAX, flax, msgpack nor the JAX
 package, nor a package the GPU machine lacks (sklearn, pandas, tabulate,
 matplotlib, tqdm, torchvision) or that the port must not need (PIL); the
 server, with PIL absent, refuses a PNG body by naming the missing decoder."""
@@ -30,6 +30,7 @@ import inference_efficient_vision_models_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+import calib_spread
 import chip_smoke
 
 # the deployment entry points refuse what needs PIL, naming it, and import nothing
