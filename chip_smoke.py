@@ -99,7 +99,24 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``predict_cli`` runs ``python -m ….cli.predict`` over 300 seeded BMPs
    and an .npy against ``Predictor`` over ``load_images``; ``augment``
    holds ``apply_augment`` on the card to its CPU evaluation, and a timed
-   teacher step with ``augment=True`` runs beside the stage-1 steps.
+   teacher step with ``augment=True`` runs beside the stage-1 steps;
+9. the ViT through stages 1-4: one fp32 CE step of ViT-S/16 and one
+   KD step of ViT-Tiny/16 at 64x64 against a JAX golden
+   (``vit_train_step_golden``); a seeded ViT-Tiny converted on the card
+   against the JAX CPU record (``convert_vit``); kernel A's dynamic route
+   (qparams read from a device buffer) at the dynamic INT8 ViT's 49 calls,
+   timed, and at odd shapes, bit-exact; that forward under
+   ``torch.cuda.set_sync_debug_mode("error")``, 49 launches, equal to its
+   plain path and within ``VIT_DYN_TAU`` of the JAX golden
+   (``vit_dynamic_logits``); a head-pruned ViT-Tiny (2 of 3 heads) on the
+   three INT8 executors; in the training process ViT-S -> KD ViT-Tiny ->
+   prune (l2 0.1, round_to 8) -> quantize (six methods) through the CLIs
+   (``vit_chain``); the chain's model on the static fp32 and bf16 carriers
+   and the dynamic executor through ``Predictor`` (A 50 / 50 / 49 a
+   forward), its fp32, fp16, bf16 and W8A16 artifacts through ``Predictor``
+   against their own ``apply_folded`` (``vit_float_serve``); and the CNN
+   families' dynamic fc on kernel A's dynamic route against the float64
+   formula it replaced, bit for bit (``dynamic_fc_route``).
 
 Results go to stdout as JSON lines; the line before the last gives the card
 as nvidia-smi reports it and the last is ``{"ok": true, "device": ...}``.
@@ -257,6 +274,22 @@ EFF_TRAIN_GOLDEN = os.path.join(TESTDATA, "effnet_train_step_jax.npz")
 EFF_TRAIN_LIMITS = {"loss_rel": 2.5e-6, "logits_over_scale": 1.7e-5, "grad_norm_rel": 8.6e-4,
                     "bn_sum_over_abs_sum": 2.7e-7, "mu_norm_rel": 8.6e-4, "nu_norm_rel": 9.1e-5,
                     "update_dev_over_lr": 2.0}
+# the ViT's fp32 CE step (ViT-S/16, teacher role) and KD step (a ViT-Tiny/16
+# against it), batch 8 at 64x64 (``testdata/vit_train_step_jax.npz``,
+# ``JAX_PLATFORMS=cpu python tests/test_torch_port_vit_float.py`` writes it)
+VIT_TRAIN_STEP = dict(teacher="vit_small_patch16_224", student="vit_tiny_patch16_224", seed=0,
+                      student_seed=1, batch=8, size=64, image_seed=0, alpha=0.5,
+                      temperature=4.0, lr=1e-3, norm_floor=1e-4)
+VIT_TRAIN_GOLDEN = os.path.join(TESTDATA, "vit_train_step_jax.npz")
+# twice the port's CPU deviation from it, the largest over 1 to 8 intra-op
+# threads (the writer prints it: loss 5.49e-7, logits 1.23e-6 of the scale, a
+# gradient leaf's norm 1.12e-6 and a first moment's 8.41e-7 over the floor, a
+# second moment's 2.52e-6, updates 0.87 lr; a ViT has no BatchNorm), the
+# update's limit 2 lr as in the other goldens: one sign flip of a near-zero
+# gradient moves AdamW's first update by 2 lr
+VIT_TRAIN_LIMITS = {"loss_rel": 1.1e-6, "logits_over_scale": 2.5e-6, "grad_norm_rel": 2.3e-6,
+                    "bn_sum_over_abs_sum": 0.0, "mu_norm_rel": 1.7e-6, "nu_norm_rel": 5.1e-6,
+                    "update_dev_over_lr": 2.0}
 # stages 3-4: the JAX package's CPU conversion of the committed pruned r2
 # checkpoint (minmax, the first 256 images of fold 0's train split, batch 32):
 # activation qparams by value, every other leaf by sha256
@@ -309,6 +342,24 @@ MBV2_GOLDEN_IMAGES = dict(seed=3, n=8)
 # statistics: twice the CPU's 3.82e-5 of a leaf's scale (17 blocks of
 # train-mode sums)
 MBV2_CONVERT_LIMITS = {"scale_rtol": 3.9e-6, "recal_rtol": 7.7e-5}
+# a seeded full-width ViT-Tiny/16 converted at 224x224 on 48 surrogate images
+# (minmax, batch 16) by the JAX package run op by op on the CPU
+# (``testdata/vit_tiny_convert_jax.json``), and its dynamic INT8 logits on 8
+# seeded images (``testdata/vit_tiny_dynamic_jax_logits.npz``); both written by
+# ``JAX_PLATFORMS=cpu python tests/test_torch_port_vit_quant.py``
+VIT_CONVERT = dict(seed=0, size=224, per_class=8, image_seed=5, batch=16)
+VIT_CONVERT_GOLDEN = os.path.join(TESTDATA, "vit_tiny_convert_jax.json")
+VIT_DYN_GOLDEN = os.path.join(TESTDATA, "vit_tiny_dynamic_jax_logits.npz")
+VIT_DYN_IMAGES = dict(seed=3, n=8)
+# scales within twice the CPU port's deviation from the record (6.88e-7 at 1-8
+# threads; the record's own fp32 error against an fp64 calibration: 4.91e-7);
+# the dynamic logits within twice the CPU port's 0.0167 of the logit scale
+# (XLA and torch round LayerNorm, softmax, the attention products and erfc at
+# other places; an activation within that rounding of an edge of a per-batch
+# quantize moves one quantum, and the 48 dynamic layers of a random-init
+# model carry such flips to the logits)
+VIT_CONVERT_LIMITS = {"scale_rtol": 1.4e-6}
+VIT_DYN_TAU = 0.034
 # the unfused and mixed logits against the JAX goldens: the CPU measures 0 for
 # both (every operation is the JAX executor's, the mixed depthwise sums of
 # bf16 products are exact in fp32 in any order: reversed taps measure 0 too),
@@ -512,11 +563,14 @@ def mbv2_params_from_seed(spec, seed: int):
 
 
 def params_from_seed(spec, seed: int):
-    """Seeded (params, BN state) in the JAX layout of a ResNet, an EfficientNet
-    or a MobileNetV2."""
+    """Seeded (params, BN state) in the JAX layout of a ResNet, an EfficientNet,
+    a MobileNetV2 or a ViT (whose state is empty)."""
     from inference_efficient_vision_models_tpu_torch.models.efficientnet import EfficientNetSpec
     from inference_efficient_vision_models_tpu_torch.models.mobilenet import MobileNetV2Spec
+    from inference_efficient_vision_models_tpu_torch.models.vit import ViTSpec
 
+    if isinstance(spec, ViTSpec):
+        return vit_params_from_seed(spec, seed), {}
     if isinstance(spec, EfficientNetSpec):
         return effnet_params_from_seed(spec, seed)
     if isinstance(spec, MobileNetV2Spec):
@@ -528,7 +582,7 @@ def leaf_sums(tree) -> np.ndarray:
     """float64 sum of every leaf, in the tree's order: a fingerprint that makes
     a drifting copy of the parameters fail loudly."""
     if isinstance(tree, dict):
-        return np.concatenate([leaf_sums(v) for v in tree.values()])
+        return np.concatenate([leaf_sums(v) for v in tree.values()] or [np.zeros(0)])
     return np.array([np.sum(np.asarray(tree), dtype=np.float64)])
 
 
@@ -574,6 +628,15 @@ def _tap_of(path: str) -> str:
     if parts[2] in ("conv1", "conv2"):
         return f"l{s}b{b}i{int(parts[2][4:]) - 1}"
     return f"l{s}b{b}o"
+
+
+def _vit_tap_of(path: str) -> str:
+    """The calibration tap of a ViT activation qparam: each dense layer's
+    input (``b{i}qkv`` ... ``head``) or the image (``input``)."""
+    parts = path.strip("/").split("/")
+    if parts[0] in ("input", "head"):
+        return parts[0]
+    return f"b{parts[1]}{parts[2]}"
 
 
 def _eff_tap_of(path: str) -> str:
@@ -2094,8 +2157,8 @@ def run_vit(gen: torch.Generator):
     # the float forward with the fused mlp1 + GELU on kernel D: the main path
     # is the bf16 forward on the golden images, at batch 256 and at batch 1
     def fwd(dtype, impl="kernel"):
-        return lambda u8: vit.apply(spec, params, normalize_images(u8), compute_dtype=dtype,
-                                    fused_mlp=True, impl=impl)
+        return lambda u8: vit.apply(spec, params, {}, normalize_images(u8), compute_dtype=dtype,
+                                    fused_mlp=True, impl=impl)[0]
 
     xb = {b: torch.from_numpy(np.random.default_rng(2).integers(
         0, 256, (b, *golden_imgs.shape[1:]), dtype=np.uint8)).cuda() for b in (1, BATCH)}
@@ -2140,6 +2203,402 @@ def run_vit(gen: torch.Generator):
     emit({"phase": "vit_forward", **fwd_ms})
     return rows, launches_by_path
 
+
+
+# --------------------------------------------------------------------------
+# the ViT through stages 1-4: kernel A's dynamic route, the chain's
+# INT8 model on three executors, its float artifacts, a head-pruned model
+# --------------------------------------------------------------------------
+
+
+VIT_DYN_PER_FORWARD = {"int8_matmul_requant": 49}  # the patch embed is a float conv
+VIT_HEAD_PRUNE = dict(ratio=0.34, method="l2", round_to=8)  # 2 of 3 heads a block
+
+
+def vit_dyn_calls(model, b: int):
+    """Kernel A's calls of one dynamic forward at batch b: (label, x shape,
+    leaf, calls per forward); every input fp32, qparams per call."""
+    spec, q = model.spec, model.q
+    blk, t, d = q["blocks"]["0"], spec.tokens, spec.dim
+    return [("qkv", (b * t, d), blk["qkv"], spec.depth),
+            ("proj", (b * t, blk["proj"]["w"].k), blk["proj"], spec.depth),
+            ("mlp1", (b * t, d), blk["mlp1"], spec.depth),
+            ("mlp2", (b * t, blk["mlp2"]["w"].k), blk["mlp2"], spec.depth),
+            ("head", (b, d), q["head"], 1)]
+
+
+def dyn_input(label: str, shape, gen: torch.Generator) -> torch.Tensor:
+    """A LayerNorm-like activation, or for mlp2 a GELU's output."""
+    x = torch.randn(shape, generator=gen, device="cuda") * 1.5
+    return torch.nn.functional.gelu(x) if label == "mlp2" else x
+
+
+def kernel_a_dyn_row(path: str, label: str, x: torch.Tensor, leaf, *, batch: int = BATCH,
+                     calls: int = 1, timed: bool = True):
+    """Kernel A's dynamic route at one call: exact against its plain version
+    on the same qparams buffer, then (``timed``) its time beside the plain
+    version's, the qparams step's, its bound (x, weight, vectors and the
+    32-byte buffer read once, the fp32 output written once) and
+    torch._int_mm's (the GEMM only)."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        dynamic_qparams, int8_matmul_requant_dynamic, int8_matmul_requant_dynamic_plain)
+
+    qp = dynamic_qparams(x)
+    args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"], qp)
+    ok, err = compare_exact(int8_matmul_requant_dynamic(*args),
+                            int8_matmul_requant_dynamic_plain(*args))
+    nbytes, ops = cost("int8_matmul_requant", x, leaf, {})
+    nbytes += qp.numel() * qp.element_size()
+    row = {
+        "path": path, "kernel": "int8_matmul_requant", "route": "dynamic", "call": label,
+        "batch": batch, "x": list(x.shape), "x_dtype": str(x.dtype)[6:], "n": leaf["w"].n,
+        "max_abs_err": err, "bytes": nbytes, "ops": ops,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
+        "calls": calls, "in_forward": batch == BATCH,
+    }
+    if timed:
+        lib, lib_note = int_mm_ms(x, leaf)
+        row.update({
+            "ms": time_ms(lambda: int8_matmul_requant_dynamic(*args), spin=True),
+            "plain_ms": time_ms(lambda: int8_matmul_requant_dynamic_plain(*args), spin=True),
+            "qparams_ms": time_ms(lambda: dynamic_qparams(x), spin=True),
+            "library_ms": lib, **({"library_note": lib_note} if lib_note else {})})
+    return row, [] if ok else [f"int8_matmul_requant dynamic {path} {label} {tuple(x.shape)} "
+                               f"b{batch}: max abs err {err}"]
+
+
+def dyn_odd_shapes(gen: torch.Generator):
+    """Kernel A's dynamic route at odd shapes: K 13..1000 (16-byte, 4-byte and
+    element loads), M 1 and 197, N 6..576, inputs all positive, all negative
+    and mixed, fp32 and bf16 in and out; each equal to its plain version."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        dynamic_qparams, int8_matmul_requant_dynamic, int8_matmul_requant_dynamic_plain)
+
+    fails, checks = [], 0
+    for m in (1, 197):
+        for k in (13, 27, 50, 192, 504, 768, 1000):
+            for n, shift in ((6, 0.0), (37, 3.0), (576, -3.0)):
+                w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                                  dtype=torch.int8)
+                leaf = {"w": pack_weight(w), "bias": torch.randn(n, generator=gen, device="cuda"),
+                        "w_scale": torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-3,
+                        "w_sum": w.to(torch.int32).sum(0, dtype=torch.int32)}
+                x = torch.randn((m, k), generator=gen, device="cuda") * 2 + shift
+                for xd, od in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)):
+                    xx = x.to(xd)
+                    qp = dynamic_qparams(xx)
+                    args = (xx, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"], qp)
+                    ok, err = compare_exact(int8_matmul_requant_dynamic(*args, out_dtype=od),
+                                            int8_matmul_requant_dynamic_plain(*args, out_dtype=od))
+                    checks += 1
+                    if not ok:
+                        fails.append(f"dynamic {m}x{k}x{n} {xd} shift {shift}: max abs err {err}")
+    emit({"phase": "vit_dynamic_odd_shapes", "checks": checks, "failed": fails})
+    return fails
+
+
+def run_vit_dynamic(dev, gen: torch.Generator):
+    """``vit_dynamic_shapes`` and ``vit_dynamic_logits``: kernel A's dynamic
+    route at the 49 calls of a seeded full-width ViT-Tiny's dynamic INT8
+    forward (batch 256, timed, and batch 1) and at odd shapes, each equal to
+    its plain version; then the whole forward on 8 seeded images, launches
+    counted (49), under ``torch.cuda.set_sync_debug_mode("error")``, equal
+    to its plain path and against the JAX golden (``VIT_DYN_TAU``); the
+    forward timed at batch 1 and 256 and profiled.
+    -> (rows, {path: launches})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
+    from inference_efficient_vision_models_tpu_torch.models.vit import vit_spec
+
+    spec = vit_spec("vit_tiny_patch16_224", 6)
+    params = vit_params_from_seed(spec, VIT_SEED)
+    golden = np.load(VIT_DYN_GOLDEN)
+    if not np.array_equal(leaf_sums(params), golden["param_sums"]):
+        raise SmokeFailure("vit_params_from_seed no longer gives the dynamic golden's weights")
+    model = qvit.from_dynamic_qmodel(spec, qvit.convert_dynamic_int8(spec, params), "cuda")
+    rows, fails = [], []
+    for b in (BATCH, 1):
+        for label, shape, leaf, calls in vit_dyn_calls(model, b):
+            row, f = kernel_a_dyn_row("vit_tiny_dynamic", label, dyn_input(label, shape, gen),
+                                      leaf, batch=b, calls=calls)
+            rows.append(row)
+            fails += f
+            emit({"phase": "vit_dynamic_shapes", **row})
+    fails += dyn_odd_shapes(gen)
+    if fails:
+        raise SmokeFailure("kernel A's dynamic route disagrees with its plain version:\n"
+                           + "\n".join(fails))
+
+    x8 = torch.from_numpy(vit_dyn_images()).cuda()
+    with torch.inference_mode():
+        model(x8)  # the first call makes the tensor maps and normalization constants
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = model(x8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = dict(_lib.launches)
+        plain = model(x8, impl="plain")
+        got, plain = got.cpu().numpy(), plain.cpu().numpy()
+    if launches != VIT_DYN_PER_FORWARD:
+        raise SmokeFailure(f"(d) the dynamic ViT launched {launches}, expected "
+                           f"{VIT_DYN_PER_FORWARD} a forward")
+    ok, err, atol = logits_close(got, golden["logits"], VIT_DYN_TAU)
+    emit({"phase": "vit_dynamic_logits", **_stage_card(dev), "images": len(got),
+          "launches_per_forward": launches, "sync_debug_mode": "error",
+          "kernel_vs_plain_equal": bool(np.array_equal(got, plain)),
+          "kernel_vs_plain_max_abs_err": float(np.abs(got - plain).max()),
+          "vs_jax_max_abs_err": err, "atol": atol, "tau": VIT_DYN_TAU,
+          "vs_jax_over_scale": err / float(np.abs(golden["logits"]).max()),
+          "argmax_identical": bool((got.argmax(1) == golden["logits"].argmax(1)).all())})
+    if not np.array_equal(got, plain):
+        raise SmokeFailure("vit_dynamic_logits: the kernel path differs from its plain path")
+    if not ok:
+        raise SmokeFailure(f"vit_dynamic_logits: {err} > {atol} against the JAX golden")
+    fwd = {}
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            xb = torch.from_numpy(np.random.default_rng(2).integers(
+                0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda()
+            fwd[f"forward_ms_b{b}"] = time_ms(lambda: model(xb))
+            fwd[f"plain_forward_ms_b{b}"] = time_ms(lambda: model(xb, impl="plain"))
+        emit({"phase": "vit_tiny_dynamic_forward", **_stage_card(dev), **fwd,
+              "images_per_s_b256": BATCH / fwd[f"forward_ms_b{BATCH}"] * 1e3})
+        emit({"phase": "vit_tiny_dynamic_profile_b256", **profile_forward(model, xb, 1)})
+    return rows, {"vit_tiny_dynamic": launches}
+
+
+def run_convert_vit(dev):
+    """``convert_vit``: the seeded full-width ViT-Tiny folded, calibrated
+    (minmax, 48 surrogate 224x224 images, batch 16) and converted on the
+    card, against the JAX package's CPU record (op by op): every
+    non-activation leaf equal by sha256, every activation scale within
+    ``VIT_CONVERT_LIMITS``, zero points equal or one apart on an edge."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
+
+    with open(VIT_CONVERT_GOLDEN) as f:
+        rec = json.load(f)
+    spec, p, s, imgs, labels = vit_convert_inputs(VIT_CONVERT)
+    if leaf_sums(p).tolist() != rec["provenance"]["param_sums"]:
+        raise SmokeFailure("convert_vit: the seeded weights are no longer the record's")
+    q, _, t = port_convert_effnet(spec, p, s, imgs, labels, "cuda", VIT_CONVERT)
+    report = compare_conversion(qvit.serializable(q), rec, VIT_CONVERT_LIMITS, _vit_tap_of)
+    emit({"phase": "convert_vit", **_stage_card(dev), "images": len(imgs), **t,
+          "limits": VIT_CONVERT_LIMITS, **report})
+    if not report["ok"]:
+        raise SmokeFailure(f"convert_vit: {report}")
+
+
+def vit_int8_models(spec, q: dict, dyn: dict):
+    """The three INT8 executors of one conversion: {path suffix: (model,
+    launches a forward, kernel-vs-plain check)}."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
+
+    return {
+        "int8": (qvit.from_jax_qmodel(spec.to_dict(), q, "cuda", torch.float32),
+                 VIT_PER_FORWARD, VIT_TAU_B),
+        "int8_bf16": (qvit.from_jax_qmodel(spec.to_dict(), q, "cuda", torch.bfloat16),
+                      VIT_PER_FORWARD, VIT_TAU_B),
+        "dynamic": (qvit.from_dynamic_qmodel(spec, dyn, "cuda"), VIT_DYN_PER_FORWARD, 0.0),
+    }
+
+
+def check_vit_executors(dev, phase: str, path: str, models: dict, x: torch.Tensor):
+    """Each executor: one forward of ``x`` with the launches counted (exactly
+    its count a forward), its kernel path against its plain path (the
+    dynamic one equal, the static ones within their tau). -> {path: launches}."""
+    by, fails = {}, []
+    for suffix, (model, per, tau) in models.items():
+        outs, launches = count_forwards(model, [x], per, f"{path}_{suffix}")
+        by[f"{path}_{suffix}"] = launches
+        with torch.inference_mode():
+            plain = model(x, impl="plain").cpu().numpy()
+        got = outs[0].cpu().numpy()
+        if tau == 0.0:
+            ok, err = bool(np.array_equal(got, plain)), float(np.abs(got - plain).max())
+        else:
+            ok, err, _ = logits_close(got, plain, tau)
+        emit({"phase": phase, **_stage_card(dev), "executor": suffix, "images": len(got),
+              "launches_per_forward": launches, "kernel_vs_plain_max_abs_err": err, "tau": tau,
+              "kernel_vs_plain_ok": ok, "logit_scale": float(np.abs(plain).max()),
+              "finite": bool(np.isfinite(got).all())})
+        if not ok or not np.isfinite(got).all():
+            fails.append(f"{suffix}: max abs err {err}")
+    if fails:
+        raise SmokeFailure(f"{phase}:\n" + "\n".join(fails))
+    return by
+
+
+def run_vit_head_pruned(dev):
+    """A seeded full-width ViT-Tiny pruned to 2 of its 3 heads a block
+    (``VIT_HEAD_PRUNE``: qkv N 384, proj K 128, MLP units l2 round_to 8),
+    calibrated and converted on the card, on the three INT8 executors:
+    kernel path against plain path on 32 images, launches 50 / 50 / 49."""
+    from inference_efficient_vision_models_tpu_torch.compress.prune.vit_engine import prune_vit
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
+
+    spec, p, _, imgs, labels = vit_convert_inputs(VIT_CONVERT)
+    pspec, pp, _ = prune_vit(spec, p, {}, **VIT_HEAD_PRUNE)
+    q, _, t = port_convert_effnet(pspec, pp, {}, imgs, labels, "cuda", VIT_CONVERT)
+    shapes = {"qkv_n": int(q["blocks"]["0"]["qkv"]["w_q"].shape[1]),
+              "proj_k": int(q["blocks"]["0"]["proj"]["w_q"].shape[0])}
+    emit({"phase": "vit_head_pruned", **_stage_card(dev), "head_counts": pspec.head_counts,
+          "mlp_hidden": pspec.mlp_hidden, **shapes, **t})
+    if pspec.head_counts != (2,) * spec.depth or shapes != {"qkv_n": 384, "proj_k": 128}:
+        raise SmokeFailure(f"vit_head_pruned: {pspec.head_counts} {shapes}")
+    models = vit_int8_models(pspec, q, qvit.convert_dynamic_int8(pspec, qvit.fold(pspec, pp, {})))
+    x = torch.from_numpy(chain_images(224, 32)).cuda()
+    return check_vit_executors(dev, "vit_head_pruned_int8", "vit_tiny_head_pruned", models, x)
+
+
+def run_vit_chain_int8(dev, gen: torch.Generator, quant_dir: str):
+    """``vit_chain_int8`` and ``vit_float_serve``: the ViT chain's artifacts.
+    Its INT8 model on the three executors through ``load_quantized`` ->
+    ``Predictor.from_artifact`` (one 32-image forward each, launches counted:
+    50 / 50 / 49), each against its own plain path (the static carriers
+    within VIT_TAU_B, the dynamic one equal), timed at batch 1 and 256;
+    kernel A at the pruned model's calls on both routes, timed (aside in the
+    kernels line); then its fp32, fp16, bf16 and W8A16 artifacts through
+    ``Predictor``, each equal to its own ``apply_folded`` on the same input.
+    -> (rows, {path: launches})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qvit, wo8
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    per = {"static_int8": VIT_PER_FORWARD, "static_int8_bf16": VIT_PER_FORWARD,
+           "dynamic_int8": VIT_DYN_PER_FORWARD}
+    imgs = chain_images(224, 32)
+    x = torch.from_numpy(imgs).cuda()
+    pipe = "vit_tiny_pipeline"
+    launches_by, fails, models = {}, [], {}
+    with torch.inference_mode():
+        for method in per:
+            spec, _, model, _ = load_quantized(quant_dir, method, device="cuda")
+            models[method] = model
+            pred = Predictor.from_artifact(quant_dir, method, device="cuda", batch_size=len(imgs))
+            pred.warmup(imgs.shape[1:])
+            _lib.reset_launch_counts()
+            served = pred.predict_logits(imgs)
+            torch.cuda.synchronize()
+            launches = dict(_lib.launches)
+            launches_by[f"{pipe}_{method}"] = launches
+            kern, plain = model(x).cpu().numpy(), model(x, impl="plain").cpu().numpy()
+            if method == "dynamic_int8":
+                ok, err = bool(np.array_equal(kern, plain)), float(np.abs(kern - plain).max())
+            else:
+                ok, err, _ = logits_close(kern, plain, VIT_TAU_B)
+            s_ok, s_err, _ = logits_close(served, plain, VIT_TAU_B)
+            fwd = {}
+            for b in (1, BATCH):
+                xb = torch.from_numpy(np.random.default_rng(2).integers(
+                    0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda()
+                fwd[f"forward_ms_b{b}"] = time_ms(lambda: model(xb))
+            emit({"phase": "vit_chain_int8", **_stage_card(dev), "method": method,
+                  "images": len(imgs), "launches_per_forward": launches,
+                  "expected_launches": per[method], "kernel_vs_plain_max_abs_err": err,
+                  "kernel_vs_plain_ok": ok, "served_vs_plain_max_abs_err": s_err,
+                  "logit_scale": float(np.abs(plain).max()), **fwd,
+                  "images_per_s_b256": BATCH / fwd[f"forward_ms_b{BATCH}"] * 1e3})
+            if not (ok and s_ok and launches == per[method]):
+                fails.append(f"{method}: kernel vs plain {ok} ({err}), served {s_ok} ({s_err}), "
+                             f"launches {launches} (expected {per[method]})")
+    if fails:
+        raise SmokeFailure("vit_chain_int8:\n" + "\n".join(fails))
+
+    # kernel A at the pruned model's calls, both routes, timed (aside)
+    rows, fails = [], []
+    for label, shape, dtype, leaf, kw, calls in vit_kernel_a_calls(models["static_int8"], BATCH):
+        xx = (make_input(shape, dtype, kw["in_zp"], gen) if dtype == torch.int8 else
+              (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(dtype))
+        row, f = kernel_a_row(pipe, label, xx, leaf, kw, calls=calls)
+        rows.append(row)
+        fails += f
+        emit({"phase": "vit_chain_a_shapes", **row})
+    for label, shape, leaf, calls in vit_dyn_calls(models["dynamic_int8"], BATCH):
+        row, f = kernel_a_dyn_row(pipe, f"dynamic.{label}", dyn_input(label, shape, gen), leaf,
+                                  calls=calls)
+        rows.append(row)
+        fails += f
+        emit({"phase": "vit_chain_a_shapes", **row})
+    if fails:
+        raise SmokeFailure("kernel A disagrees at the ViT chain's shapes:\n" + "\n".join(fails))
+
+    # the float artifacts: the CLI writes none for fp32, so the pruned model's
+    # fold is written here as the fp32 artifact (a folded cast at fp32, which
+    # either package's loader serves)
+    pruned = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(quant_dir))),
+                          "pruning", "smoke_vit", "fold_0")
+    raw = artifacts.load_checkpoint_raw(pruned, artifacts.BEST)
+    with open(os.path.join(quant_dir, "model_fp32.msgpack"), "wb") as f:
+        f.write(artifacts.tree_bytes(qvit.fold(spec, raw["params"], {})))
+    x8 = imgs[:8]
+    for method, dtype in (("fp32", torch.float32), ("fp16", torch.float16),
+                          ("bf16", torch.bfloat16), ("weight_only_int8", torch.bfloat16)):
+        pred = Predictor.from_artifact(quant_dir, method, device="cuda", batch_size=len(x8))
+        served = pred.predict_logits(x8)
+        tree = artifacts.load_checkpoint_raw(quant_dir, method)
+        if method == "weight_only_int8":
+            tree = wo8.dequantize(tree, torch.bfloat16)
+        folded = qvit.place_folded(tree, "cuda")
+        with torch.inference_mode():
+            own = qvit.apply_folded(spec, folded, normalize_images(
+                torch.from_numpy(x8).cuda(), dtype)).float().cpu().numpy()
+        equal = bool(np.array_equal(served, own))
+        emit({"phase": "vit_float_serve", **_stage_card(dev), "method": method,
+              "compute_dtype": str(dtype)[6:], "images": len(x8), "equal": equal,
+              "max_abs_err": float(np.abs(served - own).max()),
+              "finite": bool(np.isfinite(served).all())})
+        if not equal or not np.isfinite(served).all():
+            raise SmokeFailure(f"vit_float_serve: {method} through Predictor is not its "
+                               f"apply_folded")
+    return rows, launches_by
+
+
+def run_dynamic_fc_route(dev, gen: torch.Generator, quant_dirs: dict):
+    """``dynamic_fc_route``: the CNN families' dynamic int8 fc on kernel A's
+    dynamic route against the float64 formula it replaced, bit for bit: at
+    the fc shapes of ResNet18 (K 512), EfficientNet-B0 (1280) and ResNet50
+    (2048) on random non-negative features, and on each stage chain's
+    dynamic artifact (its trunk's features, batch 256)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import engine
+    from inference_efficient_vision_models_tpu_torch.compress.quant.observers import (
+        quantize_weight_per_channel)
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+    from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
+
+    cases = []
+    for k in (512, 1280, 2048):
+        feats = torch.randn((BATCH, k), generator=gen, device="cuda").abs() * 2
+        w = np.random.default_rng(k).standard_normal((k, 6)).astype(np.float32) * 0.05
+        w_q, w_scale = quantize_weight_per_channel(w, channel_axis=1)
+        fcq = {"w_q": torch.from_numpy(w_q).cuda(), "w_scale": torch.from_numpy(w_scale).cuda(),
+               "w_sum": torch.from_numpy(w_q.sum(axis=0, dtype=np.int32)).cuda(),
+               "bias": torch.randn(6, generator=gen, device="cuda")}
+        cases.append((f"random K {k}", feats, fcq))
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    for name, d in quant_dirs.items():
+        with open(os.path.join(d, "spec.json")) as f:
+            spec = spec_from_dict(json.load(f))
+        m = engine.place_folded(spec, artifacts.load_checkpoint_raw(d, "dynamic_int8"), "cuda")
+        with torch.inference_mode():
+            feats = engine.quant_module(spec).apply_folded(spec, m, normalize_images(x),
+                                                           return_features=True)
+        cases.append((f"{name} chain", feats, m["fc_q"]))
+    out = []
+    for name, feats, fcq in cases:
+        with torch.inference_mode():
+            got = engine._dynamic_fc(feats, {**fcq, "w": pack_weight(fcq["w_q"])})
+            ref = dynamic_fc_float64(feats, fcq)
+        out.append({"case": name, "k": int(feats.shape[1]), "equal": bool(torch.equal(got, ref)),
+                    "max_abs_err": float((got - ref).abs().max())})
+    emit({"phase": "dynamic_fc_route", **_stage_card(dev), "cases": out})
+    if not all(c["equal"] for c in out):
+        raise SmokeFailure(f"dynamic_fc_route: the kernel route is not the float64 formula: "
+                           f"{out}")
 
 
 # --------------------------------------------------------------------------
@@ -2210,7 +2669,7 @@ def port_train_step(weights: dict, batch, device, cfg=TRAIN_STEP) -> dict:
     imgs, labels, mask = batch
     b = (torch.from_numpy(imgs).to(device), torch.from_numpy(labels.astype(np.int64)).to(device),
          torch.from_numpy(mask).to(device))
-    specs = {r: make_spec(cfg[r], 6) for r in ("teacher", "student")}
+    specs = {r: make_spec(cfg[r], 6, image_size=cfg["size"]) for r in ("teacher", "student")}
 
     def model(r):
         return tuple(params_from_jax(specs[r], t, device) for t in weights[r])
@@ -2269,7 +2728,7 @@ def compare_train_step(role: str, got, golden, limits=None, cfg=TRAIN_STEP) -> d
                                    / np.abs(golden[f"{role}_logits"]).max()),
         "grad_norm_rel": _rel(mine[f"{role}_grad_norms"], golden[f"{role}_grad_norms"], fl),
         "bn_sum_over_abs_sum": float((np.abs(mine[f"{role}_bn_sums"] - golden[f"{role}_bn_sums"])
-                                      / golden[f"{role}_bn_abs_sums"]).max()),
+                                      / golden[f"{role}_bn_abs_sums"]).max(initial=0.0)),
         "mu_norm_rel": _rel(mine[f"{role}_mu_norms"], golden[f"{role}_mu_norms"], fl),
         "nu_norm_rel": _rel(mine[f"{role}_nu_norms"], golden[f"{role}_nu_norms"], fl * fl),
         "update_dev_over_lr": float(np.abs(mine[f"{role}_update_over_lr"]
@@ -2365,7 +2824,8 @@ def step_weights(cfg) -> dict:
     """The train-step golden's seeded weights of each role (JAX layout)."""
     from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
 
-    return {r: params_from_seed(make_spec(cfg[r], 6), cfg.get(f"{r}_seed", cfg["seed"]))
+    return {r: params_from_seed(make_spec(cfg[r], 6, image_size=cfg["size"]),
+                                cfg.get(f"{r}_seed", cfg["seed"]))
             for r in ("teacher", "student")}
 
 
@@ -2488,11 +2948,14 @@ def port_recal_effnet(spec, p, s, imgs, device, cfg=EFF_CONVERT):
 
 def port_convert_effnet(spec, p, s, imgs, labels, device, cfg=EFF_CONVERT):
     """fold -> calibrate (minmax, every image, on ``device``) -> convert, by
-    the spec's quantization module -> (the converted tree, observers,
-    {fold_s, calibrate_s, convert_s})."""
+    the spec's quantization module (an MBConv network's or the ViT's) ->
+    (the converted tree, observers, {fold_s, calibrate_s, convert_s})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import engine
     from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
-    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import place_folded
     from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+
+    def place_folded(tree, dev):
+        return engine.place_folded(spec, tree, dev)
 
     qmod = quant_module(spec)
     t = {}
@@ -2507,6 +2970,41 @@ def port_convert_effnet(spec, p, s, imgs, labels, device, cfg=EFF_CONVERT):
     q = qmod.convert_static_int8(spec, folded, obs, image_size=(cfg["size"], cfg["size"]))
     t["convert_s"] = time.perf_counter() - t0
     return q, obs, t
+
+
+def dynamic_fc_float64(feats: torch.Tensor, fcq: dict) -> torch.Tensor:
+    """The CNN families' dynamic int8 fc as the port formed it before kernel
+    A's dynamic route served it (the int32 sum as a float64 matmul): the
+    reference ``dynamic_fc_route`` and the CPU tests hold the route to, bit
+    for bit."""
+    dev = feats.device
+    zero = torch.zeros((), device=dev)
+    lo = torch.minimum(feats.min(), zero)
+    hi = torch.maximum(feats.max(), zero)
+    scale = torch.clamp_min((hi - lo) / torch.full((), 255.0, device=dev), 1.2e-7)
+    zp = torch.clamp(torch.round(-lo / scale), 0, 255)
+    x_s = torch.clamp(torch.round(feats / scale) + zp, 0, 255) - 128
+    acc = x_s.double() @ fcq["w_q"].double()
+    acc = acc - (zp.double() - 128) * fcq["w_sum"].double()
+    return acc.float() * (scale * fcq["w_scale"]) + fcq["bias"]
+
+
+def vit_convert_inputs(cfg=VIT_CONVERT):
+    """The ViT-Tiny/16 spec at ``cfg``'s size, its seeded params, an empty
+    state and ``cfg``'s surrogate images."""
+    from inference_efficient_vision_models_tpu_torch.data.synthetic import make_synthetic_neudet
+    from inference_efficient_vision_models_tpu_torch.models.vit import vit_spec
+
+    spec = vit_spec("vit_tiny_patch16_224", 6, image_size=cfg["size"])
+    imgs, labels = make_synthetic_neudet(cfg["per_class"], image_size=cfg["size"],
+                                         seed=cfg["image_seed"])
+    return spec, vit_params_from_seed(spec, cfg["seed"]), {}, imgs, labels
+
+
+def vit_dyn_images() -> np.ndarray:
+    """The 8 seeded 224x224 uint8 images of ``VIT_DYN_GOLDEN``."""
+    return np.random.default_rng(VIT_DYN_IMAGES["seed"]).integers(
+        0, 256, (VIT_DYN_IMAGES["n"], 224, 224, 3), dtype=np.uint8)
 
 
 def mbv2_golden_images() -> np.ndarray:
@@ -2693,6 +3191,7 @@ def training(dev, root, q):
         chain = stage_clis(dev, root)
         chain["eff"] = effnet_stage_clis(dev, root)
         chain["mbv2"] = mbv2_stage_clis(dev, root)
+        chain["vit"] = vit_stage_clis(dev, root)
         result = chain
         profile_train_steps(dev, steps)
     finally:
@@ -2770,36 +3269,74 @@ EFF_CHAIN_METHODS = ("static_int8", "static_int8_mixed", "dynamic_int8", "fp16",
 
 def effnet_stage_clis(dev, root):
     """``effnet_chain``: EfficientNet-B0 through the port's four stage CLIs
-    (``mbconv_stage_clis``)."""
-    return mbconv_stage_clis(dev, root, "efficientnet_b0", "smoke_eff", "effnet_chain",
-                             "efficientnet", (16, 24, 40, 80, 112, 192, 320))
+    (``chain_stage_clis``)."""
+    return chain_stage_clis(dev, root, "efficientnet_b0", "smoke_eff", "effnet_chain",
+                            "efficientnet", (16, 24, 40, 80, 112, 192, 320))
 
 
 def mbv2_stage_clis(dev, root):
     """``mbv2_chain``: MobileNetV2 through the port's four stage CLIs
-    (``mbconv_stage_clis``); the fused executor's artifact is the shared
+    (``chain_stage_clis``); the fused executor's artifact is the shared
     static-int8 file, which ``load_quantized`` restores for it, as the JAX
     package's loader falls back (neither stage-4 CLI writes a fused file)."""
-    return mbconv_stage_clis(dev, root, "mobilenet_v2", "smoke_mbv2", "mbv2_chain",
-                             "mobilenet_v2", (16, 24, 32, 64, 96, 160, 320),
-                             extra_restored=("static_int8_fused",))
+    return chain_stage_clis(dev, root, "mobilenet_v2", "smoke_mbv2", "mbv2_chain",
+                            "mobilenet_v2", (16, 24, 32, 64, 96, 160, 320),
+                            extra_restored=("static_int8_fused",))
 
 
-def mbconv_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, stock_widths,
-                      extra_restored=()):
-    """An MBConv network (EfficientNet-B0 or MobileNetV2) through the port's
-    four stage CLIs at 224x224 and full width, fold 0, one epoch, the
+VIT_CHAIN_METHODS = ("static_int8", "static_int8_bf16", "dynamic_int8", "fp16", "bf16",
+                     "weight_only_int8")
+
+
+def vit_stage_clis(dev, root):
+    """``vit_chain``: REPORT.md's ``vt2`` through the port's four stage CLIs
+    (``chain_stage_clis``): a ViT-S/16 teacher, KD into ViT-Tiny/16, MLP
+    units and heads pruned (l2, ratio 0.1, round_to 8), the six methods the
+    port serves for a ViT; checkpoints also byte-round-trip."""
+    return chain_stage_clis(dev, root, "vit_small_patch16_224", "smoke_vit", "vit_chain", "vit",
+                            (768,) * 12, student="vit_tiny_patch16_224",
+                            methods=VIT_CHAIN_METHODS, ratio=0.1,
+                            must_launch=("int8_matmul_requant",))
+
+
+def _pruned_widths(spec, stock_widths):
+    """(the pruned widths, their checks): every conv width, or a ViT's MLP
+    widths, a multiple of 8 (an SE squeeze width below 8 is kept whole),
+    and something pruned."""
+    from inference_efficient_vision_models_tpu_torch.models.vit import ViTSpec
+
+    if isinstance(spec, ViTSpec):
+        return ({"head_counts": spec.head_counts, "mlp_hidden": spec.mlp_hidden},
+                {"prune_widths_multiple_of_8": all(w % 8 == 0 for w in spec.mlp_hidden),
+                 "prune_pruned": spec.mlp_hidden != tuple(stock_widths)})
+    widths = [spec.stem_width, spec.last_width, *spec.stage_widths,
+              *(h for r in spec.hidden_widths for h in r)]
+    se_widths = getattr(spec, "se_widths", ())
+    return ({"stem_width": spec.stem_width, "stage_widths": spec.stage_widths,
+             "hidden_widths": spec.hidden_widths, "se_widths": se_widths,
+             "last_width": spec.last_width},
+            {"prune_widths_multiple_of_8": all(w % 8 == 0 for w in widths) and all(
+                w % 8 == 0 or w < 8 for r in se_widths for w in r),
+             "prune_pruned": spec.stage_widths != tuple(stock_widths)})
+
+
+def chain_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, stock_widths,
+                     extra_restored=(), *, student=None, methods=EFF_CHAIN_METHODS,
+                     ratio: float = 0.2, must_launch=("int8_matmul_requant", "dwconv_int8")):
+    """A network (EfficientNet-B0, MobileNetV2, or a ViT pair) through the
+    port's four stage CLIs at 224x224 and full width, fold 0, one epoch, the
     synthetic surrogate (480 images a split), ``choice=2`` after each: the
-    teacher (bf16, batch 32), KD of the model into itself (alpha 0.5, T 4),
-    prune (l2, ratio 0.2, round_to 8, one fine-tune epoch) and quantize
-    (minmax, 256 calibration images, the six methods the port serves).
-    Checks: finite losses, checkpoints in the JAX layout with ``__kind__ ==
-    kind``, pruned widths multiples of 8 (an SE squeeze width below 8 is
-    kept whole), ``choice=2`` accuracy equal to ``choice=1``'s, every
+    teacher ``model`` (bf16, batch 32), KD into ``student`` (the model
+    itself by default; alpha 0.5, T 4), prune (l2, ``ratio``, round_to 8,
+    one fine-tune epoch) and quantize (minmax, 256 calibration images,
+    ``methods``). Checks: finite losses, checkpoints in the JAX layout with
+    ``__kind__ == kind`` (a ViT's also byte-round-trip), pruned widths
+    multiples of 8, ``choice=2`` accuracy equal to ``choice=1``'s, every
     method's summary row and an artifact that ``load_quantized`` restores
     (and the methods of ``extra_restored``, from the files there). The
-    kernel launch counts are set to 0 before the chain and read after it.
-    -> {"launches", "quant_dir"}."""
+    kernel launch counts are set to 0 before the chain and read after it;
+    each kernel of ``must_launch`` must have run. -> {"launches",
+    "quant_dir"}."""
     import contextlib
 
     from inference_efficient_vision_models_tpu_torch.cli import kd, prune, quantize, teacher
@@ -2810,20 +3347,22 @@ def mbconv_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, st
     common = [f"artifacts_root={root!r}", f"experiment_name={exp!r}", "folds=(0,)",
               "synthetic_size=480", "pretrained=False", "batch_size=32"]
     train_args = common + ["epochs=1", "compute_dtype='bfloat16'"]
+    student = student or model
     stages = [
         ("teacher", teacher, "teacher_training", train_args + [f"model_name={model!r}"]),
         ("kd", kd, "knowledge_distillation", train_args + [
-            f"teacher_model={model!r}", f"student_model={model!r}",
+            f"teacher_model={model!r}", f"student_model={student!r}",
             f"teacher_exp_name={exp!r}", "alpha=0.5", "temperature=4.0"]),
         ("prune", prune, "pruning", common + [
-            f"source_exp_name={exp!r}", "pruning_method='l2'", "pruning_ratio=0.2",
+            f"source_exp_name={exp!r}", "pruning_method='l2'", f"pruning_ratio={ratio!r}",
             "round_to=8", "finetune_epochs=1", "compute_dtype='bfloat16'"]),
         ("quantize", quantize, "quantization", common + [
             "model_type='pruned'", f"pruning_exp_name={exp!r}", "calibration_images=256",
-            "observer='minmax'", f"methods={EFF_CHAIN_METHODS!r}"]),
+            "observer='minmax'", f"methods={tuple(methods)!r}"]),
     ]
     _lib.reset_launch_counts()
-    out = {"phase": phase, **_stage_card(dev), "model": model, "image_size": 224, "stages": {}}
+    out = {"phase": phase, **_stage_card(dev), "model": model, "student": student,
+           "image_size": 224, "stages": {}}
     checks = {}
     for name, mod, stage, argv in stages:
         t0 = time.perf_counter()
@@ -2849,24 +3388,19 @@ def mbconv_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, st
             checks[f"{name}_kind"] = spec_d.get("__kind__") == kind
             checks[f"{name}_jax_layout"] = (_same_shapes(best["params"], ref_p)
                                             and _same_shapes(best["state"], ref_s))
+            if kind == "vit":
+                checks[f"{name}_bytes_round_trip"] = _reserializes(fold_dir)
             acc = "Accuracy" if name == "prune" else "test_acc"
             last = first[-1] if name == "prune" else first[0]
             checks[f"{name}_choice2_acc_equal"] = second[0][acc] == last[acc]
         if name == "prune":
             spec = spec_from_dict(artifacts.load_spec_dict(fold_dir))
-            widths = [spec.stem_width, spec.last_width, *spec.stage_widths,
-                      *(h for r in spec.hidden_widths for h in r)]
-            se_widths = getattr(spec, "se_widths", ())
-            rec["spec"] = {"stem_width": spec.stem_width, "stage_widths": spec.stage_widths,
-                           "hidden_widths": spec.hidden_widths, "se_widths": se_widths,
-                           "last_width": spec.last_width}
-            checks["prune_widths_multiple_of_8"] = all(w % 8 == 0 for w in widths) and all(
-                w % 8 == 0 or w < 8 for r in se_widths for w in r)
-            checks["prune_pruned"] = spec.stage_widths != tuple(stock_widths)
+            rec["spec"], width_checks = _pruned_widths(spec, stock_widths)
+            checks.update(width_checks)
         if name == "quantize":
             rows = {r["method"]: r for r in first}
             reload = {r["method"]: r for r in second}
-            for m in EFF_CHAIN_METHODS + tuple(extra_restored):
+            for m in tuple(methods) + tuple(extra_restored):
                 restored = True
                 try:
                     load_quantized(fold_dir, m, device="cuda")
@@ -2886,7 +3420,7 @@ def mbconv_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, st
     emit(out)
     if not all(v is True for v in checks.values()):
         raise SmokeFailure(f"{phase}: {checks}")
-    for k in ("int8_matmul_requant", "dwconv_int8"):
+    for k in must_launch:
         if not launches.get(k):
             raise SmokeFailure(f"{phase}: {k} was not launched by the stage chain")
     return {"launches": launches, "quant_dir": quant_dir}
@@ -3723,6 +4257,11 @@ def main() -> int:
                           "effnet_train_step_golden")
     run_convert_effnet(dev)
     mbv2_rows, mbv2_launches = run_mbv2(dev, gen, np.random.default_rng(7))
+    run_train_step_golden(dev, VIT_TRAIN_STEP, VIT_TRAIN_GOLDEN, VIT_TRAIN_LIMITS,
+                          "vit_train_step_golden")
+    run_convert_vit(dev)
+    vit_dyn_rows, vit_dyn_launches = run_vit_dynamic(dev, gen)
+    vit_dyn_launches.update(run_vit_head_pruned(dev))
     with tempfile.TemporaryDirectory() as root:
         chain = run_training(dev, root)
         # the INT8 ResNet18 the chain made: each kernel call of its forward
@@ -3742,17 +4281,23 @@ def main() -> int:
                 "static_int8": MBV2_UNFUSED_PER_FORWARD,
                 "static_int8_fused": MBV2_FUSED_PER_FORWARD,
                 "static_int8_mixed": MBV2_MIXED_PER_FORWARD})
+        vit_pipe_rows, vit_pipe_launches = run_vit_chain_int8(dev, gen, chain["vit"]["quant_dir"])
+        run_dynamic_fc_route(dev, gen, {"resnet18": chain["quant_dir"],
+                                        "efficientnet_b0": chain["eff"]["quant_dir"],
+                                        "mobilenet_v2": chain["mbv2"]["quant_dir"]})
     emit({"kernels": kernels_line(rows + eff_rows + e_rows + vit_rows + pipe_rows + eff_pipe_rows
-                                  + mbv2_rows + mbv2_pipe_rows,
+                                  + mbv2_rows + mbv2_pipe_rows + vit_dyn_rows + vit_pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
                                    "efficientnet_b0_unfused": e_launches,
                                    "resnet18_pipeline": chain["launches"],
                                    "efficientnet_b0_pipeline": chain["eff"]["launches"],
                                    "mobilenet_v2_pipeline": chain["mbv2"]["launches"],
+                                   "vit_tiny_pipeline": chain["vit"]["launches"],
                                    **eff_pipe_launches, **mbv2_pipe_launches, **mbv2_launches,
-                                   **vit_launches, **server_launches},
+                                   **vit_launches, **vit_dyn_launches, **vit_pipe_launches,
+                                   **server_launches},
                                   aside={"resnet18_pipeline", "efficientnet_b0_pipeline",
-                                         "mobilenet_v2_pipeline"})})
+                                         "mobilenet_v2_pipeline", "vit_tiny_pipeline"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

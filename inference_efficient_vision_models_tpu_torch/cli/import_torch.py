@@ -1,5 +1,5 @@
 """Import a reference torch ``.pth`` checkpoint into a fold directory, the
-port of the JAX package's ``cli/import_torch.py`` (ResNet family).
+port of the JAX package's ``cli/import_torch.py`` (every family).
 
 The reference's checkpoints (``model_state_dict`` unwrap, ``module.``
 prefix strip, full-pickle pruned modules) become the fold-dir contract

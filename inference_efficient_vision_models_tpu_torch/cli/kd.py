@@ -17,8 +17,7 @@ from ..core.prng import generator_for
 from ..core.provenance import stage_record, write_provenance
 from ..metrics.report import summarize_folds
 from ..models.registry import create_model, make_spec
-from ..models.torch_import import load_torch_checkpoint
-from ..models.resnet import place
+from ..models.torch_import import load_torch_checkpoint, place_converted
 from ..train.loop import train_classifier
 from .common import fold_arrays, iter_folds, make_config, setup_stage, stage_device
 from .teacher import evaluate_fold, load_stage_model, run_test as _run_test
@@ -27,10 +26,10 @@ from .teacher import evaluate_fold, load_stage_model, run_test as _run_test
 def _load_teacher(cfg, fold: int, logger, device):
     """The stage-1 teacher for this fold (frozen), on ``device``."""
     if cfg.teacher_checkpoint and os.path.exists(cfg.teacher_checkpoint):
-        spec = make_spec(cfg.teacher_model, cfg.num_classes)
+        spec = make_spec(cfg.teacher_model, cfg.num_classes, image_size=cfg.image_size[0])
         params, state = load_torch_checkpoint(spec, cfg.teacher_checkpoint)
         logger.info("loaded torch teacher checkpoint %s", cfg.teacher_checkpoint)
-        return spec, place(params, device), place(state, device)
+        return spec, place_converted(spec, params, device), place_converted(spec, state, device)
     fold_dir = os.path.join(cfg.resolve_teacher_path(), f"fold_{fold}")
     teacher = load_stage_model(fold_dir, cfg.test_ckpt_type, device)
     logger.info("loaded teacher from %s", fold_dir)
@@ -49,7 +48,7 @@ def run_train(cfg, logger, data, split, device=None):
             continue
         train_d, val_d, test_d = fold_arrays(data, split, fold)
         spec, params, state = create_model(
-            cfg.student_model, cfg.num_classes,
+            cfg.student_model, cfg.num_classes, image_size=cfg.image_size[0],
             generator=generator_for(cfg.seed, "kd_fold", fold, "init"),
             pretrained=cfg.pretrained, logger=logger, device=device)
         params, state, _ = train_classifier(cfg, spec, params, state, train_d, val_d,

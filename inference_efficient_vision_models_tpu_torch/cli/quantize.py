@@ -72,12 +72,6 @@ def run_test(cfg, logger, data, device=None):
     return rows
 
 
-def _not_ported(what: str, item: str):
-    def fail():
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 {item})")
-    return fail
-
-
 def run_quantize(cfg, logger, data, split, device=None):
     device = device or stage_device()
     rows = []
@@ -98,7 +92,8 @@ def run_quantize(cfg, logger, data, split, device=None):
             "fp32": lambda: (engine.folded, engine.float_forward()),
             "static_int8": lambda: engine.static_quantize(calib),
             "static_int8_mixed": lambda: engine.static_quantize(calib, executor="mixed"),
-            "static_int8_bf16": _not_ported("the bf16-carrier executor", "item 15"),
+            # the bf16 activation carrier over the same conversion (ViTs)
+            "static_int8_bf16": lambda: engine.static_quantize(calib, executor="bf16"),
             "dynamic_int8": engine.dynamic_quantize,
             "fp16": lambda: engine.cast_half(torch.float16),
             "bf16": lambda: engine.cast_half(torch.bfloat16),
@@ -134,7 +129,7 @@ def run_quantize(cfg, logger, data, split, device=None):
             cfg, "quantization", fold, source_dir=src,
             model_type=cfg.model_type, spec_name=spec.name,
             num_classes=int(spec.num_classes),
-            stage_widths=[int(w) for w in spec.stage_widths],
+            stage_widths=[int(w) for w in getattr(spec, "stage_widths", ())] or None,
             observer=cfg.observer, qat_epochs=cfg.qat_epochs,
             adaround_iters=cfg.adaround_iters, calibration_images=cfg.calibration_images,
             methods=list(cfg.methods), static_int8_timings=engine.timings,

@@ -50,7 +50,7 @@ def run_train(cfg, logger, data, split, device=None):
         logger.info("===== fold %d/%d =====", fold, cfg.num_folds - 1)
         train_d, val_d, test_d = fold_arrays(data, split, fold)
         spec, params, state = create_model(
-            cfg.model_name, cfg.num_classes,
+            cfg.model_name, cfg.num_classes, image_size=cfg.image_size[0],
             generator=generator_for(cfg.seed, "fold", fold, "init"),
             pretrained=cfg.pretrained, logger=logger, device=device)
         params, state, _ = train_classifier(cfg, spec, params, state, train_d, val_d,

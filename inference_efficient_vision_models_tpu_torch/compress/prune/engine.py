@@ -1,6 +1,8 @@
 """Structured pruning engine (select -> physically re-pack -> fine-tune), the
-port of the JAX package's ``compress/prune/engine.py`` for the ResNet family,
-EfficientNet and MobileNetV2.
+port of the JAX package's ``compress/prune/engine.py``: the ResNet family,
+EfficientNet and MobileNetV2 prune channel groups through the dependency
+graph (``graph.py``), a ViT prunes MLP hidden units and whole heads
+(``vit_engine.py``).
 
 Channels are physically removed: the pruned model is an ordinary smaller
 network whose spec serializes to JSON. The selection and the surgery run in
@@ -21,6 +23,7 @@ import torch
 from ...models.efficientnet import EfficientNetSpec
 from ...models.mobilenet import MobileNetV2Spec
 from ...models.registry import params_from_jax, params_to_jax
+from ...models.vit import ViTSpec
 from ...models.widths import ResNetSpec
 from ...utils.device import resolve_device
 from .graph import IN_AXIS, get_path, group_slices, set_path
@@ -243,11 +246,15 @@ def prune_model(spec, params, state, *, ratio: float, method: str = "l2",
                 keep: Optional[Dict[GroupKey, np.ndarray]] = None) -> Tuple[object, dict, dict]:
     """One-shot structured pruning of JAX-layout numpy trees (the reference's
     single ``pruner.step()``); ``random`` draws from ``default_rng(seed)`` in
-    group order."""
+    group order. A ViT goes to ``vit_engine.prune_vit`` (MLP units and
+    heads; ``global_pruning`` and ``grads`` do not apply to it)."""
+    if isinstance(spec, ViTSpec):
+        from .vit_engine import prune_vit
+
+        return prune_vit(spec, params, state, ratio=ratio, method=method, round_to=round_to,
+                         seed=seed, keep=keep)
     if not isinstance(spec, (ResNetSpec, EfficientNetSpec, MobileNetV2Spec)):
-        raise NotImplementedError(
-            f"pruning {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 item "
-            f"15: compress/prune/vit_engine.py)")
+        raise TypeError(f"no structured pruning for {type(spec).__name__}")
     if keep is None:
         keep = select_channels(spec, params, ratio=ratio, method=method,
                                global_pruning=global_pruning, round_to=round_to,
@@ -279,7 +286,11 @@ class StructuredPruningEngine:
         self.spec = spec
         self.params = params_from_jax(spec, params, self.device)
         self.state = params_from_jax(spec, state, self.device)
-        self.logger.info("pruned → stem %d, stages %s", spec.stem_width, spec.stage_widths)
+        if isinstance(spec, ViTSpec):  # the widths live per block (heads, MLP units)
+            self.logger.info("pruned → %s, heads %s, mlp hidden %s", spec.name,
+                             spec.head_counts, spec.mlp_hidden)
+        else:
+            self.logger.info("pruned → stem %d, stages %s", spec.stem_width, spec.stage_widths)
         return self.spec, self.params, self.state
 
     def prune_iterative(self, train_d, val_d, fold_dir, grads_fn=None):
@@ -303,8 +314,9 @@ class StructuredPruningEngine:
 
     def recalibrate(self, train_d):
         """Re-estimate the BN running statistics on train images
-        (``train/bn_recal.py``); a no-op when ``cfg.bn_recalibrate`` is off."""
-        if not getattr(self.cfg, "bn_recalibrate", True):
+        (``train/bn_recal.py``); a no-op when ``cfg.bn_recalibrate`` is off
+        and for a ViT, which has no BatchNorm."""
+        if not getattr(self.cfg, "bn_recalibrate", True) or isinstance(self.spec, ViTSpec):
             return self.state
         from ...train.bn_recal import recalibrate_bn
 

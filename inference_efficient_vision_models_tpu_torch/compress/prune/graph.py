@@ -62,10 +62,9 @@ def group_slices(spec) -> List[Dict]:
     if isinstance(spec, MobileNetV2Spec):
         return group_slices_mbv2(spec)
     if not isinstance(spec, ResNetSpec):
-        raise NotImplementedError(
-            f"structured pruning of {type(spec).__name__[:-4]} is not ported yet (ROADMAP "
-            f"queue 1 item 15); the port prunes the ResNet family, EfficientNet and "
-            f"MobileNetV2")
+        raise TypeError(
+            f"no channel groups for {type(spec).__name__}: a ViT prunes its MLP units and "
+            f"heads through compress/prune/vit_engine.py (engine.prune_model dispatches)")
     return group_slices_resnet(spec)
 
 

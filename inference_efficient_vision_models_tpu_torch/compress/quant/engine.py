@@ -1,15 +1,18 @@
 """QuantizationEngine: the stage-4 API, the port of the JAX package's
-``compress/quant/engine.py`` for the ResNet family, EfficientNet and
-MobileNetV2.
+``compress/quant/engine.py`` for the ResNet family, EfficientNet,
+MobileNetV2 and the ViT.
 
 Methods (reference parity):
   static_quantize    per-channel int8 weights + calibrated quint8
                      activations -> the int8 forward (ResNet: kernels A and
                      B; EfficientNet and MobileNetV2: the unfused executor
                      on kernels A and E, or ``executor="mixed"``: kernel A
-                     and a bf16 depthwise)
-  dynamic_quantize   int8 fc with a per-batch activation scale; the convs
-                     stay folded fp32 (torch ``quantize_dynamic({nn.Linear})``)
+                     and a bf16 depthwise; ViT: every dense layer on kernel
+                     A, ``executor="bf16"``: the bf16 activation carrier)
+  dynamic_quantize   int8 dense layers with a per-batch activation scale on
+                     kernel A's dynamic route: a CNN's fc, the convs folded
+                     fp32 (torch ``quantize_dynamic({nn.Linear})``); every
+                     dense layer of a ViT
   weight_only_quantize  W8A16: int8 weight storage, bf16 compute
   cast_half          fp16 (parity) / bf16 cast of the folded model
   evaluate_accuracy / measure_latency / size_mb   the shared harness
@@ -32,10 +35,12 @@ from ...metrics.profile import latency_ms, model_size_bytes, throughput_ips
 from ...models.efficientnet import EfficientNetSpec
 from ...models.mobilenet import MobileNetV2Spec
 from ...models.registry import params_to_jax
+from ...models.vit import ViTSpec
 from ...models.widths import ResNetSpec
+from ...ops.int8_matmul import dynamic_qparams, int8_matmul_requant_dynamic, pack_weight
 from ...ops.space_to_depth import space_to_depth_u8
-from ...utils.device import exact_fp32, resolve_device
-from . import qeffnet, qmobilenet, qresnet, wo8
+from ...utils.device import resolve_device
+from . import qeffnet, qmobilenet, qresnet, qvit, wo8
 from .observers import quantize_weight_per_channel
 
 
@@ -48,28 +53,24 @@ def quant_module(spec):
         return qeffnet
     if isinstance(spec, MobileNetV2Spec):
         return qmobilenet
-    raise NotImplementedError(
-        f"stage-4 conversion of {type(spec).__name__[:-4]} is not ported yet (ROADMAP queue 1 "
-        f"item 15); the port converts the ResNet family, EfficientNet and MobileNetV2")
+    if isinstance(spec, ViTSpec):
+        return qvit
+    raise TypeError(f"no quantization family module for {type(spec).__name__}")
+
+
+def place_folded(spec, folded, device=None, dtype=None):
+    """A folded JAX-layout tree on ``device`` in the layout the family's
+    ``apply_folded`` takes (OIHW convs for the CNNs, the ViT's as it is)."""
+    mod = qvit if isinstance(spec, ViTSpec) else qresnet
+    return mod.place_folded(folded, device, dtype)
 
 
 def _dynamic_fc(feats: torch.Tensor, fcq: Dict) -> torch.Tensor:
-    """Dynamic int8 dense: a per-batch activation scale and zero point, then
-    the int8 product. The int32 accumulator is formed in float64, exact for
-    every K of these models (|x_s w_q| <= 128 * 128, so K * 2^14 < 2^53;
-    fp32 would be exact only while K * 128 * 127 < 2^24, which ResNet50's
-    K = 2048 breaks): PyTorch has no int8 matmul for an N of 6."""
-    dev = feats.device
-    zero = torch.zeros((), device=dev)
-    lo = torch.minimum(feats.min(), zero)
-    hi = torch.maximum(feats.max(), zero)
-    # 0-d divisors: CUDA divides by a Python scalar as a multiply by its reciprocal
-    scale = torch.clamp_min((hi - lo) / torch.full((), 255.0, device=dev), 1.2e-7)
-    zp = torch.clamp(torch.round(-lo / scale), 0, 255)
-    x_s = torch.clamp(torch.round(feats / scale) + zp, 0, 255) - 128
-    acc = x_s.double() @ fcq["w_q"].double()
-    acc = acc - (zp.double() - 128) * fcq["w_sum"].double()
-    return acc.float() * (scale * fcq["w_scale"]) + fcq["bias"]
+    """Dynamic int8 dense on kernel A's dynamic route (``fcq["w"]`` packed):
+    a per-batch activation scale and zero point found on the device, the
+    int8 product and the fp32 epilogue, the JAX ``_dynamic_fc`` bit for bit."""
+    return int8_matmul_requant_dynamic(feats.contiguous(), fcq["w"], fcq["w_scale"],
+                                       fcq["bias"], fcq["w_sum"], dynamic_qparams(feats))
 
 
 def s2d_preprocess(imgs: np.ndarray) -> np.ndarray:
@@ -108,7 +109,7 @@ class QuantizationEngine:
         self.device = resolve_device(device)
         self.q = quant_module(spec)
         self.folded = self.q.fold(spec, params_to_jax(spec, params), params_to_jax(spec, state))
-        self.folded_dev = qresnet.place_folded(self.folded, self.device)
+        self.folded_dev = place_folded(spec, self.folded, self.device)
         self.timings: Dict[str, float] = {}  # static_quantize's wall seconds
 
     # -- conversions ---------------------------------------------------------
@@ -123,14 +124,16 @@ class QuantizationEngine:
         """Calibrate on at most cfg.calibration_images (the estimator from
         cfg.observer), then convert to int8; the forward runs the int8
         executor (``executor="mixed"``: an MBConv network's mixed executor
-        over the same conversion). Wall seconds of the two steps go to
+        over the same conversion; ``executor="bf16"``: a ViT's bf16 activation
+        carrier). Wall seconds of the two steps go to
         ``self.timings`` (calibrate_s, convert_s): the observer ranges come
         back to the host as floats, so the first ends with the device's work."""
         mbconv = isinstance(self.spec, (EfficientNetSpec, MobileNetV2Spec))
-        if executor not in (("int8", "mixed") if mbconv else ("int8",)):
+        vit = isinstance(self.spec, ViTSpec)
+        if executor not in ("int8", "mixed" if mbconv else "bf16" if vit else "int8"):
             raise NotImplementedError(
                 f"{type(self.spec).__name__[:-4]} has no {executor!r} executor (the mixed one "
-                f"serves MBConv networks)")
+                f"serves MBConv networks, the bf16 carrier the ViT)")
         loader = Batches(calib_data[0], calib_data[1], self.cfg.batch_size, self.device)
         t0 = time.perf_counter()
         observers = self.q.calibrate(self.spec, self.folded_dev, loader,
@@ -147,13 +150,20 @@ class QuantizationEngine:
         if mbconv:
             model = self.q.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device,
                                            executor=executor)
+        elif vit:
+            model = qvit.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device,
+                                         torch.bfloat16 if executor == "bf16" else torch.float32)
         else:
             model = qresnet.from_jax_qmodel(self.spec.to_dict(), qmodel, self.device)
         return qmodel, model
 
     def dynamic_quantize(self):
         """int8 fc (per-channel weights, per-batch activation qparams), the
-        convs folded fp32."""
+        convs folded fp32; a ViT: every dense layer int8 (qkv, proj, mlp1,
+        mlp2, head), the patch embed a float conv."""
+        if isinstance(self.spec, ViTSpec):
+            model = qvit.convert_dynamic_int8(self.spec, self.folded)
+            return model, qvit.from_dynamic_qmodel(self.spec, model, self.device)
         w_q, w_scale = quantize_weight_per_channel(np.asarray(self.folded["fc"]["w"]),
                                                    channel_axis=1)
         model = {k: v for k, v in self.folded.items() if k != "fc"}
@@ -221,7 +231,7 @@ def _cast_tree(tree, dtype):
 def folded_forward(spec, folded, dtype, device=None):
     """uint8 images -> fp32 logits through the folded model (JAX layout)
     cast to ``dtype``, normalized in that dtype."""
-    f = qresnet.place_folded(folded, device)
+    f = place_folded(spec, folded, device)
     apply_folded = quant_module(spec).apply_folded
 
     def fwd(x_u8):
@@ -231,14 +241,15 @@ def folded_forward(spec, folded, dtype, device=None):
 
 
 def dynamic_forward(spec, model, device=None):
-    """uint8 images -> logits of a dynamic-int8 model: the folded fp32 trunk
-    (TF32 off), then the dynamic int8 fc."""
-    m = qresnet.place_folded(model, device)
+    """uint8 images -> logits of a CNN's dynamic-int8 model: the folded fp32
+    trunk (TF32 off), then the dynamic int8 fc on kernel A (packed once)."""
+    m = place_folded(spec, model, device)
+    fcq = m["fc_q"]
+    fcq = {**fcq, "w": pack_weight(fcq["w_q"])}
     apply_folded = quant_module(spec).apply_folded
 
     def fwd(x_u8):
         feats = apply_folded(spec, m, normalize_images(x_u8), return_features=True)
-        with exact_fp32():
-            return _dynamic_fc(feats, m["fc_q"])
+        return _dynamic_fc(feats, fcq)
 
     return fwd

@@ -322,7 +322,7 @@ extern "C" int ievm_conv3x3_s1_int8(const void* x, const void* wmap, const void*
   const ConvArgs a{{static_cast<const float*>(w_scale), static_cast<const float*>(bias),
                     static_cast<const int*>(w_sum), out, (int)M, (int)K, O, out_kind,
                     relu ? ACT_RELU : ACT_NONE, zp_s, out_zp, in_scale, inv_out, tiles_per_group,
-                    stages, window, (int)((K + KS - 1) / KS)},
+                    stages, window, (int)((K + KS - 1) / KS), nullptr},
                    static_cast<const uint8_t*>(x), res, H, W, C, vec, res_kind, res_zp_s,
                    res_scale, inv_out_d};
   const dim3 grid(grid_m, groups);

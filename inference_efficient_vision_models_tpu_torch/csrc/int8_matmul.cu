@@ -56,6 +56,13 @@
 //   staged in shared memory, GELU and the conversion to int8 or bf16 run as
 //   a second pass over it, and full rows leave with 16-byte stores where N
 //   allows.
+// - The dynamic route (a per-batch activation scale, torch quantize_dynamic
+//   semantics; the dynamic INT8 ViT's dense layers): the input qparams are
+//   found on the device by the caller and passed as a pointer to
+//   {RN_f64(1 / s), s, zp_s}, which each thread reads once per block in place
+//   of the scalar arguments (GemmArgs::qp, null for the static route), so no
+//   launch waits for the host. The same instances run it: the loaders and
+//   the epilogue are the static route's, bit for bit.
 // The pipeline (blocks, rings, wgmma, persistent slices, staged epilogue) is
 // panel_gemm.cuh's, shared with the direct 3x3 conv; this file holds the
 // panel loaders of a matrix X and the epilogue's second pass. The tile plan
@@ -363,11 +370,13 @@ struct MatmulJob {
   const PanelSrc src;
   uint4 run[4];  // XK_FLAT: the next slice's rows, loaded while this one is multiplied and stored
 
-  // src.rs = RN_f32(inv_in): a device conversion rounds to nearest
+  // src.rs = RN_f32(inv_in): a device conversion rounds to nearest. The
+  // dynamic route (args.qp) reads inv_in and zp_s from the device buffer.
   __device__ __forceinline__ explicit MatmulJob(const MatmulArgs& args)
       : a(args),
-        src{static_cast<const uint8_t*>(args.x), args.M, args.K, args.vec, (float)(args.zp_s + 128),
-            args.inv_in, static_cast<float>(args.inv_in)} {}
+        src{static_cast<const uint8_t*>(args.x), args.M, args.K, args.vec,
+            (float)(zp_s_of(args) + 128), args.qp ? args.qp[0] : args.inv_in,
+            static_cast<float>(args.qp ? args.qp[0] : args.inv_in)} {}
 
   __device__ __forceinline__ void begin(uint8_t* half, int m0w) {
     if constexpr (XK == XK_FLAT) {
@@ -463,17 +472,20 @@ extern "C" int ievm_int8_weight_tensor_map(const void* wt, int Np, int Kp, void*
 // x_kind: 0 int8, 1 fp32, 2 bf16.  out_kind / act: see int8_gemm.cuh.  wmap:
 // the weight's tensor map (ievm_int8_weight_tensor_map).  inv_in: 1 / in_scale
 // in double.  bn, grid_m, groups, tiles_per_group, stages, window: the tile
-// plan (ops/int8_matmul.py:tile_plan).
+// plan (ops/int8_matmul.py:tile_plan).  qp: null, or (the dynamic route, a
+// float input and a float output) the device buffer {inv_in, in_scale, zp_s}
+// that replaces zp_s, in_scale and inv_in.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ievm_int8_matmul_requant(const void* x, int x_kind, const void* wmap, const void* w_scale,
                                         const void* bias, const void* w_sum, void* out, int out_kind,
                                         int act, int M, int K, int N, int zp_s, int out_zp,
                                         float in_scale, float inv_out, double inv_in, int bn,
                                         int grid_m, int groups, int tiles_per_group, int stages,
-                                        int window, void* stream) {
+                                        int window, const void* qp, void* stream) {
   using namespace ievm;
   int smem;
   if (x_kind < 0 || x_kind > 2 || act < 0 || act > 3 ||
+      (qp != nullptr && (x_kind == 0 || out_kind == OUT_I8 || reinterpret_cast<uintptr_t>(qp) % 8)) ||
       !plan_ok(M, K, N, out_kind, true, bn, grid_m, groups, tiles_per_group, stages, window, &smem))
     return (int)cudaErrorInvalidValue;
   const uintptr_t xp = reinterpret_cast<uintptr_t>(x);
@@ -490,7 +502,8 @@ extern "C" int ievm_int8_matmul_requant(const void* x, int x_kind, const void* w
   memcpy(&map, wmap, sizeof(map));
   const MatmulArgs a{{static_cast<const float*>(w_scale), static_cast<const float*>(bias),
                       static_cast<const int*>(w_sum), out, M, K, N, out_kind, act, zp_s, out_zp,
-                      in_scale, inv_out, tiles_per_group, stages, window, (K + KS - 1) / KS},
+                      in_scale, inv_out, tiles_per_group, stages, window, (K + KS - 1) / KS,
+                      static_cast<const double*>(qp)},
                      x, vec, inv_in};
   const dim3 grid(grid_m, groups);
   const int xk = x_kind == 0 && vec == 0 ? XK_FLAT : x_kind;

@@ -85,7 +85,19 @@ struct GemmArgs {
   int out_kind, act, zp_s, out_zp;
   float in_scale, inv_out;
   int tiles_per_group, stages, window, nchunks;
+  // Null, or the input qparams found on the device (kernel A's dynamic
+  // route): {RN_f64(1 / in_scale), in_scale, zp_s} as doubles, read once per
+  // thread in place of in_scale and zp_s above, so no host sync sets them.
+  const double* qp;
 };
+
+// in_scale and zp_s of a launch: the arguments', or the device buffer's.
+__device__ __forceinline__ float in_scale_of(const GemmArgs& a) {
+  return a.qp ? static_cast<float>(a.qp[1]) : a.in_scale;
+}
+__device__ __forceinline__ int zp_s_of(const GemmArgs& a) {
+  return a.qp ? static_cast<int>(a.qp[2]) : a.zp_s;
+}
 
 // The tile plan of ops/int8_matmul.py:tile_plan, as the launch takes it:
 // true when it is one the kernel can run (and sets *smem to its bytes).
@@ -307,12 +319,14 @@ __device__ __forceinline__ void panel_gemm(const CUtensorMap& wmap, const Args& 
     }
     fence_mbar_init();
   }
+  const float in_scale = in_scale_of(a);
+  const int zp_s = zp_s_of(a);
   for (int i = tid; i < gcols; i += A_THREADS) {  // the group's epilogue vectors, once
     const int n = t0 * TN + i;
     const bool ok = n < a.N;
-    ps[i] = ok ? __fmul_rn(a.in_scale, a.w_scale[n]) : 0.f;
+    ps[i] = ok ? __fmul_rn(in_scale, a.w_scale[n]) : 0.f;
     pb[i] = ok ? a.bias[n] : 0.f;
-    pc[i] = ok ? a.zp_s * a.w_sum[n] : 0;
+    pc[i] = ok ? zp_s * a.w_sum[n] : 0;
   }
   __syncthreads();
 

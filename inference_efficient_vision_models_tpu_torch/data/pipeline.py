@@ -10,6 +10,7 @@ is gathered there, so iterating never waits for the device.
 
 from __future__ import annotations
 
+import functools
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -22,11 +23,19 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_consts(device: torch.device):
+    """255 mean and 255 std in fp32 on ``device``, made once per device, so a
+    forward copies nothing from the host (a blocking copy would sync)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0
+    return mean.to(device), std.to(device)
+
+
 def normalize_images(batch_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 NHWC -> normalized float NHWC, (u - 255 mean) / (255 std) in fp32
     (a true division, as the JAX package's ``normalize_images``), then cast."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=batch_u8.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=batch_u8.device) * 255.0
+    mean, std = _norm_consts(batch_u8.device)
     return ((batch_u8.float() - mean) / std).to(dtype)
 
 

@@ -1,11 +1,10 @@
 """Model zoo: spec JSON / names -> spec dataclasses, and the float models'
 generic entry points (the port of the JAX package's ``models/registry.py``).
 
-Spec parsing covers the ResNet, EfficientNet, MobileNetV2 and ViT families.
-The float forward, init and training entry points (``create_model``,
-``apply_model``, ``features_and_logits``) cover the ResNet family (ResNeXt
-and Wide ResNet included), EfficientNet and MobileNetV2; the float ViT's
-training is not ported yet (ROADMAP queue 1 item 15) and raises.
+Spec parsing, the float forward, init and training entry points
+(``create_model``, ``apply_model``, ``features_and_logits``) cover the
+ResNet family (ResNeXt and Wide ResNet included), EfficientNet,
+MobileNetV2 and the ViT.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
-from . import efficientnet, mobilenet, resnet
+from . import efficientnet, mobilenet, resnet, vit
 from .efficientnet import EfficientNetSpec, efficientnet_spec
 from .mobilenet import MobileNetV2Spec, mobilenet_v2_spec
 from .vit import ViTSpec, vit_spec
@@ -41,15 +40,19 @@ def spec_from_dict(d: Dict) -> Union[ResNetSpec, EfficientNetSpec, MobileNetV2Sp
     return ResNetSpec.from_dict(d)
 
 
-def make_spec(model: SpecLike, num_classes: int = 6, in_chans: int = 3):
+def make_spec(model: SpecLike, num_classes: int = 6, in_chans: int = 3,
+              image_size: int = 224):
     """A spec, a spec dict or a name -> the spec (names as the JAX package
-    resolves them; registered custom names are not ported)."""
+    resolves them; registered custom names are not ported). A ViT's token
+    count follows ``image_size`` (the JAX package fixes 224, the default:
+    the stage CLIs pass their image size, so a ViT trains at any square
+    size that its patch divides)."""
     if isinstance(model, (ResNetSpec, ViTSpec, EfficientNetSpec, MobileNetV2Spec)):
         return model
     if isinstance(model, dict):
         return spec_from_dict(model)
     if model.startswith("vit_"):
-        return vit_spec(model, num_classes=num_classes)
+        return vit_spec(model, num_classes=num_classes, image_size=int(image_size))
     if model.startswith("efficientnet"):
         return efficientnet_spec(model, num_classes=num_classes, in_chans=in_chans)
     if model.startswith("mobilenet_v2"):
@@ -66,10 +69,9 @@ def model_module(spec):
         return efficientnet
     if isinstance(spec, MobileNetV2Spec):
         return mobilenet
-    raise NotImplementedError(
-        f"the float {type(spec).__name__[:-4]} model is not ported for training yet "
-        f"(ROADMAP queue 1 item 15); the port trains the ResNet family, EfficientNet and "
-        f"MobileNetV2")
+    if isinstance(spec, ViTSpec):
+        return vit
+    raise TypeError(f"no float model for {type(spec).__name__}")
 
 
 def apply_model(spec, params, state, x, *, train=False, compute_dtype=None, **kw):
@@ -81,10 +83,11 @@ def apply_model(spec, params, state, x, *, train=False, compute_dtype=None, **kw
 
 def features_and_logits(spec, params, state, x, *, train=False, compute_dtype=None):
     """One forward returning (pooled fp32 feats, logits, new_state): the head
-    is applied on top of the ``return_features=True`` trunk."""
+    (a ViT's ``head``, a CNN's ``fc``) is applied on top of the
+    ``return_features=True`` trunk."""
     feats, new_state = apply_model(spec, params, state, x, train=train,
                                    compute_dtype=compute_dtype, return_features=True)
-    head = params["fc"]
+    head = params["head"] if isinstance(spec, ViTSpec) else params["fc"]
     return feats, feats @ head["w"] + head["b"], new_state
 
 
@@ -104,17 +107,17 @@ def create_model(
     pretrained: bool = False,
     logger=None,
     device: DeviceLike = None,
-) -> Tuple[Union[ResNetSpec, EfficientNetSpec, MobileNetV2Spec], Dict, Dict]:
+    image_size: int = 224,
+) -> Tuple[Union[ResNetSpec, EfficientNetSpec, MobileNetV2Spec, ViTSpec], Dict, Dict]:
     """Returns ``(spec, params, state)`` on ``device`` (the GPU unless
-    ``device="cpu"``).
+    ``device="cpu"``); ``image_size`` sizes a ViT named by ``model``.
 
     ``pretrained=True`` initializes from a cached torch state_dict
     (``torch_import.find_cached_weights``: ``$IEVM_WEIGHTS_DIR`` or the torch
     hub cache) and keeps the fresh head; without one, or when it cannot be
     read or converted, it warns and keeps the random init, as the JAX package
-    does (nothing is downloaded). A family whose converter is not ported
-    raises NotImplementedError."""
-    spec = make_spec(model, num_classes=num_classes)
+    does (nothing is downloaded)."""
+    spec = make_spec(model, num_classes=num_classes, image_size=image_size)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -124,8 +127,6 @@ def create_model(
 
         try:
             params, state = load_pretrained(spec, params, state)
-        except NotImplementedError:
-            raise
         except Exception as e:  # no cache, or a file that does not convert
             (logger or logging.getLogger("ievm")).warning(
                 "pretrained=True requested for %s but no local weight cache "

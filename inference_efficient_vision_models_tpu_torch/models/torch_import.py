@@ -1,17 +1,17 @@
 """Checkpoint interop: torchvision-style ResNet, EfficientNet and MobileNetV2
-state_dicts -> the port's (params, state), the CNN parts of the JAX
-package's ``models/torch_import.py``.
+and timm-style ViT state_dicts -> the port's (params, state), the port of
+the JAX package's ``models/torch_import.py``.
 
 The reference's artifacts are torch ``state_dict`` pickles, sometimes wrapped
 in ``{"model_state_dict": ...}`` and sometimes carrying a ``module.`` prefix
 from DataParallel training; ``_strip`` removes both. Conv kernels stay OIHW
 (the port's layout, a depthwise kernel (C, 1, k, k); ``resnet.place`` gives
 them their device's memory layout); linear (O, I) and an SE 1x1 conv
-(O, I, 1, 1) become (I, O).
+(O, I, 1, 1) become (I, O). The ViT keeps the JAX layout (an HWIO patch
+embed, (in, out) linears), as ``models/vit.py`` does.
 Pretrained weights come from an on-disk cache of ``.pth`` files only
 (``$IEVM_WEIGHTS_DIR``, then ``$TORCH_HOME/hub/checkpoints``): nothing is
-downloaded. The ViT converter is not ported yet (ROADMAP queue 1 item 15):
-the port does not build the float ViT from a torch checkpoint.
+downloaded.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import torch
 from .efficientnet import EfficientNetSpec
 from .mobilenet import MobileNetV2Spec
 from .resnet import place
+from . import vit
+from .vit import ViTSpec
 from .widths import ResNetSpec
 
 
@@ -42,16 +44,8 @@ def _strip(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _family_check(spec) -> None:
-    if not isinstance(spec, (ResNetSpec, EfficientNetSpec, MobileNetV2Spec)):
-        raise NotImplementedError(
-            f"torch_import for {type(spec).__name__[:-4]} is not ported yet "
-            f"(ROADMAP queue 1 item 15)")
-
-
 def from_torch_state_dict(spec: ResNetSpec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     """(params, state) on the CPU from a torchvision-style ResNet state_dict."""
-    _family_check(spec)
     sd = _strip(sd)
 
     def conv(key):
@@ -171,14 +165,54 @@ def from_torch_state_dict_mbv2(spec: MobileNetV2Spec, sd: Dict[str, Any]) -> Tup
     return params, state
 
 
+def from_torch_state_dict_vit(spec: ViTSpec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    """(params, {}) on the CPU from a timm-style ViT state_dict:
+    ``patch_embed.proj``, ``cls_token``, ``pos_embed``, ``blocks.i.{norm1,
+    attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2}``, ``norm``, ``head``; the
+    patch embed OIHW -> HWIO, every linear (O, I) -> (I, O)."""
+    sd = _strip(sd)
+
+    def ln(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    def lin(prefix):
+        return {"w": sd[f"{prefix}.weight"].t().contiguous(), "b": sd[f"{prefix}.bias"]}
+
+    params: Dict[str, Any] = {
+        "patch_embed": {"w": sd["patch_embed.proj.weight"].permute(2, 3, 1, 0).contiguous(),
+                        "b": sd["patch_embed.proj.bias"]},
+        "cls_token": sd["cls_token"],
+        "pos_embed": sd["pos_embed"],
+        "norm": ln("norm"),
+        "head": lin("head"),
+        "blocks": {},
+    }
+    for i in range(spec.depth):
+        pre = f"blocks.{i}"
+        params["blocks"][str(i)] = {
+            "ln1": ln(f"{pre}.norm1"), "qkv": lin(f"{pre}.attn.qkv"),
+            "proj": lin(f"{pre}.attn.proj"), "ln2": ln(f"{pre}.norm2"),
+            "mlp1": lin(f"{pre}.mlp.fc1"), "mlp2": lin(f"{pre}.mlp.fc2"),
+        }
+    return params, {}
+
+
 def _convert(spec, sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     """The family's converter, as the JAX package dispatches."""
-    _family_check(spec)
     if isinstance(spec, EfficientNetSpec):
         return from_torch_state_dict_effnet(spec, sd)
     if isinstance(spec, MobileNetV2Spec):
         return from_torch_state_dict_mbv2(spec, sd)
+    if isinstance(spec, ViTSpec):
+        return from_torch_state_dict_vit(spec, sd)
     return from_torch_state_dict(spec, sd)
+
+
+def place_converted(spec, tree, device=None):
+    """A converter's CPU tree on ``device``: conv kernels in the device's
+    memory layout (``resnet.place``); a ViT's leaves as they are (its HWIO
+    patch embed is a matrix to ``vit.apply``)."""
+    return vit.params_from_jax(tree, device) if isinstance(spec, ViTSpec) else place(tree, device)
 
 
 def _load_state_dict(path: str) -> Dict[str, Any]:
@@ -231,16 +265,16 @@ def load_pretrained(spec, params, state, *, path: str | None = None):
             f"no cached weights for {spec.name!r} in "
             f"{cached_weight_dirs() or '$IEVM_WEIGHTS_DIR (unset)'}"
         )
-    _family_check(spec)
     sd = _strip(_load_state_dict(path))
     # the converters expect the checkpoint's own (ImageNet) head; ours replaces it
     rows = next((int(sd[k].shape[0]) for k in ("fc.weight", "classifier.1.weight", "head.weight")
                  if k in sd), spec.num_classes)
     spec_full = dataclasses.replace(spec, num_classes=rows) if rows != spec.num_classes else spec
     p2, s2 = _convert(spec_full, sd)
-    dev = params["fc"]["w"].device
-    p2, s2 = place(p2, dev), place(s2, dev)
-    p2["fc"] = params["fc"]
+    head = "head" if isinstance(spec, ViTSpec) else "fc"
+    dev = params[head]["w"].device
+    p2, s2 = place_converted(spec, p2, dev), place_converted(spec, s2, dev)
+    p2[head] = params[head]
     _check_shapes((p2, s2), (params, state))
     return p2, s2
 

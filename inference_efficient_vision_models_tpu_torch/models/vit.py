@@ -7,9 +7,15 @@ Pre-norm blocks, a learnable cls token and position embeddings, exact-erf
 GELU MLP; no BatchNorm, so there is no state. The patch embed is a stride-p
 VALID conv, computed as one matmul over the patch matrix.
 
-``apply(..., fused_mlp=True)`` runs mlp1 + GELU through ``ops.fused_dense``
-(the hand-written CUDA kernel on a CUDA tensor); the other dense layers,
-attention and LayerNorm are plain PyTorch.
+``apply`` has the family signature ``registry.apply_model`` calls:
+``(spec, params, state, x, *, train, compute_dtype, ...) -> (out, state)``,
+with an empty ``state`` passed through (``init`` returns ``(params, {})``
+as the JAX ``init`` does). The forward is differentiable by autograd, which
+trains the family. ``fused_mlp=True`` runs mlp1 + GELU through
+``ops.fused_dense`` (the hand-written CUDA kernel on a CUDA tensor), which
+is forward-only, as the JAX Pallas kernel has no VJP: asking for it while
+autograd records raises. The other dense layers, attention and LayerNorm
+are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -61,6 +67,13 @@ class ViTSpec:
             return self.mlp_hidden[i]
         return int(self.dim * self.mlp_ratio)
 
+    def with_widths(self, head_counts=None, mlp_hidden=None) -> "ViTSpec":
+        return dataclasses.replace(
+            self,
+            head_counts=tuple(head_counts) if head_counts is not None else self.head_counts,
+            mlp_hidden=tuple(mlp_hidden) if mlp_hidden is not None else self.mlp_hidden,
+        )
+
     def to_dict(self) -> Dict:
         d = dataclasses.asdict(self)
         d["__kind__"] = "vit"
@@ -95,11 +108,13 @@ def vit_spec(name: str, num_classes: int = 6, image_size: int = 224) -> ViTSpec:
 # --------------------------------------------------------------------------
 
 
-def init(spec: ViTSpec, generator: torch.Generator, device: DeviceLike = None) -> Dict:
-    """Random parameters: truncated normal (±2 std) with std 0.02 for every
+def init(spec: ViTSpec, generator: torch.Generator, device: DeviceLike = None
+         ) -> Tuple[Dict, Dict]:
+    """(params, {}): truncated normal (±2 std) with std 0.02 for every
     weight, zero biases, unit LayerNorms, as the JAX ``init`` draws them
-    (not the same numbers: ``generator`` is torch's). On the GPU unless
-    ``device="cpu"``; the draws happen on the generator's device and move."""
+    (not the same numbers: ``generator`` is torch's), and no state (no
+    BatchNorm). On the GPU unless ``device="cpu"``; the draws happen on the
+    generator's device and move."""
     dev = resolve_device(device)
 
     def tn(*shape):
@@ -130,16 +145,25 @@ def init(spec: ViTSpec, generator: torch.Generator, device: DeviceLike = None) -
             "ln1": ln(d), "qkv": linear(d, 3 * attn_dim), "proj": linear(attn_dim, d),
             "ln2": ln(d), "mlp1": linear(d, hidden), "mlp2": linear(hidden, d),
         }
-    return params
+    return params, {}
 
 
 def params_from_jax(tree, device: DeviceLike = None) -> Dict:
     """The JAX package's ViT params (nested dicts of numpy arrays) -> the
-    port's, same keys and layouts, fp32 on ``device``."""
+    port's, same keys and layouts, fp32 on ``device``. Also converts the
+    (empty) state and AdamW moments, which share the params' structure."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, np.float32)).to(dev)
+
+
+def params_to_jax(tree) -> Dict:
+    """The inverse of ``params_from_jax``: nested dicts of fp32 numpy arrays
+    (C-contiguous copies, never views of the tensors), the same layouts."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy().copy()
 
 
 def param_count(params) -> int:
@@ -154,8 +178,9 @@ def param_count(params) -> int:
 
 
 def layer_norm(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    """Statistics and affine in fp32 (population variance), cast back to x.dtype."""
-    x32 = x.float()
+    """Statistics and affine in fp32 (population variance; fp64 for an fp64
+    x), cast back to x.dtype."""
+    x32 = x if x.dtype == torch.float64 else x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, unbiased=False, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + LN_EPS) * p["scale"] + p["bias"]
@@ -177,21 +202,26 @@ def _attention(x: torch.Tensor, p: Dict, hd: int, dtype) -> torch.Tensor:
 def apply(
     spec: ViTSpec,
     params: Dict,
+    state: Dict,
     x: Optional[torch.Tensor],
     *,
+    train: bool = False,
     compute_dtype=torch.float32,
     return_features: bool = False,
     patch_out: Optional[torch.Tensor] = None,
     fused_mlp: bool = False,
     impl: str = "kernel",
-) -> torch.Tensor:
-    """Forward: NHWC float images -> logits (B, num_classes) fp32.
+) -> Tuple[torch.Tensor, Dict]:
+    """Forward: NHWC float images -> (logits (B, num_classes) fp32, state),
+    or the fp32 cls features with ``return_features``; ``state`` passes
+    through (no dropout or BatchNorm, so ``train`` changes nothing).
 
     ``patch_out`` (a precomputed (B, H/p, W/p, dim) patch-embed activation)
     skips the patch conv; ``x`` is then ignored. ``fused_mlp=True`` runs
     mlp1 + GELU through ``dense_gelu`` (``impl="plain"``: its plain version,
-    the reference the kernel path is held against on the GPU); otherwise it
-    is ``gelu(m @ w + b)`` with exact erf."""
+    the reference the kernel path is held against on the GPU), forward only;
+    otherwise it is ``gelu(m @ w + b)`` with exact erf."""
+    del train
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
     dtype = compute_dtype
@@ -213,6 +243,9 @@ def apply(
         m = layer_norm(h, blk["ln2"])
         w1, b1 = blk["mlp1"]["w"].to(dtype), blk["mlp1"]["b"].to(dtype)
         if fused_mlp:
+            if torch.is_grad_enabled() and (m.requires_grad or w1.requires_grad):
+                raise ValueError("fused_mlp=True is forward-only (the fused kernel has no "
+                                 "backward): train with the default fused_mlp=False")
             m = mlp1(m, w1, b1)
         else:
             m = torch.nn.functional.gelu((m @ w1) + b1, approximate="none")
@@ -221,5 +254,6 @@ def apply(
     h = layer_norm(h, params["norm"])
     feats = h[:, 0].float()  # cls token
     if return_features:
-        return feats
-    return feats @ params["head"]["w"] + params["head"]["b"]
+        return feats, state
+    # fp32 head, as JAX promotes a 16-bit head of a cast model
+    return feats @ params["head"]["w"].float() + params["head"]["b"].float(), state

@@ -8,7 +8,10 @@ from .fused_mbconv import fused_mbconv_block, fused_mbconv_block_plain, to_devic
 from .im2col import conv_int8_im2col, extract_patches_nhwc
 from .int8_matmul import (
     PackedInt8Weight,
+    dynamic_qparams,
     int8_matmul_requant,
+    int8_matmul_requant_dynamic,
+    int8_matmul_requant_dynamic_plain,
     int8_matmul_requant_plain,
     pack_weight,
 )
@@ -22,10 +25,13 @@ __all__ = [
     "depthwise_conv_int8",
     "depthwise_conv_int8_plain",
     "dense_gelu_plain",
+    "dynamic_qparams",
     "extract_patches_nhwc",
     "fused_mbconv_block",
     "fused_mbconv_block_plain",
     "int8_matmul_requant",
+    "int8_matmul_requant_dynamic",
+    "int8_matmul_requant_dynamic_plain",
     "int8_matmul_requant_plain",
     "pack_weight",
     "to_device_packed",

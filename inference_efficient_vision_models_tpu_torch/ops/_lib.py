@@ -48,7 +48,8 @@ _D = ctypes.c_double
 KERNELS = {
     "int8_matmul_requant": ("int8_matmul", {
         "ievm_int8_matmul_requant":
-            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D] + [_I] * 6 + [_P],
+            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D] + [_I] * 6
+            + [_P, _P],
         "ievm_int8_weight_tensor_map": [_P, _I, _I, _P],
     }),
     "conv3x3_s1_int8": ("conv3x3", {

@@ -15,6 +15,13 @@ below chooses its tiles). Same contract:
 A float ``x`` (fp32/bf16) is quantized per element first, as
 ``round(x / s_x) + zp``. ``int8_matmul_requant`` launches the kernel for a
 CUDA tensor and runs ``int8_matmul_requant_plain`` for a CPU tensor only.
+
+The dynamic route (``int8_matmul_requant_dynamic``, the JAX package's
+``qvit._dyn_dense``) takes s_x and zp from the batch itself:
+``dynamic_qparams`` reduces x to its range on the device and writes
+{1/s_x, s_x, zp - 128} into a small float64 buffer that the kernel reads in
+place of the scalar arguments, so a forward of dynamic layers never waits
+for the host.
 """
 
 from __future__ import annotations
@@ -123,11 +130,13 @@ def gelu_as(y: torch.Tensor) -> torch.Tensor:
     return y * 0.5 * (1.0 + erf_as(y * 2.0**-0.5))
 
 
-def epilogue_plain(acc: torch.Tensor, *, zp_s: int, w_sum, in_scale, w_scale, bias,
+def epilogue_plain(acc: torch.Tensor, *, zp_s, w_sum, in_scale, w_scale, bias,
                    act=None, out_scale=None, out_zp=None, out_dtype=torch.float32):
-    """The shared epilogue on an exact float64 accumulator ``acc`` (..., N)."""
+    """The shared epilogue on an exact float64 accumulator ``acc`` (..., N);
+    ``zp_s`` and ``in_scale`` are numbers or 0-d tensors on acc's device."""
     acc = acc - zp_s * w_sum.double()
-    y = acc.float() * (w_scale * _f32(in_scale)) + bias
+    s = in_scale.float() if isinstance(in_scale, torch.Tensor) else _f32(in_scale)
+    y = acc.float() * (w_scale * s) + bias
     if act == "relu":
         y = torch.clamp_min(y, 0.0)
     elif act == "gelu":
@@ -161,6 +170,50 @@ def int8_matmul_requant_plain(
     return epilogue_plain(acc, zp_s=int(in_zp) - 128, w_sum=w_sum, in_scale=in_scale,
                           w_scale=w_scale, bias=bias, act=act, out_scale=out_scale,
                           out_zp=out_zp, out_dtype=out_dtype)
+
+
+def dynamic_qparams(x: torch.Tensor) -> torch.Tensor:
+    """The per-batch input qparams of a dynamic int8 dense, found on x's
+    device without a host sync, as the JAX ``_dyn_dense`` finds them in fp32:
+    lo = min(min x, 0), hi = max(max x, 0), s = max((hi - lo) / 255, 1.2e-7),
+    zp = clip(round(-lo / s), 0, 255). -> float64 (4,) {RN_f64(1 / s), s,
+    zp - 128, 0}: what the kernel takes as inv_in, in_scale and zp_s."""
+    lo, hi = torch.aminmax(x)  # exact in x's dtype, so in fp32 too
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    lo, hi = torch.minimum(lo.float(), zero), torch.maximum(hi.float(), zero)
+    # 0-d divisors: CUDA divides by a Python scalar as a multiply by its reciprocal
+    s = torch.clamp_min((hi - lo) / torch.full((), 255.0, device=x.device), 1.2e-7)
+    zp = torch.clamp(torch.round(-lo / s), 0.0, 255.0)
+    s64 = s.double()
+    return torch.stack([torch.ones_like(s64) / s64, s64, zp.double() - 128.0,
+                        torch.zeros_like(s64)])
+
+
+def _check_qparams(qparams: torch.Tensor, device) -> None:
+    if (qparams.shape != (4,) or qparams.dtype != torch.float64 or qparams.device != device
+            or not qparams.is_contiguous()):
+        raise ValueError(f"qparams must be the contiguous (4,) float64 buffer dynamic_qparams "
+                         f"makes, on {device}; got {tuple(qparams.shape)} {qparams.dtype} on "
+                         f"{qparams.device}")
+
+
+def int8_matmul_requant_dynamic_plain(
+    x: torch.Tensor, w: WeightLike, w_scale: torch.Tensor, bias: torch.Tensor,
+    w_sum: torch.Tensor, qparams: torch.Tensor, *, act: Optional[str] = None,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dynamic route, on any device, from the
+    same qparams buffer: ``int8_matmul_requant_plain`` with s_x, zp as 0-d
+    tensors (the same true divisions and products), so it needs no host
+    sync either."""
+    _check_qparams(qparams, x.device)
+    s = qparams[1].float()
+    zp_s = qparams[2]
+    x_s = (torch.clamp(torch.round(x.float() / s) + (zp_s + 128.0).float(), 0.0, 255.0)
+           - 128.0).to(torch.int8)
+    acc = x_s.double() @ _packed(w).kn().double()
+    return epilogue_plain(acc, zp_s=zp_s, w_sum=w_sum, in_scale=s, w_scale=w_scale, bias=bias,
+                          act=act, out_dtype=out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -286,6 +339,35 @@ def int8_matmul_requant(
     out_dtype=torch.float32,
 ) -> torch.Tensor:
     """Fused quantized dense layer -> (M, N) int8 (requantized) or float."""
+    return _launch(x_s, w, w_scale, bias, w_sum, in_scale=in_scale, in_zp=in_zp, relu=relu,
+                   act=act, out_scale=out_scale, out_zp=out_zp, out_dtype=out_dtype)
+
+
+def int8_matmul_requant_dynamic(
+    x: torch.Tensor,          # (M, K) fp32/bf16 activations
+    w: WeightLike,
+    w_scale: torch.Tensor,
+    bias: torch.Tensor,
+    w_sum: torch.Tensor,
+    qparams: torch.Tensor,    # dynamic_qparams(x), on x's device
+    *,
+    act: Optional[str] = None,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """The dynamic route: the kernel reads s_x and zp from ``qparams`` on the
+    device; a float output. A CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return int8_matmul_requant_dynamic_plain(x, w, w_scale, bias, w_sum, qparams, act=act,
+                                                 out_dtype=out_dtype)
+    if not x.is_floating_point():
+        raise ValueError(f"the dynamic route quantizes a float input, got {x.dtype}")
+    _check_qparams(qparams, x.device)
+    return _launch(x, w, w_scale, bias, w_sum, in_scale=1.0, in_zp=128, act=act,
+                   out_dtype=out_dtype, qparams=qparams)
+
+
+def _launch(x_s, w, w_scale, bias, w_sum, *, in_scale, in_zp, relu=False, act=None,
+            out_scale=None, out_zp=None, out_dtype=torch.float32, qparams=None):
     if x_s.device.type == "cpu":
         return int8_matmul_requant_plain(
             x_s, w, w_scale, bias, w_sum, in_scale=in_scale, in_zp=in_zp, relu=relu,
@@ -324,6 +406,7 @@ def int8_matmul_requant(
         _OUT_KINDS[out_t], _ACTS[act], m, k, n, int(in_zp) - 128,
         int(out_zp) if requant else 0, _f32(in_scale), _inv(out_scale) if requant else 1.0,
         1.0 / _f32(in_scale), p.bn, p.grid_m, p.groups, p.tiles_per_group, p.stages, p.window,
+        None if qparams is None else qparams.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("int8_matmul_requant", rc)

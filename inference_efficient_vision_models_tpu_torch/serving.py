@@ -34,6 +34,7 @@ from .compress.quant.engine import dynamic_forward, folded_forward
 from .compress.quant.fusedpath import load_static_int8_fused
 from .compress.quant.qeffnet import load_static_int8 as load_static_int8_mbconv
 from .compress.quant.qresnet import load_static_int8
+from .compress.quant.qvit import from_dynamic_qmodel
 from .compress.quant.qvit import load_static_int8 as load_static_int8_vit
 from .core.artifacts import load_checkpoint_raw
 from .models.efficientnet import EfficientNetSpec
@@ -62,14 +63,14 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
     method) through the folded float forward on raw uint8. A ViT serves
     ``"static_int8"`` (fp32 activation carrier) and ``"static_int8_bf16"``
     (bf16 carrier, from ``model_static_int8_bf16.msgpack`` or else the
-    shared file). The MBConv families and ViT take raw uint8 images, with no
-    host preprocess."""
+    shared file), and every float-compute method as the CNNs do, a
+    ``"dynamic_int8"`` artifact through the dynamic executor (every dense
+    layer int8 on kernel A's dynamic route). The MBConv families and ViT take
+    raw uint8 images, with no host preprocess. ``"weight_only_int4"`` is not
+    ported yet (ROADMAP queue 1 item 11)."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
         spec = spec_from_dict(json.load(f))
-    if isinstance(spec, ViTSpec):
-        if method not in ("static_int8", "static_int8_bf16"):
-            raise NotImplementedError(f"method {method!r} is not ported yet for ViT "
-                                      f"(have 'static_int8' and 'static_int8_bf16')")
+    if isinstance(spec, ViTSpec) and method in ("static_int8", "static_int8_bf16"):
         act = torch.bfloat16 if method == "static_int8_bf16" else torch.float32
         model = load_static_int8_vit(fold_dir, device, act_dtype=act)
         return model.spec, model, model, None
@@ -90,22 +91,28 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
 def _load_float(spec, fold_dir: str, method: str, device: DeviceLike):
     """An artifact of the float-compute methods, told apart by its leaves as
     the JAX package's loader tells them: weight-only int8 ({"q", "s"}
-    kernels, bf16 compute), dynamic int8 (an ``fc_q`` head, fp32 trunk), or
-    a folded cast (fp16 / bf16 / fp32, computed in its own dtype). Each
-    forward normalizes the raw uint8 images on the device and runs the
-    family's ``apply_folded`` (the JAX loader folds the normalization into
-    an s2d float stem instead: the same function, rounded elsewhere)."""
-    if method.startswith(("static_int8_", "weight_only_int4")):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet for {type(spec).__name__[:-4]} (ROADMAP "
-            f"queue 1 items 11 and 15)")
+    kernels, bf16 compute), dynamic int8 (a CNN's ``fc_q`` head with the
+    fp32 trunk; a ViT's int8 ``head``, every dense layer int8), or a folded
+    cast (fp16 / bf16 / fp32, computed in its own dtype). Each forward
+    normalizes the raw uint8 images on the device and runs the family's
+    ``apply_folded`` (the JAX loader folds the normalization into an s2d
+    float stem instead: the same function, rounded elsewhere)."""
+    if method == "weight_only_int4":
+        raise NotImplementedError("method 'weight_only_int4' (W4A16, compress/quant/wo4.py) is "
+                                  "not ported yet (ROADMAP queue 1 item 11)")
+    if method.startswith("static_int8_"):
+        raise NotImplementedError(f"{type(spec).__name__[:-4]} has no {method!r} executor in "
+                                  f"either package")
     model = load_checkpoint_raw(fold_dir, method)
+    vit = isinstance(spec, ViTSpec)
     if wo8.is_weight_only(model):
         fn = folded_forward(spec, wo8.dequantize(model, torch.bfloat16), torch.bfloat16, device)
+    elif vit and "w_q" in model["head"]:
+        fn = from_dynamic_qmodel(spec, model, device)
     elif "fc_q" in model:
         fn = dynamic_forward(spec, model, device)
     else:
-        leaf = model["fc"]["w"]
+        leaf = model["head" if vit else "fc"]["w"]
         dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else \
             {np.dtype(np.float16): torch.float16, np.dtype(np.float32): torch.float32}[leaf.dtype]
         fn = folded_forward(spec, model, dtype, device)

@@ -23,9 +23,12 @@ from inference_efficient_vision_models_tpu_torch.ops import (
     conv3x3_s1_int8_plain,
     dense_gelu,
     dense_gelu_plain,
+    dynamic_qparams,
     fused_mbconv_block,
     fused_mbconv_block_plain,
     int8_matmul_requant,
+    int8_matmul_requant_dynamic,
+    int8_matmul_requant_dynamic_plain,
     int8_matmul_requant_plain,
     pack_weight,
     to_device_packed,
@@ -158,6 +161,79 @@ def test_int8_matmul_quantize_exact_at_rounding_ties(cuda, in_scale):
         ref = int8_matmul_requant_plain(xx, *lf, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("m,k,n,xin,act", [
+    (197, 192, 576, torch.float32, None), (50432, 768, 192, torch.float32, None),
+    (1, 13, 37, torch.float32, None), (197, 1000, 6, torch.float32, "gelu"),
+    (333, 192, 768, torch.bfloat16, None), (77, 56, 6, torch.float32, "relu"),
+])
+def test_int8_matmul_dynamic_route_matches_plain(cuda, m, k, n, xin, act):
+    """Kernel A's dynamic route (qparams read from the device buffer) equals
+    its plain version bit for bit, and the static route at the same qparams."""
+    rng = np.random.default_rng(m + k + n)
+    w, ws, b, wsum = _leaf(rng, (k, n), cuda)
+    x = (torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)) * 3 - 1).to(cuda, xin)
+    qp = dynamic_qparams(x)
+    for out in (torch.float32, torch.bfloat16):
+        before = _lib.launches["int8_matmul_requant"]
+        got = int8_matmul_requant_dynamic(x, w, ws, b, wsum, qp, act=act, out_dtype=out)
+        ref = int8_matmul_requant_dynamic_plain(x, w, ws, b, wsum, qp, act=act, out_dtype=out)
+        torch.cuda.synchronize()
+        assert _lib.launches["int8_matmul_requant"] == before + 1
+        assert got.dtype == ref.dtype == out and torch.equal(got, ref)
+    s, zp = float(qp[1]), int(qp[2]) + 128
+    static = int8_matmul_requant(x, w, ws, b, wsum, in_scale=s, in_zp=zp, act=act)
+    assert torch.equal(int8_matmul_requant_dynamic(x, w, ws, b, wsum, qp, act=act), static)
+
+
+def test_int8_matmul_dynamic_route_reads_a_buffer_written_on_the_stream(cuda):
+    """The qparams buffer a previous kernel wrote on the same stream, with no
+    sync between: the kernel reads what that kernel wrote (the dynamic
+    ViT's dense layers follow one another this way), and a forward of such
+    calls makes no host sync."""
+    rng = np.random.default_rng(3)
+    w, ws, b, wsum = _leaf(rng, (192, 576), cuda)
+    x = torch.from_numpy(rng.standard_normal((197 * 64, 192)).astype(np.float32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = []
+        qp = torch.empty(4, dtype=torch.float64, device=cuda)
+        for scale in (1.0, 40.0, 0.01):
+            torch.cuda._sleep(2_000_000)  # the writes land well after the launch is queued
+            qp.copy_(dynamic_qparams(x * scale))
+            outs.append((scale, qp.clone(), int8_matmul_requant_dynamic(x * scale, w, ws, b,
+                                                                          wsum, qp)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for scale, q, got in outs:
+        ref = int8_matmul_requant_dynamic_plain(x * scale, w, ws, b, wsum, q)
+        assert torch.equal(got, ref), scale
+
+
+def test_served_vit_dynamic_kernel_path_matches_plain_path(cuda):
+    """A seeded ViT-Tiny's dynamic INT8 forward: 49 kernel-A launches, equal
+    to its plain path (the integer work and every epilogue are the plain
+    version's), no host sync."""
+    spec = vit.vit_spec("vit_tiny_patch16_224", num_classes=6)
+    q = qvit.convert_dynamic_int8(spec, vit_params_from_seed(spec, VIT_SEED))
+    model = qvit.from_dynamic_qmodel(spec, q, cuda)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 224, 224, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    with torch.inference_mode():
+        model(x)  # first call: the tensor maps and the normalization constants
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = model(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts = dict(_lib.launches)
+        ref = model(x, impl="plain")
+    assert counts == {"int8_matmul_requant": 49}
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("shape,o", [((2, 12, 14, 8), 72), ((4, 56, 56, 56), 56),
@@ -350,9 +426,10 @@ def test_float_vit_fused_mlp_kernel_matches_plain(cuda, dtype):
         0, 256, (4, 224, 224, 3), dtype=np.uint8)).to(cuda))
     _lib.reset_launch_counts()
     with torch.inference_mode():
-        got = vit.apply(spec, params, x, compute_dtype=dtype, fused_mlp=True)
+        got, _ = vit.apply(spec, params, {}, x, compute_dtype=dtype, fused_mlp=True)
         counts = dict(_lib.launches)
-        ref = vit.apply(spec, params, x, compute_dtype=dtype, fused_mlp=True, impl="plain")
+        ref, _ = vit.apply(spec, params, {}, x, compute_dtype=dtype, fused_mlp=True,
+                           impl="plain")
     assert counts == {"dense_gelu": 12}
     tol = 1e-5 if dtype == torch.float32 else 0.05
     assert torch.allclose(got, ref, rtol=0, atol=tol * float(ref.abs().max()))
@@ -375,10 +452,10 @@ def test_served_vit_kernel_path_matches_plain_path(cuda, act):
 def test_vit_init_defaults_to_the_gpu(cuda):
     """``vit.init`` runs on the GPU unless asked; a CPU generator still serves it."""
     spec = vit.vit_spec("vit_tiny_patch16_224", num_classes=6)
-    params = vit.init(spec, torch.Generator().manual_seed(0))
-    assert params["blocks"]["0"]["qkv"]["w"].device.type == "cuda"
+    params, state = vit.init(spec, torch.Generator().manual_seed(0))
+    assert params["blocks"]["0"]["qkv"]["w"].device.type == "cuda" and state == {}
     assert params["norm"]["scale"].device.type == "cuda"
-    ref = vit.init(spec, torch.Generator().manual_seed(0), device="cpu")
+    ref, _ = vit.init(spec, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(params["blocks"]["0"]["qkv"]["w"].cpu(), ref["blocks"]["0"]["qkv"]["w"])
 
 

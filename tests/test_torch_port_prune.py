@@ -235,7 +235,11 @@ def test_prune_iterative_compounds_like_jax(tmp_path):
 
 
 def test_other_families_raise():
+    """A ViT goes to vit_engine (tests/test_torch_port_vit_prune.py), which
+    needs its blocks; anything that is no spec of the four families raises."""
     from inference_efficient_vision_models_tpu_torch.models.vit import vit_spec
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="blocks"):
         teng.prune_model(vit_spec("vit_tiny_patch16_224"), {}, {}, ratio=0.1)
+    with pytest.raises(TypeError):
+        teng.prune_model(object(), {}, {}, ratio=0.1)

@@ -241,13 +241,14 @@ def test_make_spec_matches_jax(name):
 
 
 def test_float_training_is_resnet_only():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        treg.create_model("vit_tiny_patch16_224", 6, device="cpu")
-    # (the name predates MobileNetV2, which trains like the other CNN families now)
+    # (the name predates MobileNetV2 and the ViT, which train like the ResNets now)
+    spec, p, s = treg.create_model("vit_tiny_patch16_224", 6, device="cpu")
+    assert spec.to_dict() == jreg.make_spec("vit_tiny_patch16_224", 6).to_dict() and s == {}
+    assert treg.model_module(spec).__name__.endswith("models.vit")
     spec, p, s = treg.create_model("mobilenet_v2_050", 6, device="cpu")
     assert spec.to_dict() == jreg.make_spec("mobilenet_v2_050", 6).to_dict()
     assert treg.model_module(spec).__name__.endswith("models.mobilenet")
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(KeyError):  # the ResNet converter on a state_dict without its keys
         ti.from_torch_state_dict(treg.make_spec("vit_tiny_patch16_224"), {})
 
 
