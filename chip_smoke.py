@@ -61,7 +61,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    and re-evaluates them with ``choice=2``, and profiles both steps;
 6. stages 3-4: in the same process and artifacts root, prunes the student
    (l2, ratio 0.11, round_to 8, one fine-tune epoch) and quantizes it (the
-   default four methods, 256 calibration images) through the port's stage
+   default four methods and W4A16, 256 calibration images) through the port's stage
    CLIs, then ``choice=2`` of each; the kernel launch counts are set to 0
    before the stage chain and read after it (kernels A and B must have run);
    the chain's INT8 ResNet18 is held against its plain path bit for bit on
@@ -116,7 +116,23 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    forward), its fp32, fp16, bf16 and W8A16 artifacts through ``Predictor``
    against their own ``apply_folded`` (``vit_float_serve``); and the CNN
    families' dynamic fc on kernel A's dynamic route against the float64
-   formula it replaced, bit for bit (``dynamic_fc_route``).
+   formula it replaced, bit for bit (``dynamic_fc_route``);
+10. the ResNeXt family and W4A16: a seeded resnext26_32x4d
+   calibrated and converted on the card against the JAX CPU record
+   (``convert_resnext``), served through ``Predictor`` (22 kernel-A and 8
+   kernel-F launches per forward, equal to its plain path, within
+   ``RX_TAU`` of the JAX golden); kernel F (``gconv_int8``, the int8
+   grouped 3x3 conv + ReLU + requant) against its plain version, max abs
+   err 0, at its 8 grouped calls (batch 256 and 1; timed beside its bound
+   and the dp4a design bound) and at odd shapes, zero points and requant
+   ties (``gconv_shapes``), kernel A at its 22 calls (``rx_a_shapes``); in
+   the training process resnext50_32x4d -> KD resnext26_32x4d -> prune (l2
+   0.11, round_to 8, whole lanes) -> quantize (five methods) through the
+   CLIs (``rx_chain``); the chain's INT8 model through ``Predictor`` (A 22
+   + F 8 a forward, equal to its plain path, timed beside its W8A16 and
+   W4A16 forwards) and its kernel calls (``rx_chain_int8``); and every
+   chain's ``weight_only_int4`` artifact through ``Predictor`` equal to its
+   own ``apply_folded`` (``w4a16_serve``).
 
 Results go to stdout as JSON lines; the line before the last gives the card
 as nvidia-smi reports it and the last is ``{"ok": true, "device": ...}``.
@@ -150,6 +166,8 @@ from inference_efficient_vision_models_tpu_torch.ops import (
     dense_gelu_plain,
     fused_mbconv_block,
     fused_mbconv_block_plain,
+    grouped_conv_int8,
+    grouped_conv_int8_plain,
     int8_matmul_requant,
     int8_matmul_requant_plain,
     pack_weight,
@@ -181,6 +199,9 @@ KERNEL_INFO = {
     # not a Pallas kernel: the JAX package computes it with XLA
     "dwconv_int8": (f"{PKG}/csrc/dwconv_int8.cu",
                     "inference_efficient_vision_models_tpu/ops/dwconv_int8.py:50"),
+    # not a Pallas kernel: XLA's grouped int8 conv with the ReLU + requant epilogue
+    "gconv_int8": (f"{PKG}/csrc/gconv_int8.cu",
+                   "inference_efficient_vision_models_tpu/compress/quant/qresnet.py:330"),
 }
 PLAIN = {"int8_matmul_requant": int8_matmul_requant_plain,
          "conv3x3_s1_int8": conv3x3_s1_int8_plain}
@@ -205,6 +226,9 @@ MBV2_MIXED_PER_FORWARD = {"int8_matmul_requant": 36}
 VIT_PER_FORWARD = {"int8_matmul_requant": 50}
 # float ViT-Tiny with fused_mlp: one mlp1 + GELU per block
 VIT_FLOAT_PER_FORWARD = {"dense_gelu": 12}
+# resnext26_32x4d int8: the stem, 8 x (conv1, conv3), 4 downsamples and the fc
+# on kernel A; 8 grouped conv2 on kernel F
+RX_PER_FORWARD = {"int8_matmul_requant": 22, "gconv_int8": 8}
 BATCH = 256
 RUNS = 25
 STEP_RUNS = 50  # timed train steps of each model, in a row
@@ -213,6 +237,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 FP32_FMA_PER_S = 33.5e12    # H100 SXM: 67 TFLOP/s fp32 outside the tensor cores, 2 per FMA
+# kernel F's design bound (not the card's): dp4a at the integer multiply-add
+# rate, 64 a clock per SM, 132 SMs at the 1.98 GHz boost clock
+DP4A_PER_S = 64 * 132 * 1.98e9
 # EfficientNet logits: |served - reference| <= TAU * max|reference|, and the
 # same argmax where the reference's top-2 margin exceeds twice that (PERF.md
 # gives the measured values these were set from)
@@ -360,6 +387,26 @@ VIT_DYN_IMAGES = dict(seed=3, n=8)
 # model carry such flips to the logits)
 VIT_CONVERT_LIMITS = {"scale_rtol": 1.4e-6}
 VIT_DYN_TAU = 0.034
+# a seeded full-width resnext26_32x4d (resnet_params_from_seed) converted at
+# 224x224 on 48 surrogate images (minmax, batch 16) by the JAX package on the
+# CPU (``testdata/resnext26_convert_jax.json``: qparams by value, every other
+# leaf by sha256), and its static INT8 logits on 8 seeded images by the JAX
+# package's executor run op by op (``impl="lax"``,
+# ``testdata/resnext26_int8_jax_logits.npz``); both written by
+# ``JAX_PLATFORMS=cpu python tests/test_torch_port_resnext_quant.py``
+RX_CONVERT = dict(seed=0, size=224, per_class=8, image_seed=5, batch=16)
+RX_CONVERT_GOLDEN = os.path.join(TESTDATA, "resnext26_convert_jax.json")
+RX_GOLDEN = os.path.join(TESTDATA, "resnext26_int8_jax_logits.npz")
+RX_GOLDEN_IMAGES = dict(seed=3, n=8)
+# scales within twice the record's own fp32 error against an fp64 calibration
+# of the same images (5.41e-7, layer2/1/conv1/out_scale; the CPU port sits
+# 4.68e-7 from the record at 1 to 8 threads); logits (the card's integer
+# leaves with the record's activation qparams) within twice the CPU port's
+# 0.00351 of the logit scale at 1 to 8 threads (kernel A requantizes the 1x1
+# convs by 1/s_y, JAX's lax path divides: ties round one quantum apart);
+# both set before the card's first reading
+RX_CONVERT_LIMITS = {"scale_rtol": 1.082e-6}
+RX_TAU = 0.0071
 # the unfused and mixed logits against the JAX goldens: the CPU measures 0 for
 # both (every operation is the JAX executor's, the mixed depthwise sums of
 # bf16 products are exact in fp32 in any order: reversed taps measure 0 too),
@@ -842,7 +889,7 @@ def compare_exact(got: torch.Tensor, ref: torch.Tensor):
 
 
 def kernel_a_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, batch: int = BATCH,
-                 calls: int = 1, timed: bool = True):
+                 calls: int = 1, timed: bool = True, plain_runs: int = RUNS):
     """(a) kernel A at one served call, exact against its plain version, then
     (``timed``) its time beside the plain version's, its bound and
     torch._int_mm's. Rows off the batch-256 forward are left out of the
@@ -861,7 +908,8 @@ def kernel_a_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, batch: int
         lib, lib_note = int_mm_ms(x, leaf)
         row.update({
             "ms": time_ms(lambda: int8_matmul_requant(*args, **kw), spin=True),
-            "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw), spin=True),
+            "plain_ms": time_ms(lambda: int8_matmul_requant_plain(*args, **kw),
+                                runs=plain_runs, spin=True),
             "library_ms": lib, **({"library_note": lib_note} if lib_note else {})})
     return row, [] if ok else [f"int8_matmul_requant {path} {label} {tuple(x.shape)} "
                                f"b{batch}: max abs err {err}"]
@@ -1610,6 +1658,13 @@ E_ODD_SHAPES = [(4, 13, 13, 8, 3, 1), (4, 13, 11, 13, 5, 2), (2, 9, 15, 13, 3, 2
                 (2, 10, 10, 8, 5, 2), (2, 14, 14, 13, 5, 2), (2, 12, 11, 1152, 5, 2),
                 (3, 17, 17, 1, 5, 2)]
 E_ZPS = ((0, 255), (128, 128), (255, 0))  # (input zero point, output zero point)
+# kernel F's odd shapes (N, H, W, C, groups, stride): Cg 1, 3, 4, 5, 8, 14 and
+# 32 (byte copies for Cg not a multiple of 4), groups 2 and 32, odd H and W,
+# a ragged last slab (Cg 32 at 2 groups: one slab of one group per block)
+GC_ODD_SHAPES = [(4, 13, 13, 32, 32, 1), (4, 13, 11, 96, 32, 2), (2, 9, 15, 8, 2, 2),
+                 (2, 11, 7, 10, 2, 1), (2, 15, 9, 256, 32, 2), (3, 7, 9, 28, 2, 1),
+                 (2, 9, 9, 1024, 32, 1), (2, 10, 10, 64, 2, 2), (3, 17, 17, 448, 32, 2),
+                 (2, 5, 7, 160, 32, 1)]
 
 
 def dw_calls(model, b: int):
@@ -2556,6 +2611,355 @@ def run_vit_chain_int8(dev, gen: torch.Generator, quant_dir: str):
     return rows, launches_by
 
 
+# --------------------------------------------------------------------------
+# the ResNeXt path: kernel F (grouped conv) and kernel A, and W4A16
+# --------------------------------------------------------------------------
+
+
+def rx_calls(model, b: int):
+    """Every kernel call of one forward of a bottleneck ResNet(Xt) at batch b:
+    (kernel, label, x shape, x dtype, conv leaf, kwargs), as ``apply_int8``
+    makes them: the stem, each block's 1x1 conv1 (+ ReLU, requant), its
+    grouped 3x3 conv2 (kernel F), its 1x1 conv3 and strided 1x1 downsample
+    (fp32 out), and the fc."""
+    spec, q = model.spec, model.q
+    if spec.block != "bottleneck" or spec.groups == 1:
+        raise SmokeFailure("rx_calls walks a ResNeXt")
+    st = q["stem"]
+    h = st["e4"].shape[1]
+    calls = [("int8_matmul_requant", "stem", (b * h * h, st["w"].k), torch.int8, st,
+              dict(in_scale=1.0, in_zp=128))]
+    h = (h - 1) // 2 + 1  # max pool
+    cin, in_s, in_z = spec.stem_width, st["out_scale"], st["out_zp"]
+    for s, depth in enumerate(spec.depths):
+        for bi in range(depth):
+            blk = q[f"layer{s + 1}"][str(bi)]
+            stride = spec.block_stride(s, bi)
+            ho = (h - 1) // stride + 1
+            c1, c2, c3 = blk["conv1"], blk["conv2"], blk["conv3"]
+            tag = f"layer{s + 1}.{bi}"
+            calls.append(("int8_matmul_requant", f"{tag}.conv1", (b * h * h, cin), torch.int8, c1,
+                          dict(in_scale=in_s, in_zp=in_z, relu=True, out_scale=c1["out_scale"],
+                               out_zp=c1["out_zp"])))
+            calls.append(("gconv_int8", f"{tag}.conv2", (b, h, h, c2["w"].n), torch.int8, c2,
+                          dict(stride=stride, in_scale=c1["out_scale"], in_zp=c1["out_zp"],
+                               out_scale=c2["out_scale"], out_zp=c2["out_zp"])))
+            calls.append(("int8_matmul_requant", f"{tag}.conv3", (b * ho * ho, c2["w"].n),
+                          torch.int8, c3, dict(in_scale=c2["out_scale"], in_zp=c2["out_zp"])))
+            if "down" in blk:
+                calls.append(("int8_matmul_requant", f"{tag}.down", (b * ho * ho, cin),
+                              torch.int8, blk["down"], dict(in_scale=in_s, in_zp=in_z)))
+            h, cin, in_s, in_z = ho, spec.stage_widths[s], blk["out_scale"], blk["out_zp"]
+    fc = q["fc"]
+    calls.append(("int8_matmul_requant", "fc", (b, fc["w"].k), torch.float32, fc,
+                  dict(in_scale=fc["in_scale"], in_zp=fc["in_zp"])))
+    return calls
+
+
+def f_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = True,
+          calls: int = 1):
+    """Kernel F at one call, bit for bit against its plain version, its bound
+    (bytes: x, out, the (3, 3, Cg, C) weights and three C-vectors once; the
+    int8 MACs at the tensor cores' rate) beside its design bound (the same
+    bytes, and the dp4a it issues at ``DP4A_PER_S``) and, ``timed``, its time
+    beside the plain version's and both bounds' shares of it."""
+    args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
+    ok, err = compare_exact(grouped_conv_int8(*args, **kw), grouped_conv_int8_plain(*args, **kw))
+    n, h, w, c = x.shape
+    stride, cg = kw["stride"], leaf["w"].cg
+    out = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * c
+    nbytes = x.numel() + out + 9 * cg * c + 12 * c
+    macs, dp4a = out * 9 * cg, out * 9 * -(-cg // 4)
+    row = {"path": path, "kernel": "gconv_int8", "call": label, "batch": n, "x": list(x.shape),
+           "n": c, "groups": leaf["w"].groups, "cg": cg, "stride": stride,
+           "in_zp": int(kw["in_zp"]), "out_zp": int(kw["out_zp"]), "max_abs_err": err,
+           "bytes": nbytes, "ops": 2 * macs, "macs": macs, "dp4a": dp4a,
+           "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 2 * macs / INT8_OPS_PER_S * 1e3,
+           "dp4a_ms": dp4a / DP4A_PER_S * 1e3, "library_ms": None, "calls": calls,
+           "in_forward": n == BATCH}
+    if timed:
+        row["ms"] = time_ms(lambda: grouped_conv_int8(*args, **kw), spin=True)
+        row["plain_ms"] = time_ms(lambda: grouped_conv_int8_plain(*args, **kw), runs=5, warm=1,
+                                  spin=True)
+        row["bound_share"] = max(row["bytes_ms"], row["ops_ms"]) / row["ms"]
+        row["design_bound_share"] = max(row["bytes_ms"], row["dp4a_ms"]) / row["ms"]
+    return row, [] if ok else [f"gconv_int8 {path} {label} {tuple(x.shape)} {kw}: "
+                               f"max abs err {err}"]
+
+
+def check_rx_calls(model, gen: torch.Generator, path: str, phases: tuple, *, time_a: bool = True,
+                   batches=None):
+    """Each kernel call of ``model``'s forward (``rx_calls``) at ``batches``
+    against its plain version, bit for bit, kernel F's rows timed and (with
+    ``time_a``) kernel A's at batch 256; ``phases``: (kernel F's phase,
+    kernel A's), each with a ``_forward`` line of its batch-256 sums.
+    -> (rows, failures)."""
+    rows, fails = [], []
+    phase = dict(zip(("gconv_int8", "int8_matmul_requant"), phases))
+    for b in batches or (BATCH, 1):
+        for kernel, label, shape, dtype, leaf, kw in rx_calls(model, b):
+            x = make_input(shape, dtype, kw["in_zp"], gen)
+            if kernel == "gconv_int8":
+                row, f = f_row(path, label, x, leaf, kw)
+            else:
+                row, f = kernel_a_row(path, label, x, leaf, kw, batch=b,
+                                      timed=time_a and b == BATCH, plain_runs=5)
+            rows.append(row)
+            fails += f
+            emit({"phase": phase[kernel], **row})
+            del x
+    for k, ph in phase.items():
+        mine = [r for r in rows if r["kernel"] == k and r["batch"] == BATCH and "ms" in r]
+        if not mine:
+            continue
+        sums = {f: sum(r[f] for r in mine) for f in ("ms", "plain_ms", "bytes", "ops", "bytes_ms")}
+        bound = sum(max(r["bytes_ms"], r["ops_ms"]) for r in mine)
+        line = {"phase": ph.replace("_shapes", "_forward"), "path": path, "kernel": k,
+                "batch": BATCH, "calls": len(mine), **sums, "bound_ms": bound,
+                "bound_share": bound / sums["ms"]}
+        if k == "gconv_int8":
+            design = sum(max(r["bytes_ms"], r["dp4a_ms"]) for r in mine)
+            line.update({"dp4a": sum(r["dp4a"] for r in mine), "design_bound_ms": design,
+                         "design_bound_share": design / sums["ms"]})
+        else:
+            libs = [r["library_ms"] for r in mine]
+            line["library_ms"] = None if None in libs else sum(libs)
+        emit(line)
+    return rows, fails
+
+
+def gconv_odd_shapes(gen: torch.Generator):
+    """Kernel F at ``GC_ODD_SHAPES`` x zero points 0, 128, 255, and its
+    requant at rint's ties (zero weights: y is the bias, set on and beside
+    half-integer quotients), bit for bit. -> failures."""
+    from inference_efficient_vision_models_tpu_torch.ops.gconv_int8 import pack_grouped_weight
+
+    def leaf(c, groups, zero=False):
+        wq = torch.randint(-127, 128, (3, 3, c // groups, c), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        if zero:
+            wq.zero_()
+        return {"w": pack_grouped_weight(wq, groups),
+                "w_scale": torch.rand(c, generator=gen, device="cuda") * 0.0009 + 0.0001,
+                "bias": torch.randn(c, generator=gen, device="cuda"),
+                "w_sum": wq.int().sum((0, 1, 2), dtype=torch.int32)}
+
+    rows, fails = [], []
+    for n, h, w, c, groups, stride in GC_ODD_SHAPES:
+        lf = leaf(c, groups)
+        for in_zp, out_zp in E_ZPS:
+            kw = dict(stride=stride, in_scale=0.03, in_zp=in_zp, out_scale=0.02, out_zp=out_zp)
+            row, f = f_row("odd", f"{h}x{w}x{c}/{groups} s{stride}",
+                           int8_around((n, h, w, c), in_zp, gen), lf, kw, timed=False)
+            rows.append(row)
+            fails += f
+    for c, groups in ((24, 8), (32, 8)):  # Cg 3 (bytes) and 4 (words)
+        for s_out in (0.05, 0.0123):
+            lf = leaf(c, groups, zero=True)
+            lf["bias"] = residual_ties(s_out, c)
+            kw = dict(stride=1, in_scale=0.03, in_zp=150, out_scale=s_out, out_zp=3)
+            row, f = f_row("odd", f"ties s_out {s_out} C {c}/{groups}",
+                           int8_around((2, 5, 6, c), 150, gen), lf, kw, timed=False)
+            rows.append(row)
+            fails += f
+    emit({"phase": "gconv_odd_shapes", "checks": len(rows),
+          "max_abs_err": max(r["max_abs_err"] for r in rows), "failed": fails})
+    return fails
+
+
+def rx_artifact(dir_: str, spec, q: dict) -> str:
+    """A stage-4 artifact directory of a static-int8 ResNeXt tree: what
+    ``Predictor.from_artifact`` serves."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+
+    os.makedirs(dir_, exist_ok=True)
+    with open(os.path.join(dir_, "spec.json"), "w") as f:
+        json.dump(spec.to_dict(), f)
+    with open(os.path.join(dir_, "model_static_int8.msgpack"), "wb") as f:
+        f.write(artifacts.tree_bytes(qresnet.serializable(q)))
+    return dir_
+
+
+def run_resnext(dev, gen: torch.Generator, gen_np: np.random.Generator):
+    """The ResNeXt phases on a seeded full-width resnext26_32x4d at 224x224:
+    ``convert_resnext`` (calibration, with its time, and conversion on the
+    card against the JAX CPU record: non-activation leaves by sha256, scales
+    within ``RX_CONVERT_LIMITS``), then the JAX model exactly (the card's
+    integer leaves with the record's activation qparams) served through
+    ``Predictor`` (three requests, launches per forward ``RX_PER_FORWARD``),
+    the kernel path equal to the plain path, the 8 golden images' logits
+    within ``RX_TAU`` of the JAX golden, forwards timed; ``gconv_shapes``:
+    kernel F at the model's 8 grouped calls (batch 256 and 1), bit for bit,
+    timed beside its bound, its design bound and its plain version, and at
+    odd shapes and requant ties; ``rx_a_shapes``: kernel A at the model's 22
+    calls (batch 256 timed, batch 1 checked). resnext50_32x4d's 16 grouped
+    calls take the same 7 shapes (3, 4, 6 and 3 blocks a stage):
+    ``gconv_resnext50`` sums the rows by its call counts. -> (rows,
+    {path: launches})."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+
+    with open(RX_CONVERT_GOLDEN) as f:
+        record = json.load(f)
+    spec, p, s, imgs, labels = effnet_convert_inputs("resnext26_32x4d", RX_CONVERT)
+    q, _, t = port_convert_effnet(spec, p, s, imgs, labels, "cuda", RX_CONVERT)
+    report = compare_conversion(qresnet.serializable(q), record, RX_CONVERT_LIMITS, _tap_of)
+    emit({"phase": "convert_resnext", **_stage_card(dev), "model": spec.name,
+          "images": len(imgs), "size": RX_CONVERT["size"], **t, "limits": RX_CONVERT_LIMITS,
+          **report})
+    if not report["ok"]:
+        raise SmokeFailure(f"convert_resnext: outside the limits: {report}")
+
+    qj = with_record_qparams(q, record)
+    model = qresnet.from_jax_qmodel(spec.to_dict(), qj, "cuda")
+    golden = np.load(RX_GOLDEN)
+    x_np = rx_golden_images()
+    with tempfile.TemporaryDirectory() as d:
+        requests, served, forwards, launches, wall = serve(rx_artifact(d, spec, qj), x_np, gen_np)
+    counts_ok = all(launches.get(k, 0) == RX_PER_FORWARD.get(k, 0) * forwards
+                    for k in set(RX_PER_FORWARD) | set(launches))
+    big = requests[-1]
+    with torch.inference_mode():
+        plain = np.concatenate([
+            model(torch.from_numpy(big[i : i + BATCH]).cuda(), impl="plain").cpu().numpy()
+            for i in range(0, len(big), BATCH)])
+    equal_b = bool(np.array_equal(served[-1], plain))
+    ref = golden["int8"]
+    ok_c, err_c, atol_c = logits_close(served[1], ref, RX_TAU)
+    fwd = {}
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            xb = torch.from_numpy(np.random.default_rng(2).integers(
+                0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda()
+            fwd[f"forward_ms_b{b}"] = time_ms(lambda: model(xb))
+        fwd["profile_b256"] = profile_forward(model, xb)
+    emit({"phase": "resnext26_int8_serve", **_stage_card(dev),
+          "requests": [len(r) for r in requests], "forwards": forwards, "launches": launches,
+          "expected_per_forward": RX_PER_FORWARD, "wall_s": wall,
+          "kernel_equals_plain": equal_b, "images_vs_plain": len(big),
+          "vs_jax_max_abs_err": err_c, "vs_jax_atol": atol_c, "tau": RX_TAU,
+          "logit_scale": float(np.abs(ref).max()),
+          "argmax_identical": bool((served[1].argmax(1) == ref.argmax(1)).all()), **fwd,
+          "images_per_s_b256": BATCH / fwd[f"forward_ms_b{BATCH}"] * 1e3})
+    if not (counts_ok and equal_b and ok_c):
+        raise SmokeFailure(f"resnext26_int8_serve: launches {launches} in {forwards} forwards, "
+                           f"kernel equals plain {equal_b}, vs JAX {ok_c} ({err_c})")
+    del xb
+
+    rows, fails = check_rx_calls(model, gen, "resnext26_32x4d", ("gconv_shapes", "rx_a_shapes"))
+    fails += gconv_odd_shapes(gen)
+    f_rows = [r for r in rows if r["kernel"] == "gconv_int8"]
+    # resnext50_32x4d: its 16 grouped calls by the shapes resnext26's rows timed
+    blocks50 = (3, 4, 6, 3)
+    by_key = {}
+    for r in f_rows:
+        if r["batch"] == BATCH:
+            by_key.setdefault((r["x"][1], r["n"], r["stride"]), r)
+    n50 = {}
+    for si, depth in enumerate(blocks50):
+        h = 56 >> si
+        c = 128 << si
+        for bi in range(depth):
+            key = (h, c, 1) if (si == 0 or bi > 0) else (2 * h, c, 2)
+            n50[key] = n50.get(key, 0) + 1
+    emit({"phase": "gconv_resnext50", "batch": BATCH, "calls": sum(n50.values()),
+          **{f: sum(n50[k] * by_key[k][f] for k in n50)
+             for f in ("ms", "plain_ms", "bytes", "bytes_ms", "dp4a")}})
+    if fails:
+        raise SmokeFailure("kernels F and A disagree with their plain versions at the ResNeXt "
+                           "calls:\n" + "\n".join(fails))
+    return rows, {"resnext26_32x4d": launches}
+
+
+def run_rx_chain_int8(dev, gen: torch.Generator, quant_dir: str):
+    """``rx_chain_int8``: the ResNeXt chain's static-INT8 resnext26 (pruned
+    lanes) served through ``load_quantized`` -> ``Predictor.from_artifact``
+    (one 32-image forward, launches counted: ``RX_PER_FORWARD``), its kernel
+    path equal to its plain path bit for bit on 32 images, the forwards
+    timed at batch 1 and 256 beside the chain's W8A16 and W4A16 forwards;
+    then each kernel call at the chain model's shapes against its plain
+    version (kernel F timed, aside in the kernels line). -> (rows, {path:
+    launches})."""
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    pipe = "resnext26_pipeline"
+    _, model, _, _ = load_quantized(quant_dir, "static_int8", device="cuda")
+    hw = 2 * model.q["stem"]["e4"].shape[1]  # the size it was converted for
+    imgs = chain_images(hw, 32)
+    x = torch.from_numpy(imgs).cuda()
+    pred = Predictor.from_artifact(quant_dir, "static_int8", device="cuda", batch_size=len(imgs))
+    pred.warmup(imgs.shape[1:])
+    _lib.reset_launch_counts()
+    served = pred.predict_logits(imgs)
+    torch.cuda.synchronize()
+    launches = dict(_lib.launches)
+    with torch.inference_mode():
+        kern, plain = model(x).cpu().numpy(), model(x, impl="plain").cpu().numpy()
+    equal = bool(np.array_equal(kern, plain)) and bool(np.array_equal(served, plain))
+    fwd = {}
+    for method in ("static_int8", "weight_only_int8", "weight_only_int4"):
+        fn = model if method == "static_int8" else load_quantized(quant_dir, method,
+                                                                  device="cuda")[2]
+        with torch.inference_mode():
+            for b in (1, BATCH):
+                xb = torch.from_numpy(np.random.default_rng(2).integers(
+                    0, 256, (b, hw, hw, 3), dtype=np.uint8)).cuda()
+                fwd[f"{method}_forward_ms_b{b}"] = time_ms(lambda: fn(xb))
+    spec = model.spec
+    emit({"phase": "rx_chain_int8", **_stage_card(dev), "images": len(imgs),
+          "inner_widths": spec.inner_widths, "cg": [blk[1] // spec.groups
+                                                     for st in spec.inner_widths for blk in st],
+          "launches_per_forward": launches, "expected_launches": RX_PER_FORWARD,
+          "kernel_equals_plain": equal, "max_abs_err": float(np.abs(kern - plain).max()),
+          "logit_scale": float(np.abs(plain).max()), **fwd,
+          "images_per_s_b256": BATCH / fwd[f"static_int8_forward_ms_b{BATCH}"] * 1e3})
+    if not (equal and launches == RX_PER_FORWARD):
+        raise SmokeFailure(f"rx_chain_int8: kernel path equal to plain {equal}, launches "
+                           f"{launches} (expected {RX_PER_FORWARD})")
+    rows, fails = check_rx_calls(model, gen, pipe, ("rx_chain_f_shapes", "rx_chain_a_shapes"),
+                                 time_a=False, batches=(BATCH,))
+    if fails:
+        raise SmokeFailure("kernels disagree at the ResNeXt chain's shapes:\n" + "\n".join(fails))
+    return rows, {f"{pipe}_static_int8": launches}
+
+
+def run_w4a16_serve(dev, quant_dirs: dict):
+    """``w4a16_serve``: each chain's ``weight_only_int4`` artifact through
+    ``Predictor`` (8 images) equal to its own ``apply_folded`` on the tree
+    ``wo4.dequantize`` gives (bf16), the W8A16 forward's limit; its size in
+    MB beside W8A16's (the stage-4 writer's ``size_mb``)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import engine, wo4
+    from inference_efficient_vision_models_tpu_torch.core import artifacts
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import normalize_images
+    from inference_efficient_vision_models_tpu_torch.metrics.profile import model_size_bytes
+    from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
+
+    out = []
+    for name, d in quant_dirs.items():
+        with open(os.path.join(d, "spec.json")) as f:
+            spec = spec_from_dict(json.load(f))
+        x8 = chain_images(spec.image_size if hasattr(spec, "patch") else 224, 8)
+        pred = Predictor.from_artifact(d, "weight_only_int4", device="cuda", batch_size=len(x8))
+        served = pred.predict_logits(x8)
+        tree = artifacts.load_checkpoint_raw(d, "weight_only_int4")
+        qmod = engine.quant_module(spec)
+        folded = engine.place_folded(spec, wo4.dequantize(tree, torch.bfloat16), "cuda")
+        with torch.inference_mode():
+            own = qmod.apply_folded(spec, folded, normalize_images(
+                torch.from_numpy(x8).cuda(), torch.bfloat16)).float().cpu().numpy()
+        mb = {m: model_size_bytes(qmod.serializable(artifacts.load_checkpoint_raw(d, m))) / 1e6
+              for m in ("weight_only_int4", "weight_only_int8")}
+        rec = {"model": name, "images": len(x8), "equal": bool(np.array_equal(served, own)),
+               "max_abs_err": float(np.abs(served - own).max()),
+               "finite": bool(np.isfinite(served).all()), "w4a16_mb": mb["weight_only_int4"],
+               "w8a16_mb": mb["weight_only_int8"]}
+        out.append(rec)
+    emit({"phase": "w4a16_serve", **_stage_card(dev), "models": out})
+    if not all(r["equal"] and r["finite"] for r in out):
+        raise SmokeFailure(f"w4a16_serve: a W4A16 artifact through Predictor is not its "
+                           f"apply_folded: {out}")
+
+
 def run_dynamic_fc_route(dev, gen: torch.Generator, quant_dirs: dict):
     """``dynamic_fc_route``: the CNN families' dynamic int8 fc on kernel A's
     dynamic route against the float64 formula it replaced, bit for bit: at
@@ -3013,6 +3417,12 @@ def mbv2_golden_images() -> np.ndarray:
         0, 256, (MBV2_GOLDEN_IMAGES["n"], 224, 224, 3), dtype=np.uint8)
 
 
+def rx_golden_images() -> np.ndarray:
+    """The 8 seeded 224x224 uint8 images of ``RX_GOLDEN``."""
+    return np.random.default_rng(RX_GOLDEN_IMAGES["seed"]).integers(
+        0, 256, (RX_GOLDEN_IMAGES["n"], 224, 224, 3), dtype=np.uint8)
+
+
 def with_record_qparams(q: dict, rec: dict) -> dict:
     """A converted tree (numpy) with every activation qparam set to the
     conversion record's value (``rec["qparams"]``, by path): when the
@@ -3192,6 +3602,7 @@ def training(dev, root, q):
         chain["eff"] = effnet_stage_clis(dev, root)
         chain["mbv2"] = mbv2_stage_clis(dev, root)
         chain["vit"] = vit_stage_clis(dev, root)
+        chain["rx"] = rx_stage_clis(dev, root)
         result = chain
         profile_train_steps(dev, steps)
     finally:
@@ -3203,7 +3614,7 @@ def stage_clis(dev, root):
     ResNet50 teacher (bf16, batch 64, fold 0, one epoch), ResNet18 student
     distilled from it (batch 32, alpha 0.5, T 4), the student pruned (l2,
     ratio 0.11, round_to 8, one fine-tune epoch) and quantized (the default
-    four methods, 256 calibration images), ``choice=2`` after each. The
+    four methods and W4A16, 256 calibration images), ``choice=2`` after each. The
     kernel launch counts are set to 0 before the chain and read after stage
     4's ``choice=2``; then the fresh INT8 model's kernel path is held to its
     plain path, bit for bit, on 32 images. Stage logs go to stderr.
@@ -3264,7 +3675,7 @@ def stage_clis(dev, root):
 
 
 EFF_CHAIN_METHODS = ("static_int8", "static_int8_mixed", "dynamic_int8", "fp16", "bf16",
-                     "weight_only_int8")
+                     "weight_only_int8", "weight_only_int4")
 
 
 def effnet_stage_clis(dev, root):
@@ -3285,7 +3696,7 @@ def mbv2_stage_clis(dev, root):
 
 
 VIT_CHAIN_METHODS = ("static_int8", "static_int8_bf16", "dynamic_int8", "fp16", "bf16",
-                     "weight_only_int8")
+                     "weight_only_int8", "weight_only_int4")
 
 
 def vit_stage_clis(dev, root):
@@ -3299,12 +3710,38 @@ def vit_stage_clis(dev, root):
                             must_launch=("int8_matmul_requant",))
 
 
+RX_CHAIN_METHODS = ("static_int8", "dynamic_int8", "fp16", "weight_only_int8",
+                    "weight_only_int4")
+
+
+def rx_stage_clis(dev, root):
+    """``rx_chain``: REPORT.md's ``rx1`` (``scripts/round4_rx1.sh``) through
+    the port's four stage CLIs (``chain_stage_clis``): a resnext50_32x4d
+    teacher, KD into resnext26_32x4d, pruned (l2, ratio 0.11, round_to 8:
+    whole lanes of the 32 groups), quantized by five methods; kernels A and
+    F must run. A ResNet spec carries no ``__kind__``."""
+    return chain_stage_clis(dev, root, "resnext50_32x4d", "smoke_rx", "rx_chain", None,
+                            (256, 512, 1024, 2048), student="resnext26_32x4d",
+                            methods=RX_CHAIN_METHODS, ratio=0.11,
+                            must_launch=("int8_matmul_requant", "gconv_int8"))
+
+
 def _pruned_widths(spec, stock_widths):
     """(the pruned widths, their checks): every conv width, or a ViT's MLP
-    widths, a multiple of 8 (an SE squeeze width below 8 is kept whole),
-    and something pruned."""
+    widths, a multiple of 8 (an SE squeeze width below 8 is kept whole; a
+    ResNeXt's inner widths whole lanes: multiples of its groups), and
+    something pruned."""
     from inference_efficient_vision_models_tpu_torch.models.vit import ViTSpec
+    from inference_efficient_vision_models_tpu_torch.models.widths import ResNetSpec
 
+    if isinstance(spec, ResNetSpec):
+        inner = [w for st in spec.inner_widths for blk in st for w in blk]
+        return ({"stem_width": spec.stem_width, "stage_widths": spec.stage_widths,
+                 "inner_widths": spec.inner_widths, "groups": spec.groups},
+                {"prune_widths_multiple_of_8": all(
+                    w % 8 == 0 for w in (spec.stem_width, *spec.stage_widths, *inner)),
+                 "prune_whole_lanes": all(w % spec.groups == 0 for w in inner),
+                 "prune_pruned": spec.stage_widths != tuple(stock_widths)})
     if isinstance(spec, ViTSpec):
         return ({"head_counts": spec.head_counts, "mlp_hidden": spec.mlp_hidden},
                 {"prune_widths_multiple_of_8": all(w % 8 == 0 for w in spec.mlp_hidden),
@@ -3480,7 +3917,7 @@ def prune_cli(dev, root, common):
 
 def quantize_cli(dev, root, common):
     """Stage 4 through ``cli/quantize.py`` on the pruned model (the default
-    methods, 256 calibration images, batch 32) and its ``choice=2``; the
+    methods and W4A16, 256 calibration images, batch 32) and its ``choice=2``; the
     calibration and conversion times are the engine's, from the fold's
     provenance record. Fails when a requested method has no summary row or
     no artifact, its ``choice=2`` accuracy differs, or the times are
@@ -3493,9 +3930,9 @@ def quantize_cli(dev, root, common):
     from inference_efficient_vision_models_tpu_torch.core.config import QuantConfig
     from inference_efficient_vision_models_tpu_torch.core.provenance import read_provenance
 
-    methods = QuantConfig(artifacts_root=root).methods
+    methods = QuantConfig(artifacts_root=root).methods + ("weight_only_int4",)
     argv = common + ["model_type='pruned'", "pruning_exp_name='smoke'",
-                     "calibration_images=256"]
+                     "calibration_images=256", f"methods={methods!r}"]
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
         first = quantize.main(argv)
@@ -4108,6 +4545,8 @@ def kernels_line(rows, launches_by_path, aside=()):
         "dense_gelu": "torch.addmm + F.gelu(approximate='none') in bf16 (two launches)",
         "dwconv_int8": "no PyTorch call computes an int8 depthwise convolution (PyTorch has no "
                        "int8 convolution on CUDA)",
+        "gconv_int8": "no PyTorch call computes an int8 grouped convolution (PyTorch has no "
+                      "int8 convolution on CUDA)",
     }
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
@@ -4262,6 +4701,7 @@ def main() -> int:
     run_convert_vit(dev)
     vit_dyn_rows, vit_dyn_launches = run_vit_dynamic(dev, gen)
     vit_dyn_launches.update(run_vit_head_pruned(dev))
+    rx_rows, rx_launches = run_resnext(dev, gen, np.random.default_rng(11))
     with tempfile.TemporaryDirectory() as root:
         chain = run_training(dev, root)
         # the INT8 ResNet18 the chain made: each kernel call of its forward
@@ -4282,22 +4722,32 @@ def main() -> int:
                 "static_int8_fused": MBV2_FUSED_PER_FORWARD,
                 "static_int8_mixed": MBV2_MIXED_PER_FORWARD})
         vit_pipe_rows, vit_pipe_launches = run_vit_chain_int8(dev, gen, chain["vit"]["quant_dir"])
+        rx_pipe_rows, rx_pipe_launches = run_rx_chain_int8(dev, gen, chain["rx"]["quant_dir"])
         run_dynamic_fc_route(dev, gen, {"resnet18": chain["quant_dir"],
                                         "efficientnet_b0": chain["eff"]["quant_dir"],
-                                        "mobilenet_v2": chain["mbv2"]["quant_dir"]})
+                                        "mobilenet_v2": chain["mbv2"]["quant_dir"],
+                                        "resnext26_32x4d": chain["rx"]["quant_dir"]})
+        run_w4a16_serve(dev, {"resnet18": chain["quant_dir"],
+                              "efficientnet_b0": chain["eff"]["quant_dir"],
+                              "mobilenet_v2": chain["mbv2"]["quant_dir"],
+                              "vit_tiny": chain["vit"]["quant_dir"],
+                              "resnext26_32x4d": chain["rx"]["quant_dir"]})
     emit({"kernels": kernels_line(rows + eff_rows + e_rows + vit_rows + pipe_rows + eff_pipe_rows
-                                  + mbv2_rows + mbv2_pipe_rows + vit_dyn_rows + vit_pipe_rows,
+                                  + mbv2_rows + mbv2_pipe_rows + vit_dyn_rows + vit_pipe_rows
+                                  + rx_rows + rx_pipe_rows,
                                   {"resnet18": launches, "efficientnet_b0": eff_launches,
                                    "efficientnet_b0_unfused": e_launches,
                                    "resnet18_pipeline": chain["launches"],
                                    "efficientnet_b0_pipeline": chain["eff"]["launches"],
                                    "mobilenet_v2_pipeline": chain["mbv2"]["launches"],
                                    "vit_tiny_pipeline": chain["vit"]["launches"],
+                                   "resnext26_pipeline": chain["rx"]["launches"],
                                    **eff_pipe_launches, **mbv2_pipe_launches, **mbv2_launches,
                                    **vit_launches, **vit_dyn_launches, **vit_pipe_launches,
-                                   **server_launches},
+                                   **rx_launches, **rx_pipe_launches, **server_launches},
                                   aside={"resnet18_pipeline", "efficientnet_b0_pipeline",
-                                         "mobilenet_v2_pipeline", "vit_tiny_pipeline"})})
+                                         "mobilenet_v2_pipeline", "vit_tiny_pipeline",
+                                         "resnext26_pipeline"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

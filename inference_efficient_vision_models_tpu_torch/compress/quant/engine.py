@@ -13,7 +13,8 @@ Methods (reference parity):
                      kernel A's dynamic route: a CNN's fc, the convs folded
                      fp32 (torch ``quantize_dynamic({nn.Linear})``); every
                      dense layer of a ViT
-  weight_only_quantize  W8A16: int8 weight storage, bf16 compute
+  weight_only_quantize  W8A16: int8 weight storage, bf16 compute;
+                     ``bits=4``: W4A16, packed int4 with group scales
   cast_half          fp16 (parity) / bf16 cast of the folded model
   evaluate_accuracy / measure_latency / size_mb   the shared harness
 
@@ -40,7 +41,7 @@ from ...models.widths import ResNetSpec
 from ...ops.int8_matmul import dynamic_qparams, int8_matmul_requant_dynamic, pack_weight
 from ...ops.space_to_depth import space_to_depth_u8
 from ...utils.device import resolve_device
-from . import qeffnet, qmobilenet, qresnet, qvit, wo8
+from . import qeffnet, qmobilenet, qresnet, qvit, wo4, wo8
 from .observers import quantize_weight_per_channel
 
 
@@ -173,13 +174,16 @@ class QuantizationEngine:
         return model, dynamic_forward(self.spec, model, self.device)
 
     def weight_only_quantize(self, bits: int = 8):
-        """W8A16: int8 weight storage dequantized to bf16, the folded bf16
-        forward. ``bits=4`` (W4A16, ``wo4.py``) is not ported yet."""
-        if bits != 8:
-            raise NotImplementedError("weight_only_int4 (compress/quant/wo4.py) is not ported "
-                                      "yet (ROADMAP queue 1 item 11)")
-        model = wo8.convert_weight_only(self.folded)
-        return model, folded_forward(self.spec, wo8.dequantize(model, torch.bfloat16),
+        """W8A16 (``bits=8``, ``wo8``) or W4A16 (``bits=4``, ``wo4``: packed
+        int4 with group scales, int8 fallback leaves): the weights stored
+        quantized, dequantized to bf16, the folded bf16 forward."""
+        if bits not in (4, 8):
+            raise ValueError(f"weight-only quantization takes 4 or 8 bits, not {bits}")
+        if bits == 4:
+            wo, model = wo4, wo4.convert_weight_only_int4(self.folded)
+        else:
+            wo, model = wo8, wo8.convert_weight_only(self.folded)
+        return model, folded_forward(self.spec, wo.dequantize(model, torch.bfloat16),
                                      torch.bfloat16, self.device)
 
     def cast_half(self, dtype=torch.float16):

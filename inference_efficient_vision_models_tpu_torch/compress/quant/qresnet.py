@@ -17,6 +17,8 @@ int8. Every conv runs through a hand-written kernel:
 * 3x3 stride-1 convs -> ``conv3x3_s1_int8`` (direct, halo padded in-kernel);
   a basic block's conv2 also adds the identity, applies the ReLU and
   requantizes in its epilogue, so the block's fp32 sum never exists;
+* a ResNeXt bottleneck's grouped 3x3 conv2 (stride 1 or 2) ->
+  ``grouped_conv_int8`` (kernel F, ReLU + requant by division);
 * the s2d stem, 3x3 stride-2 convs, 1x1 convs and the fc ->
   ``int8_matmul_requant`` (through im2col for the convs).
 
@@ -46,6 +48,7 @@ from ...models.registry import spec_from_dict
 from ...models.resnet import _conv_w, place
 from ...models.widths import ResNetSpec
 from ...ops.conv3x3 import conv3x3_s1_int8, conv3x3_s1_int8_plain
+from ...ops.gconv_int8 import grouped_conv_int8, grouped_conv_int8_plain, pack_grouped_weight
 from ...ops.im2col import conv_int8_im2col
 from ...ops.int8_matmul import int8_matmul_requant, int8_matmul_requant_plain, pack_weight
 from ...ops.space_to_depth import remap_stem_weights_s2d, space_to_depth_device
@@ -289,9 +292,12 @@ def restore_derived(qmodel: Dict) -> Dict:
 # --------------------------------------------------------------------------
 
 
-def _conv_leaf(leaf: Dict, device: torch.device) -> Dict:
+def _conv_leaf(leaf: Dict, device: torch.device, groups: int = 1) -> Dict:
+    """A converted conv on ``device``: the weights in their kernel's layout
+    (kernel F's for a grouped conv, else kernels A/B's packed one)."""
+    w_q = torch.from_numpy(np.array(leaf["w_q"], np.int8)).to(device)
     out = {
-        "w": pack_weight(torch.from_numpy(np.array(leaf["w_q"], np.int8)).to(device)),
+        "w": pack_grouped_weight(w_q, groups) if groups > 1 else pack_weight(w_q),
         "w_scale": _t32(leaf["w_scale"]).to(device),
         "bias": _t32(leaf["bias"]).to(device),
         "w_sum": torch.from_numpy(np.array(leaf["w_sum"], np.int32)).to(device),
@@ -319,8 +325,6 @@ def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None)
     arrays, as ``msgpack_restore`` gives it) -> the port's model on ``device``."""
     dev = resolve_device(device)
     spec = spec_from_dict(spec_dict)
-    if spec.groups > 1:
-        raise NotImplementedError("grouped int8 convs (ResNeXt) are not ported yet")
     qm = restore_derived(qmodel_np)
     st = qm["stem"]
     if "e4" not in st:
@@ -343,7 +347,8 @@ def from_jax_qmodel(spec_dict: Dict, qmodel_np: Dict, device: DeviceLike = None)
         for b in range(depth):
             blk = qm[lname][str(b)]
             q[lname][str(b)] = {
-                **{k: _conv_leaf(v, dev) for k, v in blk.items() if isinstance(v, dict)},
+                **{k: _conv_leaf(v, dev, spec.groups if k == "conv2" else 1)
+                   for k, v in blk.items() if isinstance(v, dict)},
                 "out_scale": float(np.float32(blk["out_scale"])),
                 "out_zp": int(blk["out_zp"]),
             }
@@ -391,10 +396,17 @@ def _max_pool(x: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
-def _conv_q(x_s, zp, in_scale, qc, stride, padding, *, relu, requant, impl):
-    """One quantized conv: the direct 3x3 kernel for 3x3/s1/p1, else im2col +
-    the int8 matmul kernel. Returns int8 (requant) or fp32, NHWC."""
+def _conv_q(x_s, zp, in_scale, qc, stride, padding, *, relu, requant, impl, groups=1):
+    """One quantized conv: a grouped 3x3 (ReLU + requant, padding 1) on kernel
+    F, the direct 3x3 kernel for 3x3/s1/p1, else im2col + the int8 matmul
+    kernel. Returns int8 (requant) or fp32, NHWC."""
     rq = dict(out_scale=qc["out_scale"], out_zp=qc["out_zp"]) if requant else {}
+    if groups > 1:
+        if not (relu and requant and padding == 1):
+            raise NotImplementedError("a grouped conv runs padding 1 with ReLU and requant only")
+        fn = grouped_conv_int8 if impl == "kernel" else grouped_conv_int8_plain
+        return fn(x_s, qc["w"], qc["w_scale"], qc["bias"], qc["w_sum"], stride=stride,
+                  in_scale=in_scale, in_zp=zp, relu=relu, **rq)
     if qc["w"].shape[:2] == (3, 3) and stride == 1 and padding == 1:
         fn = conv3x3_s1_int8 if impl == "kernel" else conv3x3_s1_int8_plain
         return fn(x_s, qc["w"], qc["w_scale"], qc["bias"], qc["w_sum"],
@@ -459,7 +471,8 @@ def apply_int8(spec: ResNetSpec, q: Dict, x: torch.Tensor, *, impl: str = "kerne
                 a_q = _conv_q(x_in, in_z, in_s, blk["conv1"], 1, 0,
                               relu=True, requant=True, impl=impl)
                 b_q = _conv_q(a_q, blk["conv1"]["out_zp"], blk["conv1"]["out_scale"],
-                              blk["conv2"], stride, 1, relu=True, requant=True, impl=impl)
+                              blk["conv2"], stride, 1, relu=True, requant=True, impl=impl,
+                              groups=spec.groups)
                 h = _conv_q(b_q, blk["conv2"]["out_zp"], blk["conv2"]["out_scale"],
                             blk["conv3"], 1, 0, relu=False, requant=False, impl=impl)
                 if "down" in blk:

@@ -145,17 +145,6 @@ __device__ __forceinline__ void stage_band(const DwArgs& a, uint8_t* buf, int n,
   }
 }
 
-// clip(v, 0, 255) + 2^23 as bits (v integer-valued or +-inf): the low byte
-// is the byte clip(v, 0, 255) (int8_gemm.cuh clip_u8 without the mask).
-__device__ __forceinline__ uint32_t clip_bits(float v) {
-  return __float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), 8388608.f));
-}
-
-// The low bytes of a, b, c, d as one word (a in byte 0).
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
-}
-
 // Byte ch of lo and byte ch of hi, each sign-extended into a 16-bit lane
 // (prmt: a selector nibble with its top bit set replicates that byte's sign).
 __device__ __forceinline__ int pair16(uint32_t lo, uint32_t hi, int ch) {

@@ -163,6 +163,17 @@ __device__ __forceinline__ uint32_t clip_u8(float v) {
   return __float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), 8388608.f)) & 0xffu;
 }
 
+// clip(v, 0, 255) + 2^23 as bits (v integer-valued or +-inf): the low byte
+// is the byte clip(v, 0, 255) (clip_u8 without the mask).
+__device__ __forceinline__ uint32_t clip_bits(float v) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), 8388608.f));
+}
+
+// The low bytes of a, b, c, d as one word (a in byte 0).
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
 // clip(rint(y * inv) + zp, 0, 255) as a byte, rint and the conversion done by
 // adding RINT_MAGIC: (q + M) - (M - zp) = rint(q) + zp exactly for |q| < 2^22,
 // and beyond that it stays past the clip on the same side. zpm = M - zp.

@@ -29,7 +29,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .compress.quant import wo8
+from .compress.quant import wo4, wo8
 from .compress.quant.engine import dynamic_forward, folded_forward
 from .compress.quant.fusedpath import load_static_int8_fused
 from .compress.quant.qeffnet import load_static_int8 as load_static_int8_mbconv
@@ -59,15 +59,16 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
     call per MBConv block), each from its own ``model_<method>.msgpack`` or
     else the shared ``model_static_int8.msgpack``, as the JAX package's
     loader falls back. The CNN families serve ``"dynamic_int8"``, ``"fp16"``,
-    ``"bf16"`` and ``"weight_only_int8"`` (any artifact of a float-compute
-    method) through the folded float forward on raw uint8. A ViT serves
+    ``"bf16"``, ``"weight_only_int8"`` and ``"weight_only_int4"`` (any
+    artifact of a float-compute method) through the folded float forward on
+    raw uint8. A ViT serves
     ``"static_int8"`` (fp32 activation carrier) and ``"static_int8_bf16"``
     (bf16 carrier, from ``model_static_int8_bf16.msgpack`` or else the
     shared file), and every float-compute method as the CNNs do, a
     ``"dynamic_int8"`` artifact through the dynamic executor (every dense
     layer int8 on kernel A's dynamic route). The MBConv families and ViT take
-    raw uint8 images, with no host preprocess. ``"weight_only_int4"`` is not
-    ported yet (ROADMAP queue 1 item 11)."""
+    raw uint8 images, with no host preprocess. A ResNeXt's ``"static_int8"``
+    runs its grouped convs on kernel F."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
         spec = spec_from_dict(json.load(f))
     if isinstance(spec, ViTSpec) and method in ("static_int8", "static_int8_bf16"):
@@ -90,23 +91,23 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
 
 def _load_float(spec, fold_dir: str, method: str, device: DeviceLike):
     """An artifact of the float-compute methods, told apart by its leaves as
-    the JAX package's loader tells them: weight-only int8 ({"q", "s"}
-    kernels, bf16 compute), dynamic int8 (a CNN's ``fc_q`` head with the
+    the JAX package's loader tells them: weight-only int4 ({"q4", "s"}
+    kernels, with {"q", "s"} fallback leaves) or int8 ({"q", "s"} kernels),
+    both bf16 compute, dynamic int8 (a CNN's ``fc_q`` head with the
     fp32 trunk; a ViT's int8 ``head``, every dense layer int8), or a folded
     cast (fp16 / bf16 / fp32, computed in its own dtype). Each forward
     normalizes the raw uint8 images on the device and runs the family's
     ``apply_folded`` (the JAX loader folds the normalization into an s2d
     float stem instead: the same function, rounded elsewhere)."""
-    if method == "weight_only_int4":
-        raise NotImplementedError("method 'weight_only_int4' (W4A16, compress/quant/wo4.py) is "
-                                  "not ported yet (ROADMAP queue 1 item 11)")
     if method.startswith("static_int8_"):
         raise NotImplementedError(f"{type(spec).__name__[:-4]} has no {method!r} executor in "
                                   f"either package")
     model = load_checkpoint_raw(fold_dir, method)
     vit = isinstance(spec, ViTSpec)
-    if wo8.is_weight_only(model):
-        fn = folded_forward(spec, wo8.dequantize(model, torch.bfloat16), torch.bfloat16, device)
+    # a W4A16 tree may hold int8 fallback leaves too: told apart first
+    wo = wo4 if wo4.is_weight_only_int4(model) else wo8 if wo8.is_weight_only(model) else None
+    if wo is not None:
+        fn = folded_forward(spec, wo.dequantize(model, torch.bfloat16), torch.bfloat16, device)
     elif vit and "w_q" in model["head"]:
         fn = from_dynamic_qmodel(spec, model, device)
     elif "fc_q" in model:

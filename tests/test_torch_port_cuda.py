@@ -599,3 +599,77 @@ def test_served_effnet_unfused_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     assert counts == {"int8_matmul_requant": 34, "dwconv_int8": 16}
     assert torch.equal(got, ref)
+
+
+# kernel F: resnext26's grouped calls (smaller N), Cg not a multiple of 4
+# (byte copies), a ragged last slab, odd H and W, stride 2
+GC_SHAPES = [(56, 128, 32, 1), (56, 256, 32, 2), (14, 1024, 32, 2), (7, 1024, 32, 1),
+             (28, 224, 32, 2), (13, 96, 32, 1), (9, 160, 32, 1), (11, 10, 2, 2), (10, 64, 2, 1)]
+
+
+@pytest.mark.parametrize("h,c,groups,stride", GC_SHAPES)
+@pytest.mark.parametrize("in_zp,out_zp", [(0, 255), (128, 128), (255, 0), (117, 31)])
+def test_gconv_int8_kernel_matches_plain(cuda, h, c, groups, stride, in_zp, out_zp):
+    """Kernel F equals its plain version bit for bit (ReLU + requant)."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        grouped_conv_int8, grouped_conv_int8_plain, pack_grouped_weight)
+
+    rng = np.random.default_rng(h * c + groups + stride + in_zp)
+    n = 4 if h > 28 else 16
+    w_dim = h + 2 if h % 2 else h  # a ragged width beside the height
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, w_dim, c), dtype=np.int8)).to(cuda)
+    wq = rng.integers(-127, 128, (3, 3, c // groups, c), dtype=np.int8)
+    w = pack_grouped_weight(torch.from_numpy(wq).to(cuda), groups)
+    ws = torch.from_numpy(rng.uniform(0.0002, 0.002, c).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    w_sum = torch.from_numpy(wq.sum(axis=(0, 1, 2), dtype=np.int32)).to(cuda)
+    kw = dict(stride=stride, in_scale=0.043, in_zp=in_zp, out_scale=0.031, out_zp=out_zp)
+    before = _lib.launches["gconv_int8"]
+    got = grouped_conv_int8(x, w, ws, b, w_sum, **kw)
+    ref = grouped_conv_int8_plain(x, w, ws, b, w_sum, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["gconv_int8"] == before + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def test_gconv_int8_refuses_other_routes(cuda):
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        grouped_conv_int8, pack_grouped_weight)
+
+    x = torch.zeros((1, 8, 8, 8), dtype=torch.int8, device=cuda)
+    w = pack_grouped_weight(torch.zeros((3, 3, 4, 8), dtype=torch.int8, device=cuda), 2)
+    v = (torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
+         torch.zeros(8, dtype=torch.int32, device=cuda))
+    kw = dict(in_scale=0.1, in_zp=128, out_scale=0.1, out_zp=0)
+    with pytest.raises(NotImplementedError):
+        grouped_conv_int8(x, w, *v, stride=1, relu=False, **kw)
+    with pytest.raises(ValueError):
+        grouped_conv_int8(x, w, *v, stride=3, **kw)
+
+
+def test_served_resnext_kernel_path_matches_plain_path(cuda):
+    """A seeded resnext26_32x4d converted by the port (8 surrogate images at
+    224x224) equals its plain path; 22 kernel-A and 8 kernel-F launches per
+    forward."""
+    from chip_smoke import resnet_params_from_seed
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+    from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
+
+    spec = make_spec("resnext26_32x4d", 6)
+    p, s = resnet_params_from_seed(spec, 0)
+    folded = qresnet.fold(spec, p, s)
+    imgs = np.random.default_rng(0).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+    obs = qresnet.calibrate(spec, qresnet.place_folded(folded, cuda),
+                            Batches(imgs, np.zeros(8, np.int32), 8, cuda), max_images=8)
+    model = qresnet.from_jax_qmodel(spec.to_dict(), qresnet.convert_static_int8(
+        spec, folded, obs), cuda)
+    x = torch.from_numpy(imgs).to(cuda)
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+        counts = dict(_lib.launches)
+        ref = model(x, impl="plain")
+    torch.cuda.synchronize()
+    assert counts == {"int8_matmul_requant": 22, "gconv_int8": 8}
+    assert torch.equal(got, ref)

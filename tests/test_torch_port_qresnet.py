@@ -155,9 +155,31 @@ def test_small_model_matches_jax(spec):
 
 
 def test_grouped_convs_are_refused():
-    spec = resnet_spec("resnext26_32x4d", num_classes=6)
-    with pytest.raises(NotImplementedError):
-        tq.from_jax_qmodel(spec.to_dict(), {}, device="cpu")
+    """Grouped int8 convs were refused until kernel F was ported: a grouped
+    model now loads (conv2 in kernel F's layout) and runs, its grouped
+    convs on the kernel's plain version on the CPU, equal to ``impl="plain"``."""
+    from chip_smoke import resnet_params_from_seed
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+    from inference_efficient_vision_models_tpu_torch.models.registry import (
+        spec_from_dict as t_spec)
+    from inference_efficient_vision_models_tpu_torch.ops.gconv_int8 import GroupedInt8Weight
+
+    assert resnet_spec("resnext26_32x4d", num_classes=6).groups == 32
+    spec = t_spec(ResNetSpec(name="tinynext", block="bottleneck", depths=(1, 1),
+                             stage_widths=(32, 64), inner_widths=(((16, 16),), ((32, 32),)),
+                             stem_width=16, num_classes=6, groups=4).to_dict())
+    p, s = resnet_params_from_seed(spec, 0)
+    folded = tq.fold(spec, p, s)
+    imgs = np.random.default_rng(3).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    obs = tq.calibrate(spec, tq.place_folded(folded, "cpu"),
+                       Batches(imgs, np.zeros(8, np.int32), 4, "cpu"), max_images=8)
+    q = tq.convert_static_int8(spec, folded, obs, image_size=(32, 32))
+    model = tq.from_jax_qmodel(spec.to_dict(), q, device="cpu")
+    assert isinstance(model.q["layer1"]["0"]["conv2"]["w"], GroupedInt8Weight)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(imgs))
+        ref = model(torch.from_numpy(imgs), impl="plain")
+    assert got.shape == (8, 6) and torch.isfinite(got).all() and torch.equal(got, ref)
 
 
 if __name__ == "__main__":

@@ -41,7 +41,7 @@ def test_predictor_warmup_and_bad_buckets():
     assert pred.predict_logits(np.zeros((0, 224, 224, 3), np.uint8)).size == 0
     with pytest.raises(ValueError):
         Predictor(fn, batch_size=4, bucket_sizes=(8,), device="cpu")
-    with pytest.raises(NotImplementedError):  # W4A16 is not ported yet
+    with pytest.raises(FileNotFoundError):  # served since W4A16 was ported; r2 has none
         load_quantized(ARTIFACT, "weight_only_int4", device="cpu")
     with pytest.raises(FileNotFoundError):  # served since PR 8; r2 has no such artifact
         load_quantized(ARTIFACT, "dynamic_int8", device="cpu")

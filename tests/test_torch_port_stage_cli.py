@@ -132,7 +132,8 @@ def test_jax_written_teacher_feeds_port_kd(tmp_path, cpu_platform):
     assert len(res) == 1 and np.isfinite(res[0]["test_loss"])
 
 
-QUANT_METHODS = ("static_int8", "dynamic_int8", "fp16", "bf16", "weight_only_int8")
+QUANT_METHODS = ("static_int8", "dynamic_int8", "fp16", "bf16", "weight_only_int8",
+                 "weight_only_int4")
 
 
 def debug_args(root, **over):

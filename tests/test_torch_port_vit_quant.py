@@ -78,10 +78,10 @@ except ImportError:  # run as a script
 SIZE = 32
 TAP_RTOL, DYN_TAU = 1e-5, 0.0065
 STATIC_TAU = {"static_int8": 0.04, "static_int8_bf16": 0.07}
-# the CPU measures fp16 1.34e-3, bf16 0.0127, W8A16 8.9e-3, fp32 6.9e-7 (fp32
+# the CPU measures fp16 1.34e-3, bf16 0.0127, W8A16 8.9e-3, W4A16 1.03e-2, fp32 6.9e-7 (fp32
 # keeps the 1e-5 of the other fp32 limits), dynamic 3.0e-7 (its own DYN_TAU)
 LOAD_TAU = {"dynamic_int8": DYN_TAU, "fp32": 1e-5, "fp16": 0.0027, "bf16": 0.026,
-            "weight_only_int8": 0.018}
+            "weight_only_int8": 0.018, "weight_only_int4": 0.021}
 METHODS = ("static_int8", "static_int8_bf16", "dynamic_int8", "fp16", "bf16", "weight_only_int8")
 
 
@@ -292,6 +292,7 @@ def test_load_quantized_every_method_matches_jax(model, tmp_path):
             "fp16": lambda: eng.cast_half(jnp.float16),
             "bf16": lambda: eng.cast_half(jnp.bfloat16),
             "weight_only_int8": eng.weight_only_quantize,
+            "weight_only_int4": lambda: eng.weight_only_quantize(bits=4),
             "fp32": lambda: (eng.folded, None)}
     d = str(tmp_path)
     for method, fn in made.items():
@@ -308,8 +309,15 @@ def test_load_quantized_every_method_matches_jax(model, tmp_path):
         with torch.inference_mode():
             got = fn(torch.from_numpy(x)).float().numpy()
         assert_logits_close(got, ref, {**STATIC_TAU, **LOAD_TAU}[method])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_quantized(d, "weight_only_int4", device="cpu")
+    # W4A16, served since it was ported: the JAX loader's logits, and the
+    # port's own dequantized tree through apply_folded
+    _, _, j_fn, _ = j_load(d, "weight_only_int4")
+    ref = np.asarray(j_fn(jnp.asarray(x)), np.float32)
+    _, model_w4, fn, pre = load_quantized(d, "weight_only_int4", device="cpu")
+    with torch.inference_mode():
+        got = fn(torch.from_numpy(x)).float().numpy()
+    assert pre is None and "q4" in model_w4["blocks"]["0"]["qkv"]["w"]
+    assert_logits_close(got, ref, LOAD_TAU["weight_only_int4"])
 
 
 def test_head_pruned_vit_on_the_three_int8_executors(model):
