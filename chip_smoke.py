@@ -123,9 +123,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    kernel-F launches per forward, equal to its plain path, within
    ``RX_TAU`` of the JAX golden); kernel F (``gconv_int8``, the int8
    grouped 3x3 conv + ReLU + requant) against its plain version, max abs
-   err 0, at its 8 grouped calls (batch 256 and 1; timed beside its bound
-   and the dp4a design bound) and at odd shapes, zero points and requant
-   ties (``gconv_shapes``), kernel A at its 22 calls (``rx_a_shapes``); in
+   err 0, at its 8 grouped calls (batch 256 and 1; timed beside its bound,
+   its design bound (the mma's padded operations), the first design's time
+   and cuDNN's fp16 grouped conv) and at odd shapes, zero points and requant
+   ties (``gconv_shapes``), its fp32 quotient against the division over
+   every y below the clip at each served output scale
+   (``gconv_quotient``), kernel A at its 22 calls (``rx_a_shapes``); in
    the training process resnext50_32x4d -> KD resnext26_32x4d -> prune (l2
    0.11, round_to 8, whole lanes) -> quantize (five methods) through the
    CLIs (``rx_chain``); the chain's INT8 model through ``Predictor`` (A 22
@@ -173,6 +176,7 @@ from inference_efficient_vision_models_tpu_torch.ops import (
     pack_weight,
     to_device_packed,
 )
+from inference_efficient_vision_models_tpu_torch.ops.gconv_int8 import gc_geom, quotient_check
 from inference_efficient_vision_models_tpu_torch.ops.im2col import extract_patches_nhwc
 from inference_efficient_vision_models_tpu_torch.serving import Predictor
 from inference_efficient_vision_models_tpu_torch.utils.device import describe_device
@@ -237,9 +241,24 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 FP32_FMA_PER_S = 33.5e12    # H100 SXM: 67 TFLOP/s fp32 outside the tensor cores, 2 per FMA
-# kernel F's design bound (not the card's): dp4a at the integer multiply-add
-# rate, 64 a clock per SM, 132 SMs at the 1.98 GHz boost clock
-DP4A_PER_S = 64 * 132 * 1.98e9
+# kernel F's first design (dp4a): ms per call at batch 256 and 1, by path
+# and call, as PERF.md section 6 records them (H100 80GB HBM3, 700.00 W):
+# each row's ``old_ms``
+GC_OLD_MS = {
+    ("resnext26_32x4d", 256): {"layer1.0.conv2": 0.1905, "layer1.1.conv2": 0.1921,
+                               "layer2.0.conv2": 0.1925, "layer2.1.conv2": 0.1405,
+                               "layer3.0.conv2": 0.1770, "layer3.1.conv2": 0.1249,
+                               "layer4.0.conv2": 0.1348, "layer4.1.conv2": 0.1276},
+    ("resnext26_32x4d", 1): {"layer1.0.conv2": 0.0091, "layer1.1.conv2": 0.0092,
+                             "layer2.0.conv2": 0.0087, "layer2.1.conv2": 0.0084,
+                             "layer3.0.conv2": 0.0091, "layer3.1.conv2": 0.0084,
+                             "layer4.0.conv2": 0.0099, "layer4.1.conv2": 0.0096},
+    ("resnext26_pipeline", 256): {"layer1.0.conv2": 0.1941, "layer1.1.conv2": 0.1941,
+                                  "layer2.0.conv2": 0.6009, "layer2.1.conv2": 0.2986,
+                                  "layer3.0.conv2": 0.7592, "layer3.1.conv2": 0.2388,
+                                  "layer4.0.conv2": 0.1261, "layer4.1.conv2": 0.1145},
+}
+GC_OLD_RESNEXT50_MS = 2.3772  # its 16 calls, summed from the same rows
 # EfficientNet logits: |served - reference| <= TAU * max|reference|, and the
 # same argmax where the reference's top-2 margin exceeds twice that (PERF.md
 # gives the measured values these were set from)
@@ -2661,28 +2680,40 @@ def f_row(path: str, label: str, x: torch.Tensor, leaf, kw, *, timed: bool = Tru
     """Kernel F at one call, bit for bit against its plain version, its bound
     (bytes: x, out, the (3, 3, Cg, C) weights and three C-vectors once; the
     int8 MACs at the tensor cores' rate) beside its design bound (the same
-    bytes, and the dp4a it issues at ``DP4A_PER_S``) and, ``timed``, its time
-    beside the plain version's and both bounds' shares of it."""
+    bytes, and the operations its mma issue, K and N padded, at that rate)
+    and, ``timed``, its time beside the plain version's, both bounds'
+    shares of it, the first design's (``GC_OLD_MS``) and cuDNN's fp16
+    grouped conv at the same shape (an aside: float inputs, no requant; not
+    the same function, so not ``library_ms``)."""
     args = (x, leaf["w"], leaf["w_scale"], leaf["bias"], leaf["w_sum"])
     ok, err = compare_exact(grouped_conv_int8(*args, **kw), grouped_conv_int8_plain(*args, **kw))
     n, h, w, c = x.shape
-    stride, cg = kw["stride"], leaf["w"].cg
-    out = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * c
+    stride, cg, groups = kw["stride"], leaf["w"].cg, leaf["w"].groups
+    g = gc_geom(c, groups)
+    pix = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+    out = pix * c
     nbytes = x.numel() + out + 9 * cg * c + 12 * c
-    macs, dp4a = out * 9 * cg, out * 9 * -(-cg // 4)
+    macs, padded = out * 9 * cg, pix * g.nwin * 32 * g.ks * 8 * g.nt
     row = {"path": path, "kernel": "gconv_int8", "call": label, "batch": n, "x": list(x.shape),
-           "n": c, "groups": leaf["w"].groups, "cg": cg, "stride": stride,
+           "n": c, "groups": groups, "cg": cg, "stride": stride,
            "in_zp": int(kw["in_zp"]), "out_zp": int(kw["out_zp"]), "max_abs_err": err,
-           "bytes": nbytes, "ops": 2 * macs, "macs": macs, "dp4a": dp4a,
+           "bytes": nbytes, "ops": 2 * macs, "macs": macs, "padded_ops": 2 * padded,
            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 2 * macs / INT8_OPS_PER_S * 1e3,
-           "dp4a_ms": dp4a / DP4A_PER_S * 1e3, "library_ms": None, "calls": calls,
-           "in_forward": n == BATCH}
+           "padded_ops_ms": 2 * padded / INT8_OPS_PER_S * 1e3, "library_ms": None,
+           "calls": calls, "in_forward": n == BATCH,
+           "old_ms": GC_OLD_MS.get((path, n), {}).get(label)}
     if timed:
         row["ms"] = time_ms(lambda: grouped_conv_int8(*args, **kw), spin=True)
         row["plain_ms"] = time_ms(lambda: grouped_conv_int8_plain(*args, **kw), runs=5, warm=1,
                                   spin=True)
         row["bound_share"] = max(row["bytes_ms"], row["ops_ms"]) / row["ms"]
-        row["design_bound_share"] = max(row["bytes_ms"], row["dp4a_ms"]) / row["ms"]
+        row["design_bound_ms"] = max(row["bytes_ms"], row["padded_ops_ms"])
+        row["design_bound_share"] = row["design_bound_ms"] / row["ms"]
+        xh = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+        wh = leaf["w"].hwio.permute(3, 2, 0, 1).half().contiguous(memory_format=torch.channels_last)
+        row["cudnn_fp16_ms"] = time_ms(lambda: torch.nn.functional.conv2d(
+            xh, wh, stride=stride, padding=1, groups=groups), spin=True)
+        del xh, wh
     return row, [] if ok else [f"gconv_int8 {path} {label} {tuple(x.shape)} {kw}: "
                                f"max abs err {err}"]
 
@@ -2718,9 +2749,12 @@ def check_rx_calls(model, gen: torch.Generator, path: str, phases: tuple, *, tim
                 "batch": BATCH, "calls": len(mine), **sums, "bound_ms": bound,
                 "bound_share": bound / sums["ms"]}
         if k == "gconv_int8":
-            design = sum(max(r["bytes_ms"], r["dp4a_ms"]) for r in mine)
-            line.update({"dp4a": sum(r["dp4a"] for r in mine), "design_bound_ms": design,
-                         "design_bound_share": design / sums["ms"]})
+            design = sum(r["design_bound_ms"] for r in mine)
+            old = [r["old_ms"] for r in mine]
+            line.update({"padded_ops": sum(r["padded_ops"] for r in mine),
+                         "design_bound_ms": design, "design_bound_share": design / sums["ms"],
+                         "old_ms": None if None in old else sum(old),
+                         "cudnn_fp16_ms": sum(r["cudnn_fp16_ms"] for r in mine)})
         else:
             libs = [r["library_ms"] for r in mine]
             line["library_ms"] = None if None in libs else sum(libs)
@@ -2765,6 +2799,29 @@ def gconv_odd_shapes(gen: torch.Generator):
     emit({"phase": "gconv_odd_shapes", "checks": len(rows),
           "max_abs_err": max(r["max_abs_err"] for r in rows), "failed": fails})
     return fails
+
+
+def gconv_quotient(path: str, model, gen_np: np.random.Generator):
+    """``gconv_quotient``: kernel F's fp32 quotient (``quot_rn``) against the
+    division on the card (``quotient_check``) over every float32 y >= 0 at
+    each output scale s of ``model``'s grouped convs and at 16 scales drawn
+    log-uniform over 2^-14 .. 2: bit for bit from y = 2^-90 to 512 s, the
+    rounded integer (the epilogue's byte) from 0 to 512 s, the clip above.
+    -> failures."""
+    spec = model.spec
+    served = sorted({float(model.q[f"layer{si + 1}"][str(bi)]["conv2"]["out_scale"])
+                     for si, depth in enumerate(spec.depths) for bi in range(depth)})
+    drawn = [float(np.float32(v)) for v in np.exp2(gen_np.uniform(-14, 1, 16))]
+    t = time.perf_counter()
+    res = quotient_check(served + drawn)
+    wall = time.perf_counter() - t
+    bad = {k: v for k, v in res.items() if v["quotient"] or v["rint"] or v["clip"]}
+    emit({"phase": "gconv_quotient", "path": path, "served_scales": served,
+          "drawn_scales": drawn, "values_per_scale": 0x7F800000, "wall_s": wall,
+          "largest_differing_y": max(v["largest_differing_y"] for v in res.values()),
+          "failures": {str(k): v for k, v in bad.items()}})
+    return [f"gconv_quotient {path}: quot_rn differs from the division at s = {k}: {v}"
+            for k, v in bad.items()]
 
 
 def rx_artifact(dir_: str, spec, q: dict) -> str:
@@ -2848,6 +2905,7 @@ def run_resnext(dev, gen: torch.Generator, gen_np: np.random.Generator):
 
     rows, fails = check_rx_calls(model, gen, "resnext26_32x4d", ("gconv_shapes", "rx_a_shapes"))
     fails += gconv_odd_shapes(gen)
+    fails += gconv_quotient("resnext26_32x4d", model, gen_np)
     f_rows = [r for r in rows if r["kernel"] == "gconv_int8"]
     # resnext50_32x4d: its 16 grouped calls by the shapes resnext26's rows timed
     blocks50 = (3, 4, 6, 3)
@@ -2864,7 +2922,9 @@ def run_resnext(dev, gen: torch.Generator, gen_np: np.random.Generator):
             n50[key] = n50.get(key, 0) + 1
     emit({"phase": "gconv_resnext50", "batch": BATCH, "calls": sum(n50.values()),
           **{f: sum(n50[k] * by_key[k][f] for k in n50)
-             for f in ("ms", "plain_ms", "bytes", "bytes_ms", "dp4a")}})
+             for f in ("ms", "plain_ms", "bytes", "bytes_ms", "design_bound_ms",
+                       "cudnn_fp16_ms")},
+          "old_ms": GC_OLD_RESNEXT50_MS})
     if fails:
         raise SmokeFailure("kernels F and A disagree with their plain versions at the ResNeXt "
                            "calls:\n" + "\n".join(fails))
@@ -2878,7 +2938,8 @@ def run_rx_chain_int8(dev, gen: torch.Generator, quant_dir: str):
     path equal to its plain path bit for bit on 32 images, the forwards
     timed at batch 1 and 256 beside the chain's W8A16 and W4A16 forwards;
     then each kernel call at the chain model's shapes against its plain
-    version (kernel F timed, aside in the kernels line). -> (rows, {path:
+    version (kernel F timed, aside in the kernels line) and kernel F's
+    quotient at its output scales (``gconv_quotient``). -> (rows, {path:
     launches})."""
     from inference_efficient_vision_models_tpu_torch.serving import load_quantized
 
@@ -2918,6 +2979,7 @@ def run_rx_chain_int8(dev, gen: torch.Generator, quant_dir: str):
                            f"{launches} (expected {RX_PER_FORWARD})")
     rows, fails = check_rx_calls(model, gen, pipe, ("rx_chain_f_shapes", "rx_chain_a_shapes"),
                                  time_a=False, batches=(BATCH,))
+    fails += gconv_quotient(pipe, model, np.random.default_rng(15))
     if fails:
         raise SmokeFailure("kernels disagree at the ResNeXt chain's shapes:\n" + "\n".join(fails))
     return rows, {f"{pipe}_static_int8": launches}

@@ -67,7 +67,8 @@ KERNELS = {
         "ievm_dwconv_int8": [_P] * 5 + [_I] * 8 + [_F, _D, _F] + [_I] * 6 + [_P],
     }),
     "gconv_int8": ("gconv_int8", {
-        "ievm_gconv_int8": [_P] * 6 + [_I] * 7 + [_F, _D, _F] + [_I] * 5 + [_P],
+        "ievm_gconv_int8": [_P] * 6 + [_I] * 7 + [_F, _F, _F] + [_I] * 7 + [_P],
+        "ievm_gconv_quotient_check": [_F, _P, _P],
     }),
     "dense_gelu": ("fused_dense", {
         "ievm_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -601,10 +601,15 @@ def test_served_effnet_unfused_kernel_path_matches_plain_path(cuda):
     assert torch.equal(got, ref)
 
 
-# kernel F: resnext26's grouped calls (smaller N), Cg not a multiple of 4
-# (byte copies), a ragged last slab, odd H and W, stride 2
+# kernel F: resnext26's grouped calls (smaller N), Cg 1, 3, 7, 14 and 28
+# (words gathered by byte permutes for Cg not a multiple of 4) at both
+# strides, ragged last slabs (40 groups of 4: 20 windows in slabs of 16; 2
+# groups of 5), odd H and W with m16 tiles past Wo, stride 2
 GC_SHAPES = [(56, 128, 32, 1), (56, 256, 32, 2), (14, 1024, 32, 2), (7, 1024, 32, 1),
-             (28, 224, 32, 2), (13, 96, 32, 1), (9, 160, 32, 1), (11, 10, 2, 2), (10, 64, 2, 1)]
+             (28, 224, 32, 2), (13, 96, 32, 1), (9, 160, 32, 1), (11, 10, 2, 2), (10, 64, 2, 1),
+             (13, 32, 32, 1), (14, 32, 32, 2), (11, 96, 32, 2), (15, 224, 32, 1),
+             (14, 448, 32, 1), (13, 448, 32, 2), (9, 896, 32, 1), (10, 896, 32, 2),
+             (11, 160, 40, 2), (12, 160, 40, 1)]
 
 
 @pytest.mark.parametrize("h,c,groups,stride", GC_SHAPES)
@@ -630,6 +635,84 @@ def test_gconv_int8_kernel_matches_plain(cuda, h, c, groups, stride, in_zp, out_
     torch.cuda.synchronize()
     assert _lib.launches["gconv_int8"] == before + 1
     assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def _gconv_case(rng, cuda, n, h, c, groups, *, zero_w=False):
+    wq = rng.integers(-127, 128, (3, 3, c // groups, c), dtype=np.int8)
+    if zero_w:
+        wq[:] = 0
+    from inference_efficient_vision_models_tpu_torch.ops import pack_grouped_weight
+
+    return (pack_grouped_weight(torch.from_numpy(wq).to(cuda), groups),
+            torch.from_numpy(rng.uniform(0.0002, 0.002, c).astype(np.float32)).to(cuda),
+            torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda),
+            torch.from_numpy(wq.sum(axis=(0, 1, 2), dtype=np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("c,groups", [(128, 32), (256, 32), (96, 32)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("offset", [1, 4])
+def test_gconv_int8_kernel_matches_plain_at_unaligned_x(cuda, c, groups, stride, offset):
+    """x at 1- and 4-byte alignment: the copy width drops to what its address
+    allows (words gathered by byte permutes at 1), bit for bit."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        grouped_conv_int8, grouped_conv_int8_plain)
+
+    rng = np.random.default_rng(c + stride + offset)
+    shape = (3, 13, 15, c)
+    numel = int(np.prod(shape))
+    store = torch.empty(numel + 64, dtype=torch.int8, device=cuda)
+    start = (-store.data_ptr()) % 16 + offset
+    x = store[start : start + numel].view(shape)
+    x.copy_(torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)))
+    assert x.data_ptr() % 16 == offset and x.is_contiguous()
+    w, ws, b, w_sum = _gconv_case(rng, cuda, 3, 13, c, groups)
+    kw = dict(stride=stride, in_scale=0.043, in_zp=117, out_scale=0.031, out_zp=31)
+    before = _lib.launches["gconv_int8"]
+    got = grouped_conv_int8(x, w, ws, b, w_sum, **kw)
+    ref = grouped_conv_int8_plain(x, w, ws, b, w_sum, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["gconv_int8"] == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("c,groups", [(24, 8), (32, 8), (448, 32)])
+@pytest.mark.parametrize("out_scale", [0.05, 0.0123])
+def test_gconv_int8_kernel_matches_plain_at_requant_ties(cuda, c, groups, out_scale):
+    """Zero weights: y is the bias, set on and beside half-integer multiples
+    of s_out, so the requant meets rint's ties (half to even)."""
+    from inference_efficient_vision_models_tpu_torch.ops import (
+        grouped_conv_int8, grouped_conv_int8_plain)
+
+    rng = np.random.default_rng(c)
+    w, ws, _, w_sum = _gconv_case(rng, cuda, 2, 5, c, groups, zero_w=True)
+    half = (np.arange(c) % 7 + 0.5).astype(np.float32) * np.float32(out_scale)
+    bias = np.stack([half, np.nextafter(half, np.float32(np.inf)),
+                     np.nextafter(half, np.float32(-np.inf))])[np.arange(c) % 3, np.arange(c)]
+    b = torch.from_numpy(bias.astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 5, 6, c), dtype=np.int8)).to(cuda)
+    kw = dict(stride=1, in_scale=0.03, in_zp=150, out_scale=out_scale, out_zp=3)
+    before = _lib.launches["gconv_int8"]
+    got = grouped_conv_int8(x, w, ws, b, w_sum, **kw)
+    ref = grouped_conv_int8_plain(x, w, ws, b, w_sum, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["gconv_int8"] == before + 1
+    assert torch.equal(got, ref)
+    q = bias.astype(np.float64) / np.float32(out_scale)
+    assert (np.abs(q - np.floor(q) - 0.5) == 0).any()
+
+
+def test_gconv_int8_quotient_equals_division(cuda):
+    """The kernel's fp32 quotient equals the division over every y from 2^-90
+    to 512 s, rounds to the same integer from 0, and clips alike above, at a
+    few scales."""
+    from inference_efficient_vision_models_tpu_torch.ops.gconv_int8 import quotient_check
+
+    res = quotient_check([0.031, 0.0123, 0.5, 1.9999999, 2.0 ** -14 * 1.5])
+    assert len(res) == 5
+    for r in res.values():
+        assert (r["quotient"], r["rint"], r["clip"]) == (0, 0, 0)
+        assert r["largest_differing_y"] < 2.0 ** -90
 
 
 def test_gconv_int8_refuses_other_routes(cuda):
