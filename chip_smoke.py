@@ -135,7 +135,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    + F 8 a forward, equal to its plain path, timed beside its W8A16 and
    W4A16 forwards) and its kernel calls (``rx_chain_int8``); and every
    chain's ``weight_only_int4`` artifact through ``Predictor`` equal to its
-   own ``apply_folded`` (``w4a16_serve``).
+   own ``apply_folded`` (``w4a16_serve``);
+11. the stage-4 accuracy tools: one QAT step, one W4 QAT step and four
+   AdaRound iterations of a seeded narrow ResNet against a JAX golden, and
+   AdaRound's conversion contract (``qat_step_golden``); in the training
+   process, after ``quantize_cli``, stage 4 again on the chain's pruned
+   ResNet18 with one QAT epoch, 50 AdaRound iterations, the sensitivity
+   sweep and automix (static INT8, W8A16, W4A16): every artifact restored,
+   both CSVs, the QAT + AdaRound INT8 model's kernel path equal to its
+   plain path with kernels A and B launched (the kernels line's path
+   ``resnet18_accuracy_tools``), the contract on the card, each method's
+   accuracy beside ``quantize_cli``'s and the tools' times
+   (``accuracy_tools``); and one W4 QAT epoch on the ResNeXt chain's pruned
+   resnext26 (``rx_w4_qat``).
 
 Results go to stdout as JSON lines; the line before the last gives the card
 as nvidia-smi reports it and the last is ``{"ok": true, "device": ...}``.
@@ -3099,23 +3111,14 @@ def train_step_metrics(role: str, loss, logits, grads, new_state, before, after,
     ``(after - before) / lr`` of every leaf of at most ``UPDATE_LEAF_MAX``
     values, whole, beside the fp32 rounding of those parameters in units of
     lr; leaves in sorted-path order."""
-    g, st = _flat_sorted(grads), _flat_sorted(new_state)
-    p0, p1 = _flat_sorted(before), _flat_sorted(after)
-    kept = [k for k in p0 if p0[k].size <= UPDATE_LEAF_MAX]
-    return {f"{role}_loss": np.float64(loss), f"{role}_logits": np.asarray(logits, np.float32),
-            f"{role}_grad_names": np.array(list(g)),
-            f"{role}_grad_norms": np.array([np.linalg.norm(v) for v in g.values()]),
+    st = _flat_sorted(new_state)
+    return {**tool_step_metrics(role, loss, logits, grads, before, after, lr),
             f"{role}_bn_names": np.array(list(st)),
             f"{role}_bn_sums": np.array([v.sum() for v in st.values()]),
             f"{role}_bn_abs_sums": np.array([np.abs(v).sum() for v in st.values()]),
             f"{role}_moment_names": np.array(list(_flat_sorted(mu))),
             f"{role}_mu_norms": np.array([np.linalg.norm(v) for v in _flat_sorted(mu).values()]),
-            f"{role}_nu_norms": np.array([np.linalg.norm(v) for v in _flat_sorted(nu).values()]),
-            f"{role}_update_names": np.array(kept),
-            f"{role}_update_slack_over_lr": np.float64(2 * np.spacing(np.float32(
-                max(np.abs(p0[k]).max() for k in kept) + 4 * lr)) / lr),
-            f"{role}_update_over_lr": np.concatenate(
-                [((p1[k] - p0[k]) / lr).ravel() for k in kept]).astype(np.float32)}
+            f"{role}_nu_norms": np.array([np.linalg.norm(v) for v in _flat_sorted(nu).values()])}
 
 
 def port_train_step(weights: dict, batch, device, cfg=TRAIN_STEP) -> dict:
@@ -3318,6 +3321,219 @@ def run_train_step_golden(dev, cfg=TRAIN_STEP, path=TRAIN_GOLDEN, limits=TRAIN_L
             fails.append(role)
     if fails:
         raise SmokeFailure(f"{phase}: {fails} outside the limits")
+
+
+# --------------------------------------------------------------------------
+# the stage-4 accuracy tools: QAT, weight-only QAT, AdaRound
+# --------------------------------------------------------------------------
+
+# One QAT step, one W4 QAT step and four AdaRound iterations of a seeded
+# narrow ResNet (one basic block a stage, widths 16/32/48/64) at batch 8,
+# 64x64, against the JAX package run op by op on the CPU
+# (``JAX_PLATFORMS=cpu python tests/test_torch_port_accuracy_tools.py``
+# rewrites the golden and prints the port's CPU deviation). Both sides take
+# the golden's observers (the JAX calibration of the 16 images).
+TOOLS_STEP = dict(spec=dict(name="resnet_narrow_tools", block="basic", depths=[1, 1, 1, 1],
+                            stage_widths=[16, 32, 48, 64],
+                            inner_widths=[[[16]], [[32]], [[48]], [[64]]], stem_width=16,
+                            num_classes=6, groups=1),
+                  seed=0, image_seed=4, batch=8, size=64, calib=16, qat_lr=1e-5,
+                  ada_iters=4, ada_lr=1e-2)
+TOOLS_GOLDEN = os.path.join(TESTDATA, "accuracy_tools_jax.npz")
+# Per role, twice the CPU port's worst deviation from the golden over torch's
+# two CPU conv implementations (oneDNN and the native one: two summation
+# orders) and 1 to 8 threads, set before the card's first reading. The QAT
+# role's are wide: a value within fp32 rounding of a fake-quant rounding edge
+# moves one quantum (the CPU: one at l1b0o, 4e-5 of a quantum from the edge),
+# and the layers after it carry the flip (83 flipped values by the fc); the
+# W4 role has no activation grid, so summation order alone. The updates
+# within 2 lr (one sign flip of a near-zero gradient) beyond the parameters'
+# fp32 rounding; AdaRound's learned integers that differ from JAX's (an
+# activation flip moves the reconstruction's gradient).
+TOOLS_LIMITS = {"qat": {"loss_rel": 4.8e-4, "logits_over_scale": 0.0101, "grad_norm_rel": 0.015,
+                        "update_dev_over_lr": 2.0},
+                "w4": {"loss_rel": 2.2e-7, "logits_over_scale": 1.05e-6,
+                       "grad_norm_rel": 7.9e-7, "update_dev_over_lr": 2.0},
+                "ada_mismatch_share": 0.0025}
+
+
+def tools_inputs(cfg=TOOLS_STEP):
+    """(spec, the folded seeded model (JAX layout, numpy), the train batch
+    (its ``batch`` first images and labels), the calibration split)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.models.registry import spec_from_dict
+
+    spec = spec_from_dict(cfg["spec"])
+    folded = qresnet.fold(spec, *params_from_seed(spec, cfg["seed"]))
+    rng = np.random.default_rng(cfg["image_seed"])
+    imgs = rng.integers(0, 256, (cfg["calib"], cfg["size"], cfg["size"], 3), dtype=np.uint8)
+    labels = (np.arange(cfg["calib"]) % 6).astype(np.int32)
+    return spec, folded, (imgs[: cfg["batch"]], labels[: cfg["batch"]]), (imgs, labels)
+
+
+def golden_observers(golden) -> dict:
+    from inference_efficient_vision_models_tpu_torch.compress.quant.observers import (
+        ObserverState)
+
+    return {str(n): ObserverState(float(lo), float(hi), True)
+            for n, lo, hi in zip(golden["obs_names"], golden["obs_min"], golden["obs_max"])}
+
+
+def tool_step_metrics(role: str, loss, logits, grads, before, after, lr: float) -> dict:
+    """What a golden keeps of one step (trees in the JAX layout): the loss, the
+    logits, each gradient leaf's L2 norm, and the update ``(after - before) /
+    lr`` of every leaf of at most ``UPDATE_LEAF_MAX`` values, beside the
+    parameters' fp32 rounding in units of lr; leaves in sorted-path order."""
+    g = _flat_sorted(grads)
+    p0, p1 = _flat_sorted(before), _flat_sorted(after)
+    kept = [k for k in p0 if p0[k].size <= UPDATE_LEAF_MAX]
+    return {f"{role}_loss": np.float64(loss), f"{role}_logits": np.asarray(logits, np.float32),
+            f"{role}_grad_names": np.array(list(g)),
+            f"{role}_grad_norms": np.array([np.linalg.norm(v) for v in g.values()]),
+            f"{role}_update_names": np.array(kept),
+            f"{role}_update_slack_over_lr": np.float64(2 * np.spacing(np.float32(
+                max(np.abs(p0[k]).max() for k in kept) + 4 * lr)) / lr),
+            f"{role}_update_over_lr": np.concatenate(
+                [((p1[k] - p0[k]) / lr).ravel() for k in kept]).astype(np.float32)}
+
+
+def _w_leaf(tree, key: str):
+    for k in key.split("/"):
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def learned_ints(before: dict, hardened: dict, keys) -> np.ndarray:
+    """The integers a hardened tree holds, leaf by leaf in ``keys``' order:
+    round(hardened / s) on the scale s of the leaf before hardening (int16:
+    a channel's kept argmax element may round to 128)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.adaround import (
+        _channel_scale_np)
+
+    out = []
+    for k in keys:
+        w0 = _w_leaf(before, k)
+        out.append(np.round(_w_leaf(hardened, k) / _channel_scale_np(w0, w0.ndim - 1)).ravel())
+    return np.concatenate(out).astype(np.int16)
+
+
+def adaround_contract(before: dict, hardened: dict, rounding: dict, qmodel: dict) -> dict:
+    """AdaRound's conversion contract, leaf by leaf: the conversion of the
+    hardened tree has the learned integers as its ``w_q`` wherever hardening
+    wrote the s-grid, and each channel's first argmax-|w| element keeps its
+    value (so the conversion's scale is AdaRound's). -> {"leaves",
+    "int_equal", "argmax_kept", "scale_equal", "moved_from_nearest"}."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.adaround import (
+        _argmax_mask, _channel_scale_np)
+    from inference_efficient_vision_models_tpu_torch.compress.quant.observers import (
+        quantize_weight_per_channel)
+
+    out = {"leaves": len(rounding), "int_equal": True, "argmax_kept": True, "scale_equal": True,
+           "moved_from_nearest": 0}
+    for key, q in rounding.items():
+        w0, wh = _w_leaf(before, key), _w_leaf(hardened, key)
+        node = qmodel
+        for k in key.split("/")[:-1]:
+            node = node[k]
+        ax = w0.ndim - 1
+        keep = _argmax_mask(w0, ax)
+        out["int_equal"] &= bool(np.array_equal(np.asarray(node["w_q"])[~keep], q[~keep]))
+        out["argmax_kept"] &= bool(np.array_equal(wh[keep], w0[keep]))
+        out["scale_equal"] &= bool(np.array_equal(
+            np.asarray(node["w_scale"]).ravel(), _channel_scale_np(w0, ax).ravel()))
+        near, _ = quantize_weight_per_channel(w0, channel_axis=ax)
+        out["moved_from_nearest"] += int((near[~keep] != q[~keep]).sum())
+    return out
+
+
+def port_tool_steps(device, golden, cfg=TOOLS_STEP) -> dict:
+    """The port's QAT step, W4 QAT step (``bits=4``) and AdaRound iterations
+    on ``device`` with the golden's observers -> the golden's keys (the
+    metrics of each role, AdaRound's learned integers by leaf in sorted order)
+    and ``contract`` (``adaround_contract`` of its own output)."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qat, qresnet
+    from inference_efficient_vision_models_tpu_torch.compress.quant.adaround import (
+        adaround_refine)
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+    from inference_efficient_vision_models_tpu_torch.train.optim import tree_like
+
+    from inference_efficient_vision_models_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    spec, folded, train, calib = tools_inputs(cfg)
+    obs = golden_observers(golden)
+    b = cfg["batch"]
+    batch = next(iter(Batches(*train, b, device, shuffle=True, seed=0)))
+    out = {}
+    roles = {"qat": (qat.fq_weights, qat.act_hook(obs, device),
+                     lambda: qat.qat_finetune(spec, qresnet, folded, obs, train,
+                                              lr=cfg["qat_lr"], batch_size=b, device=device)),
+             "w4": (qat.fq_weights_w4, None,
+                    lambda: qat.w4_qat_finetune(spec, qresnet, folded, train, lr=cfg["qat_lr"],
+                                                batch_size=b, bits=4, device=device))}
+    for role, (fq, hook, finetune) in roles.items():
+        params = qat.tensor_tree(folded, device)
+        loss, logits, grads = qat.fq_loss_and_grads(spec, qresnet, params, batch, fq, hook)
+        grads = qat.numpy_tree(tree_like(params, grads))
+        out.update(tool_step_metrics(role, loss.item(), logits.cpu().numpy(), grads, folded,
+                                     finetune(), cfg["qat_lr"]))
+    hardened, rounding = adaround_refine(spec, qresnet, folded, obs, calib,
+                                         iters=cfg["ada_iters"], lr=cfg["ada_lr"], batch_size=b,
+                                         device=device, return_rounding=True)
+    names = sorted(rounding)
+    out["ada_names"] = np.array(names)
+    out["ada_q"] = learned_ints(folded, hardened, names)
+    qmodel = qresnet.convert_static_int8(spec, hardened, obs, image_size=(cfg["size"],) * 2)
+    out["contract"] = adaround_contract(folded, hardened, rounding, qmodel)
+    return out
+
+
+def compare_tool_steps(got: dict, golden, limits=None) -> dict:
+    """Each role's deviation from the golden (``compare_train_step``'s
+    measures; the updates' beyond the parameters' fp32 rounding) and
+    AdaRound's share of learned integers that differ; with ``limits`` also
+    whether each holds (``ok``)."""
+    dev = {}
+    for role in ("qat", "w4"):
+        for k in ("grad_names", "update_names"):
+            if list(got[f"{role}_{k}"]) != list(golden[f"{role}_{k}"]):
+                raise SmokeFailure(f"{role}: the {k} differ from the golden's")
+        dev[role] = {
+            "loss_rel": _rel(got[f"{role}_loss"], golden[f"{role}_loss"]),
+            "logits_over_scale": float(np.abs(got[f"{role}_logits"] - golden[f"{role}_logits"])
+                                       .max() / np.abs(golden[f"{role}_logits"]).max()),
+            "grad_norm_rel": _rel(got[f"{role}_grad_norms"], golden[f"{role}_grad_norms"]),
+            "update_dev_over_lr": float(np.abs(got[f"{role}_update_over_lr"]
+                                               - golden[f"{role}_update_over_lr"]).max())
+                                  - float(golden[f"{role}_update_slack_over_lr"])}
+    if list(got["ada_names"]) != list(golden["ada_names"]):
+        raise SmokeFailure("adaround: the leaves differ from the golden's")
+    dev["ada_mismatch_share"] = float(np.count_nonzero(got["ada_q"] != golden["ada_q"])
+                                      / golden["ada_q"].size)
+    if limits is not None:
+        dev["ok"] = dev["ada_mismatch_share"] <= limits["ada_mismatch_share"] and all(
+            dev[r][k] <= lim for r in ("qat", "w4") for k, lim in limits[r].items())
+    return dev
+
+
+def run_qat_step_golden(dev):
+    """``qat_step_golden``: the port's QAT, W4 QAT and AdaRound on the card
+    (TF32 off) against the JAX golden (``TOOLS_STEP``), within
+    ``TOOLS_LIMITS``; AdaRound's contract on its own output exact."""
+    golden = np.load(TOOLS_GOLDEN)
+    spec, folded, _, _ = tools_inputs()
+    if not np.array_equal(leaf_sums(folded), golden["folded_sums"]):
+        raise SmokeFailure("qat_step_golden: the seeded model is no longer the golden's")
+    got = port_tool_steps("cuda", golden)
+    d = compare_tool_steps(got, golden, TOOLS_LIMITS)
+    contract = got["contract"]
+    emit({"phase": "qat_step_golden", **_stage_card(dev), "model": TOOLS_STEP["spec"]["name"],
+          "batch": TOOLS_STEP["batch"], "size": TOOLS_STEP["size"], "limits": TOOLS_LIMITS,
+          **d, "contract": contract})
+    if not d["ok"]:
+        raise SmokeFailure(f"qat_step_golden: outside the limits: {d}")
+    if not (contract["int_equal"] and contract["argmax_kept"] and contract["scale_equal"]):
+        raise SmokeFailure(f"qat_step_golden: AdaRound's contract broke: {contract}")
 
 
 def run_convert_r2(dev, calib, test):
@@ -3665,6 +3881,7 @@ def training(dev, root, q):
         chain["mbv2"] = mbv2_stage_clis(dev, root)
         chain["vit"] = vit_stage_clis(dev, root)
         chain["rx"] = rx_stage_clis(dev, root)
+        rx_w4_qat(dev, root, chain["rx"])
         result = chain
         profile_train_steps(dev, steps)
     finally:
@@ -3733,7 +3950,9 @@ def stage_clis(dev, root):
         if not all(checks.values()):
             raise SmokeFailure(f"{phase}: {checks}")
     prune_cli(dev, root, common)
-    return quantize_cli(dev, root, common)
+    q = quantize_cli(dev, root, common)
+    q["tools_launches"] = accuracy_tools_cli(dev, root, common, q["rows"])
+    return q
 
 
 EFF_CHAIN_METHODS = ("static_int8", "static_int8_mixed", "dynamic_int8", "fp16", "bf16",
@@ -3922,7 +4141,8 @@ def chain_stage_clis(dev, root, model: str, exp: str, phase: str, kind: str, sto
     for k in must_launch:
         if not launches.get(k):
             raise SmokeFailure(f"{phase}: {k} was not launched by the stage chain")
-    return {"launches": launches, "quant_dir": quant_dir}
+    return {"launches": launches, "quant_dir": quant_dir,
+            "quant_rows": out["stages"]["quantize"]["rows"]}
 
 
 def _seeded_shapes(fold_dir: str):
@@ -4033,7 +4253,205 @@ def quantize_cli(dev, root, common):
     for k in ("int8_matmul_requant", "conv3x3_s1_int8"):
         if not launches.get(k):
             raise SmokeFailure(f"quantize_cli: {k} was not launched by the stage chain")
-    return {"launches": launches, "quant_dir": fold_dir}
+    return {"launches": launches, "quant_dir": fold_dir, "rows": first}
+
+
+TOOLS_METHODS = ("static_int8", "weight_only_int8", "weight_only_int4")
+TOOLS_ADA_ITERS = 50
+
+
+def _steady_median(ms) -> float:
+    """The median of a loop's per-step device ms past its first two steps."""
+    return float(np.median(ms[2:] if len(ms) > 2 else ms)) if ms else float("nan")
+
+
+def _tool_times(rec: dict) -> dict:
+    """The accuracy tools' times from a fold's provenance record: each
+    method's QAT step and AdaRound iteration (device ms, CUDA events, median
+    of the steady steps), the sweeps' wall seconds."""
+    out = {}
+    for method, t in (rec or {}).get("accuracy_tool_timings", {}).items():
+        for k, v in t.items():
+            out[f"{method}_{k}"] = v if k == "wall_s" else {
+                "steps": len(v), "median_steady": _steady_median(v)}
+    return out
+
+
+def accuracy_tools_cli(dev, root, common, plain_rows):
+    """``accuracy_tools``: stage 4 through ``cli/quantize.py`` on the chain's
+    pruned ResNet18 (experiment ``smoke``) under the experiment
+    ``smoke_tools``, with ``qat_epochs=1 adaround_iters=50 sensitivity=True
+    automix=True`` and the methods ``TOOLS_METHODS``, and its ``choice=2``.
+    The kernel launch counts are set to 0 just before the CLI and read just
+    after it. Fails unless every method has a row, an artifact that
+    ``load_quantized`` restores and an equal ``choice=2`` accuracy; both CSVs
+    exist with the JAX CLI's columns (one sensitivity row a tap but the
+    input, then ``__weights__`` and ``__all__``); the provenance records the
+    tools' knobs and times; the QAT + AdaRound static-INT8 model's kernel
+    path equals its plain path on 32 images, kernels A and B launched; and
+    AdaRound's contract holds on the card (``adaround_contract``: the
+    chain's model, 8 iterations on 64 surrogate images, converted again).
+    Records each method's accuracy beside ``quantize_cli``'s without the
+    tools (no limit: one epoch on the surrogate). -> the CLI's launches."""
+    import contextlib
+    import csv
+
+    from inference_efficient_vision_models_tpu_torch.cli import quantize
+    from inference_efficient_vision_models_tpu_torch.cli.teacher import load_stage_model
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.compress.quant.adaround import (
+        adaround_refine)
+    from inference_efficient_vision_models_tpu_torch.compress.quant.engine import (
+        QuantizationEngine)
+    from inference_efficient_vision_models_tpu_torch.core.config import QuantConfig
+    from inference_efficient_vision_models_tpu_torch.core.log import get_logger
+    from inference_efficient_vision_models_tpu_torch.core.provenance import read_provenance
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    argv = [a for a in common if not a.startswith("experiment_name=")] + [
+        "experiment_name='smoke_tools'", "model_type='pruned'", "pruning_exp_name='smoke'",
+        "calibration_images=256", f"methods={TOOLS_METHODS!r}", "qat_epochs=1",
+        f"adaround_iters={TOOLS_ADA_ITERS}", "sensitivity=True", "automix=True"]
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        first = quantize.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.launches)
+        second = quantize.main(argv + ["choice=2"])
+    out_dir = os.path.join(root, "quantization", "smoke_tools")
+    fold_dir = os.path.join(out_dir, "fold_0")
+    rows = {r["method"]: r for r in first}
+    reload = {r["method"]: r for r in second}
+    checks = {}
+    for m in TOOLS_METHODS:
+        try:
+            load_quantized(fold_dir, m, device="cuda")
+            restored = True
+        except Exception as e:  # the check reports which method failed, and fails
+            restored = f"{type(e).__name__}: {e}"
+        checks[m] = restored is True and m in rows and m in reload and os.path.exists(
+            os.path.join(fold_dir, f"model_{m}.msgpack")) and (
+            reload[m]["Accuracy"] == rows[m]["Accuracy"])
+
+    model = qresnet.load_static_int8(fold_dir, "cuda")
+    hw = 2 * model.q["stem"]["e4"].shape[1]
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (32, hw, hw, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        kernel, plain = model(x), model(x, impl="plain")
+        _, taps = qresnet.apply_folded(model.spec, qresnet.place_folded(
+            qresnet.fold(model.spec, *params_from_seed(model.spec, 0)), "cuda"),
+            torch.zeros_like(x[:1], dtype=torch.float32), with_taps=True)
+    exact = bool(torch.equal(kernel, plain))
+    names = sorted(n for n in taps if n != "input")
+    csvs = {}
+    for kind, cols in (("sensitivity", ["tap", "logit_rmse", "top1_flips"]),
+                       ("automix", ["k", "float_taps", "top1_flips", "logit_rmse", "acc"])):
+        path = os.path.join(out_dir, f"{kind}_fold0.csv")
+        if not os.path.exists(path):
+            checks[f"{kind}_csv"] = False
+            continue
+        with open(path) as f:
+            csvs[kind] = list(csv.DictReader(f))
+        checks[f"{kind}_csv"] = bool(csvs[kind]) and list(csvs[kind][0]) == cols
+    if "sensitivity" in csvs:
+        taps_csv = [r["tap"] for r in csvs["sensitivity"]]
+        checks["sensitivity_rows"] = (sorted(taps_csv[:-2]) == names
+                                      and taps_csv[-2:] == ["__weights__", "__all__"])
+    if "automix" in csvs:
+        checks["automix_rungs"] = [int(r["k"]) for r in csvs["automix"]] == list(
+            range(len(csvs["automix"])))
+    rec = read_provenance(fold_dir) or {}
+    times = _tool_times(rec)
+    checks["provenance_knobs"] = (rec.get("qat_epochs"), rec.get("adaround_iters")) == (
+        1, TOOLS_ADA_ITERS)
+    checks["provenance_times"] = all(
+        times.get(k, {}).get("steps") for k in ("static_int8_qat_step_ms",
+                                                "static_int8_adaround_iter_ms",
+                                                "weight_only_int8_qat_step_ms",
+                                                "weight_only_int4_qat_step_ms")) and all(
+        k in times for k in ("sensitivity_wall_s", "automix_wall_s"))
+    checks["int8_kernel_vs_plain_equal"] = exact
+    checks["kernels_launched"] = all(launches.get(k) for k in ("int8_matmul_requant",
+                                                               "conv3x3_s1_int8"))
+
+    # AdaRound's contract on the card, through the conversion's integer leaves
+    spec, params, state = load_stage_model(os.path.join(root, "pruning", "smoke", "fold_0"),
+                                           "best", "cuda")
+    cfg = QuantConfig(artifacts_root=os.path.join(root, "contract"), batch_size=32,
+                      calibration_images=64)
+    engine = QuantizationEngine(cfg, spec, params, state, get_logger(name="contract"), "cuda")
+    calib = (chain_images(hw, 64), np.zeros(64, np.int32))
+    obs = engine.calibrate(calib)
+    hardened, rounding = adaround_refine(spec, qresnet, engine.folded, obs, calib, iters=8,
+                                         device="cuda", return_rounding=True)
+    contract = adaround_contract(engine.folded, hardened, rounding, qresnet.convert_static_int8(
+        spec, hardened, obs, image_size=(hw, hw)))
+    checks["adaround_contract"] = (contract["int_equal"] and contract["argmax_kept"]
+                                   and contract["scale_equal"])
+    plain_acc = {r["method"]: r["Accuracy"] for r in plain_rows}
+    emit({"phase": "accuracy_tools", **_stage_card(dev), "model": "resnet18 (pruned)",
+          "methods": list(TOOLS_METHODS), "qat_epochs": 1, "adaround_iters": TOOLS_ADA_ITERS,
+          "quantize_wall_s": wall,
+          "accuracy": {m: {"with_tools": rows[m]["Accuracy"] if m in rows else None,
+                           "without (quantize_cli)": plain_acc.get(m)} for m in TOOLS_METHODS},
+          "times": times, "sensitivity": csvs.get("sensitivity"),
+          "automix": csvs.get("automix"), "launches": launches,
+          "int8_kernel_vs_plain": {"images": 32, "equal": exact,
+                                   "max_abs_err": float((kernel - plain).abs().max())},
+          "adaround_contract": contract, "rows": first, "choice2": second, "checks": checks})
+    if not all(v is True for v in checks.values()):
+        raise SmokeFailure(f"accuracy_tools: {checks}")
+    return launches
+
+
+def rx_w4_qat(dev, root, rx):
+    """``rx_w4_qat``: one more stage-4 call on the ResNeXt chain's pruned
+    resnext26 with ``qat_epochs=1 methods=('weight_only_int4',)`` (W4 QAT
+    before the conversion), and its ``choice=2``; fails unless the row, the
+    restored artifact, the equal ``choice=2`` accuracy and the provenance's
+    QAT record are there. Records the W4A16 accuracy beside the chain's
+    without QAT (no limit)."""
+    import contextlib
+
+    from inference_efficient_vision_models_tpu_torch.cli import quantize
+    from inference_efficient_vision_models_tpu_torch.core.provenance import read_provenance
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    argv = [f"artifacts_root={root!r}", "experiment_name='smoke_rx_w4qat'", "folds=(0,)",
+            "synthetic_size=480", "pretrained=False", "batch_size=32", "model_type='pruned'",
+            "pruning_exp_name='smoke_rx'", "calibration_images=256", "observer='minmax'",
+            "methods=('weight_only_int4',)", "qat_epochs=1"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        first = quantize.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        second = quantize.main(argv + ["choice=2"])
+    fold_dir = os.path.join(root, "quantization", "smoke_rx_w4qat", "fold_0")
+    rows = {r["method"]: r for r in first}
+    reload = {r["method"]: r for r in second}
+    rec = read_provenance(fold_dir) or {}
+    times = _tool_times(rec)
+    load_quantized(fold_dir, "weight_only_int4", device="cuda")
+    checks = {"row": "weight_only_int4" in rows,
+              "choice2_acc_equal": "weight_only_int4" in reload and "weight_only_int4" in rows
+                                   and reload["weight_only_int4"]["Accuracy"]
+                                   == rows["weight_only_int4"]["Accuracy"],
+              "provenance": rec.get("qat_epochs") == 1 and bool(
+                  times.get("weight_only_int4_qat_step_ms", {}).get("steps"))}
+    chain = {r["method"]: r["Accuracy"] for r in rx["quant_rows"]}
+    emit({"phase": "rx_w4_qat", **_stage_card(dev), "model": "resnext26_32x4d (pruned)",
+          "qat_epochs": 1, "wall_s": wall,
+          "w4a16_accuracy": {"with_w4_qat": rows.get("weight_only_int4", {}).get("Accuracy"),
+                             "without (rx_chain)": chain.get("weight_only_int4"),
+                             "w8a16 (rx_chain)": chain.get("weight_only_int8"),
+                             "fp32 (rx_chain)": chain.get("fp32")},
+          "times": times, "rows": first, "choice2": second, "checks": checks})
+    if not all(checks.values()):
+        raise SmokeFailure(f"rx_w4_qat: {checks}")
 
 
 def _same_shapes(tree, ref) -> bool:
@@ -4760,6 +5178,7 @@ def main() -> int:
     mbv2_rows, mbv2_launches = run_mbv2(dev, gen, np.random.default_rng(7))
     run_train_step_golden(dev, VIT_TRAIN_STEP, VIT_TRAIN_GOLDEN, VIT_TRAIN_LIMITS,
                           "vit_train_step_golden")
+    run_qat_step_golden(dev)
     run_convert_vit(dev)
     vit_dyn_rows, vit_dyn_launches = run_vit_dynamic(dev, gen)
     vit_dyn_launches.update(run_vit_head_pruned(dev))
@@ -4804,12 +5223,13 @@ def main() -> int:
                                    "mobilenet_v2_pipeline": chain["mbv2"]["launches"],
                                    "vit_tiny_pipeline": chain["vit"]["launches"],
                                    "resnext26_pipeline": chain["rx"]["launches"],
+                                   "resnet18_accuracy_tools": chain["tools_launches"],
                                    **eff_pipe_launches, **mbv2_pipe_launches, **mbv2_launches,
                                    **vit_launches, **vit_dyn_launches, **vit_pipe_launches,
                                    **rx_launches, **rx_pipe_launches, **server_launches},
                                   aside={"resnet18_pipeline", "efficientnet_b0_pipeline",
                                          "mobilenet_v2_pipeline", "vit_tiny_pipeline",
-                                         "resnext26_pipeline"})})
+                                         "resnext26_pipeline", "resnet18_accuracy_tools"})})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

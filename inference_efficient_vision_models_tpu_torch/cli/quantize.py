@@ -7,15 +7,22 @@ size, batch-1 latency and batch throughput, save each artifact
 (``model_<method>.msgpack`` from ``serializable(model)`` + ``spec.json``,
 read by either package's ``load_quantized``), and emit the summary table
 and CSV; the fold's provenance record also holds static_int8's
-calibration and conversion seconds. A method that fails is logged and
-skipped, as in the reference, so the others still run. choice=2 reloads
-the saved artifacts and re-measures accuracy and size.
+calibration and conversion seconds and what the accuracy tools took. With
+``qat_epochs`` > 0 every static method and both weight-only methods run
+their own QAT first (``adaround_iters`` > 0: AdaRound after it, for the
+static ones); ``sensitivity=True`` and ``automix=True`` write
+``sensitivity_fold{k}.csv`` and ``automix_fold{k}.csv`` into the output
+directory, with the JAX CLI's columns. A method or tool that fails is
+logged and skipped, as in the reference, so the others still run (a tool
+that fails writes no file). choice=2 reloads the saved artifacts and
+re-measures accuracy and size.
 
     python -m inference_efficient_vision_models_tpu_torch.cli.quantize key=value ...
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import traceback
@@ -47,6 +54,39 @@ def _save_qmodel(fold_dir: str, method: str, model, spec) -> str:
     with open(os.path.join(fold_dir, "spec.json"), "w") as f:
         json.dump(spec.to_dict(), f, indent=2)
     return path
+
+
+def _write_csv(path: str, rows) -> None:
+    """Rows (dicts with the same keys) -> a CSV with a header, as pandas'
+    ``to_csv(index=False)`` writes it (the GPU machine has no pandas)."""
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")
+        w.writeheader()
+        w.writerows(rows)
+
+
+def _sweeps(cfg, logger, engine, calib, test_d, fold: int) -> None:
+    """The sensitivity sweep and the automix search on the test split, each
+    isolated as a method is: a failure is logged and writes no file."""
+    if cfg.sensitivity:
+        try:
+            srows = engine.sensitivity(calib, eval_data=test_d)
+            sp = os.path.join(cfg.output_dir, f"sensitivity_fold{fold}.csv")
+            _write_csv(sp, srows)
+            logger.info("wrote %s", sp)
+        except Exception as e:
+            logger.error("sensitivity sweep failed: %s", e)
+            logger.error(traceback.format_exc())
+    if cfg.automix:
+        try:
+            float_taps, ladder = engine.auto_mixed(calib, eval_data=test_d)
+            ap = os.path.join(cfg.output_dir, f"automix_fold{fold}.csv")
+            _write_csv(ap, [{**r, "float_taps": ";".join(r["float_taps"])} for r in ladder])
+            logger.info("automix policy: %d float tap(s) %s -> wrote %s", len(float_taps),
+                        float_taps, ap)
+        except Exception as e:
+            logger.error("automix search failed: %s", e)
+            logger.error(traceback.format_exc())
 
 
 def run_test(cfg, logger, data, device=None):
@@ -90,15 +130,16 @@ def run_quantize(cfg, logger, data, split, device=None):
         fp32_mb = engine.size_mb(engine.folded)
         methods = {
             "fp32": lambda: (engine.folded, engine.float_forward()),
-            "static_int8": lambda: engine.static_quantize(calib),
-            "static_int8_mixed": lambda: engine.static_quantize(calib, executor="mixed"),
+            "static_int8": lambda: engine.static_quantize(calib, train_d),
+            "static_int8_mixed": lambda: engine.static_quantize(calib, train_d,
+                                                                executor="mixed"),
             # the bf16 activation carrier over the same conversion (ViTs)
-            "static_int8_bf16": lambda: engine.static_quantize(calib, executor="bf16"),
+            "static_int8_bf16": lambda: engine.static_quantize(calib, train_d, executor="bf16"),
             "dynamic_int8": engine.dynamic_quantize,
             "fp16": lambda: engine.cast_half(torch.float16),
             "bf16": lambda: engine.cast_half(torch.bfloat16),
-            "weight_only_int8": engine.weight_only_quantize,
-            "weight_only_int4": lambda: engine.weight_only_quantize(bits=4),
+            "weight_only_int8": lambda: engine.weight_only_quantize(train_data=train_d),
+            "weight_only_int4": lambda: engine.weight_only_quantize(bits=4, train_data=train_d),
         }
         for method in ("fp32",) + tuple(cfg.methods):
             if method not in methods:
@@ -125,6 +166,7 @@ def run_quantize(cfg, logger, data, split, device=None):
             except Exception as e:  # the reference isolates each method
                 logger.error("method %s failed: %s", method, e)
                 logger.error(traceback.format_exc())
+        _sweeps(cfg, logger, engine, calib, test_d, fold)
         write_provenance(cfg.fold_dir(fold), stage_record(
             cfg, "quantization", fold, source_dir=src,
             model_type=cfg.model_type, spec_name=spec.name,
@@ -133,6 +175,7 @@ def run_quantize(cfg, logger, data, split, device=None):
             observer=cfg.observer, qat_epochs=cfg.qat_epochs,
             adaround_iters=cfg.adaround_iters, calibration_images=cfg.calibration_images,
             methods=list(cfg.methods), static_int8_timings=engine.timings,
+            accuracy_tool_timings=engine.tool_timings,
         ))
     summarize_folds(rows, cfg.output_dir, logger, name="quantization_summary")
     return rows

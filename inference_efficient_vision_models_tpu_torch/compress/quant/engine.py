@@ -4,23 +4,31 @@ MobileNetV2 and the ViT.
 
 Methods (reference parity):
   static_quantize    per-channel int8 weights + calibrated quint8
-                     activations -> the int8 forward (ResNet: kernels A and
-                     B; EfficientNet and MobileNetV2: the unfused executor
-                     on kernels A and E, or ``executor="mixed"``: kernel A
-                     and a bf16 depthwise; ViT: every dense layer on kernel
-                     A, ``executor="bf16"``: the bf16 activation carrier)
+                     activations (QAT and AdaRound between calibration and
+                     conversion when cfg asks) -> the int8 forward (ResNet:
+                     kernels A and B; EfficientNet and MobileNetV2: the
+                     unfused executor on kernels A and E, or
+                     ``executor="mixed"``: kernel A and a bf16 depthwise;
+                     ViT: every dense layer on kernel A,
+                     ``executor="bf16"``: the bf16 activation carrier)
   dynamic_quantize   int8 dense layers with a per-batch activation scale on
                      kernel A's dynamic route: a CNN's fc, the convs folded
                      fp32 (torch ``quantize_dynamic({nn.Linear})``); every
                      dense layer of a ViT
   weight_only_quantize  W8A16: int8 weight storage, bf16 compute;
                      ``bits=4``: W4A16, packed int4 with group scales
+                     (a grid-targeted QAT first when cfg asks)
   cast_half          fp16 (parity) / bf16 cast of the folded model
+  sensitivity / auto_mixed   the per-tap sensitivity sweep and the greedy
+                     mixed-precision search on the calibrated taps
   evaluate_accuracy / measure_latency / size_mb   the shared harness
 
 Every conversion returns ``(model, apply_fn)``: ``model`` the tree the
 artifact stores (JAX layout: numpy, bfloat16 leaves as CPU tensors) and
 ``apply_fn`` a forward on raw uint8 NHWC images on the engine's device.
+``tool_timings`` keeps what the accuracy tools took, by method: QAT's and
+AdaRound's device ms per step (CUDA events; none on the CPU), the sweeps'
+wall seconds.
 """
 
 from __future__ import annotations
@@ -42,7 +50,11 @@ from ...ops.int8_matmul import dynamic_qparams, int8_matmul_requant_dynamic, pac
 from ...ops.space_to_depth import space_to_depth_u8
 from ...utils.device import resolve_device
 from . import qeffnet, qmobilenet, qresnet, qvit, wo4, wo8
+from .adaround import adaround_refine
+from .automix import auto_mixed_policy
 from .observers import quantize_weight_per_channel
+from .qat import qat_finetune, w4_qat_finetune
+from .sensitivity import tap_sensitivity
 
 
 def quant_module(spec):
@@ -112,6 +124,7 @@ class QuantizationEngine:
         self.folded = self.q.fold(spec, params_to_jax(spec, params), params_to_jax(spec, state))
         self.folded_dev = place_folded(spec, self.folded, self.device)
         self.timings: Dict[str, float] = {}  # static_quantize's wall seconds
+        self.tool_timings: Dict[str, Dict] = {}  # the accuracy tools', by method
 
     # -- conversions ---------------------------------------------------------
 
@@ -120,13 +133,29 @@ class QuantizationEngine:
         spec, f, q = self.spec, self.folded_dev, self.q
         return lambda x_u8: q.apply_folded(spec, f, normalize_images(x_u8))
 
-    def static_quantize(self, calib_data: Tuple[np.ndarray, np.ndarray], *,
+    def _qat_knobs(self):
+        """(cfg.qat_epochs, cfg.qat_lr), the JAX defaults where cfg lacks them."""
+        return int(getattr(self.cfg, "qat_epochs", 0)), float(getattr(self.cfg, "qat_lr", 1e-5))
+
+    def calibrate(self, calib_data: Tuple[np.ndarray, np.ndarray]):
+        """The observers of every tap over at most cfg.calibration_images (the
+        estimator from cfg.observer)."""
+        loader = Batches(calib_data[0], calib_data[1], self.cfg.batch_size, self.device)
+        return self.q.calibrate(self.spec, self.folded_dev, loader,
+                                max_images=self.cfg.calibration_images,
+                                observer=getattr(self.cfg, "observer", "minmax"),
+                                percentile=getattr(self.cfg, "percentile", 99.99))
+
+    def static_quantize(self, calib_data: Tuple[np.ndarray, np.ndarray], train_data=None, *,
                         executor: str = "int8"):
-        """Calibrate on at most cfg.calibration_images (the estimator from
-        cfg.observer), then convert to int8; the forward runs the int8
-        executor (``executor="mixed"``: an MBConv network's mixed executor
-        over the same conversion; ``executor="bf16"``: a ViT's bf16 activation
-        carrier). Wall seconds of the two steps go to
+        """Calibrate (``calibrate``), then convert to int8; the forward runs
+        the int8 executor (``executor="mixed"``: an MBConv network's mixed
+        executor over the same conversion; ``executor="bf16"``: a ViT's bf16
+        activation carrier). With cfg.qat_epochs > 0 and ``train_data``, a
+        quantization-aware fine-tune (``qat.qat_finetune``) runs between
+        calibration and conversion, then with cfg.adaround_iters > 0 AdaRound
+        on the calibration split (``adaround.adaround_refine``, 2 iterations
+        under DEBUG_MODE). Wall seconds of calibration and conversion go to
         ``self.timings`` (calibrate_s, convert_s): the observer ranges come
         back to the host as floats, so the first ends with the device's work."""
         mbconv = isinstance(self.spec, (EfficientNetSpec, MobileNetV2Spec))
@@ -135,15 +164,36 @@ class QuantizationEngine:
             raise NotImplementedError(
                 f"{type(self.spec).__name__[:-4]} has no {executor!r} executor (the mixed one "
                 f"serves MBConv networks, the bf16 carrier the ViT)")
-        loader = Batches(calib_data[0], calib_data[1], self.cfg.batch_size, self.device)
         t0 = time.perf_counter()
-        observers = self.q.calibrate(self.spec, self.folded_dev, loader,
-                                     max_images=self.cfg.calibration_images,
-                                     observer=self.cfg.observer, percentile=self.cfg.percentile)
+        observers = self.calibrate(calib_data)
         t1 = time.perf_counter()
-        qmodel = self.q.convert_static_int8(self.spec, self.folded, observers,
+        folded, tools = self.folded, {}
+        qat_epochs, lr = self._qat_knobs()
+        ada_iters = int(getattr(self.cfg, "adaround_iters", 0))
+        if qat_epochs > 0 and train_data is not None:
+            self.logger.info("QAT fine-tune: %d epoch(s)", qat_epochs)
+            tools["qat_step_ms"] = []
+            folded = qat_finetune(self.spec, self.q, folded, observers, train_data,
+                                  epochs=qat_epochs, lr=lr, batch_size=self.cfg.batch_size,
+                                  logger=self.logger, debug=self.cfg.DEBUG_MODE,
+                                  device=self.device, step_ms=tools["qat_step_ms"])
+        if ada_iters > 0:
+            self.logger.info("AdaRound: %d steps on the calibration split", ada_iters)
+            tools["adaround_iter_ms"] = []
+            folded = adaround_refine(self.spec, self.q, folded, observers, calib_data,
+                                     iters=2 if self.cfg.DEBUG_MODE else ada_iters,
+                                     lr=float(getattr(self.cfg, "adaround_lr", 1e-2)),
+                                     batch_size=self.cfg.batch_size,
+                                     reg_weight=float(getattr(self.cfg, "adaround_reg", 0.01)),
+                                     logger=self.logger, device=self.device,
+                                     step_ms=tools["adaround_iter_ms"])
+        if tools:
+            method = "static_int8" + ("" if executor == "int8" else f"_{executor}")
+            self.tool_timings[method] = tools
+        t2 = time.perf_counter()
+        qmodel = self.q.convert_static_int8(self.spec, folded, observers,
                                             image_size=tuple(self.cfg.image_size))
-        timings = {"calibrate_s": t1 - t0, "convert_s": time.perf_counter() - t1}
+        timings = {"calibrate_s": t1 - t0, "convert_s": time.perf_counter() - t2}
         if executor == "int8":
             self.timings = timings
         self.logger.info("static_int8 (%s): calibrate %.3f s, convert %.3f s", executor,
@@ -173,16 +223,28 @@ class QuantizationEngine:
                          "bias": np.asarray(self.folded["fc"]["b"], np.float32)}
         return model, dynamic_forward(self.spec, model, self.device)
 
-    def weight_only_quantize(self, bits: int = 8):
+    def weight_only_quantize(self, bits: int = 8, train_data=None):
         """W8A16 (``bits=8``, ``wo8``) or W4A16 (``bits=4``, ``wo4``: packed
         int4 with group scales, int8 fallback leaves): the weights stored
-        quantized, dequantized to bf16, the folded bf16 forward."""
+        quantized, dequantized to bf16, the folded bf16 forward. With
+        cfg.qat_epochs > 0 and ``train_data``, a fine-tune against the
+        weights' own grid runs first (``qat.w4_qat_finetune``)."""
         if bits not in (4, 8):
             raise ValueError(f"weight-only quantization takes 4 or 8 bits, not {bits}")
+        folded = self.folded
+        qat_epochs, lr = self._qat_knobs()
+        if qat_epochs > 0 and train_data is not None:
+            self.logger.info("W%d QAT fine-tune: %d epoch(s)", bits, qat_epochs)
+            step_ms = self.tool_timings.setdefault(f"weight_only_int{bits}",
+                                                   {}).setdefault("qat_step_ms", [])
+            folded = w4_qat_finetune(self.spec, self.q, folded, train_data,
+                                     epochs=qat_epochs, lr=lr, batch_size=self.cfg.batch_size,
+                                     bits=bits, logger=self.logger, debug=self.cfg.DEBUG_MODE,
+                                     device=self.device, step_ms=step_ms)
         if bits == 4:
-            wo, model = wo4, wo4.convert_weight_only_int4(self.folded)
+            wo, model = wo4, wo4.convert_weight_only_int4(folded)
         else:
-            wo, model = wo8, wo8.convert_weight_only(self.folded)
+            wo, model = wo8, wo8.convert_weight_only(folded)
         return model, folded_forward(self.spec, wo.dequantize(model, torch.bfloat16),
                                      torch.bfloat16, self.device)
 
@@ -191,6 +253,36 @@ class QuantizationEngine:
         input normalized in that dtype (convs run in it too)."""
         model = _cast_tree(self.folded, dtype)
         return model, folded_forward(self.spec, model, dtype, self.device)
+
+    # -- the sweeps ----------------------------------------------------------------
+
+    def sensitivity(self, calib_data, eval_data=None):
+        """Per-quantization-point sensitivity rows (``sensitivity
+        .tap_sensitivity``): calibrate, then fake-quantize one tap at a time
+        and record its isolated logit distortion against the float forward
+        on ``eval_data`` (the calibration split if None)."""
+        t0 = time.perf_counter()
+        rows = tap_sensitivity(self.spec, self.q, self.folded, self.calibrate(calib_data),
+                               calib_data if eval_data is None else eval_data,
+                               batch_size=self.cfg.batch_size, logger=self.logger,
+                               device=self.device)
+        self.tool_timings["sensitivity"] = {"wall_s": time.perf_counter() - t0}
+        return rows
+
+    def auto_mixed(self, calib_data, eval_data=None):
+        """The automatic mixed-precision policy (``automix.auto_mixed_policy``):
+        rank the taps by isolated sensitivity, then exempt the top k from
+        activation quantization until the flip rate meets
+        cfg.automix_budget. -> (float_taps, ladder)."""
+        t0 = time.perf_counter()
+        out = auto_mixed_policy(self.spec, self.q, self.folded, self.calibrate(calib_data),
+                                calib_data if eval_data is None else eval_data,
+                                flip_budget=float(getattr(self.cfg, "automix_budget", 0.01)),
+                                max_float_taps=int(getattr(self.cfg, "automix_max_taps", 8)),
+                                batch_size=self.cfg.batch_size, logger=self.logger,
+                                device=self.device)
+        self.tool_timings["automix"] = {"wall_s": time.perf_counter() - t0}
+        return out
 
     # -- shared harness --------------------------------------------------------
 

@@ -58,14 +58,18 @@ from .observers import (
     minmax_qparams_affine,
     quantize_weight_per_channel,
 )
-from .qresnet import _conv_leaf, _requant, _t32
+from .qresnet import _conv_leaf, _requant, _t32, tapper
 
-__all__ = ["fold", "apply_folded", "calibrate", "convert_static_int8", "serializable",
-           "restore_derived", "apply_int8", "apply_int8_mixed", "QEffNetInt8Unfused",
-           "from_jax_qmodel", "load_static_int8"]
+__all__ = ["ADAROUND_SKIP", "fold", "apply_folded", "calibrate", "convert_static_int8",
+           "serializable", "restore_derived", "apply_int8", "apply_int8_mixed",
+           "QEffNetInt8Unfused", "from_jax_qmodel", "load_static_int8"]
 
 
 ACT = "silu"  # the family's activation, as the kernels name it
+
+# the conversion transforms the stem kernel (the normalization fold) before
+# quantizing it, so AdaRound cannot target its grid
+ADAROUND_SKIP = ("stem",)
 
 
 def _silu(y: torch.Tensor) -> torch.Tensor:
@@ -99,16 +103,14 @@ def _se_f(h, se_r, se_e):
 
 
 def apply_folded(spec: EfficientNetSpec, folded: Dict, x, *, with_taps: bool = False,
-                 return_features: bool = False):
+                 return_features: bool = False, tap_fn=None):
     """Forward of the folded model (``qresnet.place_folded``) on NHWC float
     images in the model's dtype -> logits, or the pooled features, or
     (logits, taps) with ``with_taps``; taps NHWC as the JAX package's (views
-    on the GPU). fp32 runs with TF32 off."""
+    on the GPU). ``tap_fn(name, t) -> t'`` intercepts each tap (NHWC) and its
+    result re-enters the flow (``qresnet.tapper``). fp32 runs with TF32 off."""
     taps: Dict[str, torch.Tensor] = {}
-
-    def tap(name, t):
-        taps[name] = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
-        return t
+    tap = tapper(taps, tap_fn)
 
     with exact_fp32():
         x = tap("input", _conv_w(x.permute(0, 3, 1, 2)))

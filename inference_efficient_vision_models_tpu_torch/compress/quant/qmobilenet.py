@@ -54,7 +54,7 @@ from .qeffnet import (  # noqa: F401
     restore_derived,
     serializable,
 )
-from .qresnet import _requant
+from .qresnet import _requant, tapper
 
 __all__ = ["ADAROUND_SKIP", "fold", "apply_folded", "calibrate", "convert_static_int8",
            "serializable", "restore_derived", "block_int8", "block_mixed", "block_plan",
@@ -79,16 +79,14 @@ def _conv_f(x, leaf, stride: int, padding: int, *, groups: int = 1, act: bool = 
 
 
 def apply_folded(spec: MobileNetV2Spec, folded: Dict, x, *, with_taps: bool = False,
-                 return_features: bool = False):
+                 return_features: bool = False, tap_fn=None):
     """Forward of the folded model (``qresnet.place_folded``) on NHWC float
     images in the model's dtype -> logits, or the pooled features, or
     (logits, taps) with ``with_taps``; taps NHWC as the JAX package's (views
-    on the GPU). fp32 runs with TF32 off."""
+    on the GPU). ``tap_fn(name, t) -> t'`` intercepts each tap (NHWC) and its
+    result re-enters the flow (``qresnet.tapper``). fp32 runs with TF32 off."""
     taps: Dict[str, torch.Tensor] = {}
-
-    def tap(name, t):
-        taps[name] = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
-        return t
+    tap = tapper(taps, tap_fn)
 
     with exact_fp32():
         x = tap("input", _conv_w(x.permute(0, 3, 1, 2)))

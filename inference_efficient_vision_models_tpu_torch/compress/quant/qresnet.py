@@ -62,6 +62,11 @@ from .observers import (
 )
 
 
+# the conversion transforms the stem kernel (the normalization fold and the
+# space-to-depth repack) before quantizing it, so AdaRound cannot target its grid
+ADAROUND_SKIP = ("conv1",)
+
+
 # --------------------------------------------------------------------------
 # the folded float forward and its taps
 # --------------------------------------------------------------------------
@@ -88,20 +93,36 @@ def _conv_f(x, leaf, stride: int, padding: int, relu: bool, groups: int = 1):
     return F.relu(y) if relu else y
 
 
+def tapper(taps: Dict, tap_fn=None):
+    """The ``tap(name, t)`` of a CNN's ``apply_folded``: ``t`` (NCHW) is kept
+    in ``taps`` as its NHWC view, the JAX package's layout; ``tap_fn(name,
+    nhwc) -> nhwc'`` (if given) sees that view and what it returns goes on
+    through the forward, back in NCHW."""
+
+    def tap(name, t):
+        v = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
+        taps[name] = v
+        if tap_fn is None:
+            return t
+        v = tap_fn(name, v)
+        return v.permute(0, 3, 1, 2) if v.ndim == 4 else v
+
+    return tap
+
+
 def apply_folded(spec: ResNetSpec, folded: Dict, x, *, with_taps: bool = False,
-                 return_features: bool = False):
+                 return_features: bool = False, tap_fn=None):
     """Forward of the folded model (``place_folded``) on NHWC float images in
     the model's dtype -> logits, or the pooled features (pre-classifier), or
     (logits, taps) with ``with_taps``.
 
     The taps are the quantization points the conversion consumes, NHWC as
     the JAX package's (views on the GPU, whose activations are channels-last).
-    fp32 runs with TF32 off."""
+    ``tap_fn(name, t) -> t'`` intercepts each of them (NHWC) and its result
+    re-enters the flow: the hook of QAT, AdaRound and the sensitivity sweep.
+    The forward stays differentiable. fp32 runs with TF32 off."""
     taps: Dict[str, torch.Tensor] = {}
-
-    def tap(name, t):
-        taps[name] = t.permute(0, 2, 3, 1) if t.ndim == 4 else t
-        return t
+    tap = tapper(taps, tap_fn)
 
     with exact_fp32():
         x = tap("input", _conv_w(x.permute(0, 3, 1, 2)))

@@ -121,16 +121,20 @@ def _patch_embed(spec: ViTSpec, x: torch.Tensor, pe: Dict) -> torch.Tensor:
 
 
 def apply_folded(spec: ViTSpec, folded: Dict, x, *, with_taps: bool = False,
-                 return_features: bool = False, stem_out=None):
+                 return_features: bool = False, stem_out=None, tap_fn=None):
     """Forward of the folded model (``place_folded``) on NHWC float images in
     the compute dtype (fp32 unless ``x`` is fp16 or bf16) -> logits, or the
     fp32 cls features, or (logits, taps) with ``with_taps`` (the JAX taps
     forward's order of operations, in x's dtype: fp32 as JAX runs it, or
-    another for a calibration control). ``stem_out`` (a precomputed
-    patch-embed map) skips the patch conv, serving only. fp32 runs with TF32
-    off."""
+    another for a calibration control). ``tap_fn(name, t) -> t'`` intercepts
+    each tap and its result re-enters the flow; it takes the taps forward, as
+    ``with_taps`` does (differentiable: no fused MLP). ``stem_out`` (a
+    precomputed patch-embed map) skips the patch conv, serving only. fp32
+    runs with TF32 off."""
+    if stem_out is not None and (with_taps or tap_fn is not None):
+        raise ValueError("stem_out is a serving hook: it takes no taps")
     with exact_fp32():
-        if stem_out is not None or not with_taps:
+        if not with_taps and tap_fn is None:
             src = stem_out if stem_out is not None else x
             dtype = src.dtype if src.dtype in (torch.bfloat16, torch.float16) else torch.float32
             out, _ = vit_mod.apply(spec, folded, {}, x, compute_dtype=dtype,
@@ -140,7 +144,7 @@ def apply_folded(spec: ViTSpec, folded: Dict, x, *, with_taps: bool = False,
 
         def tap(name, t):
             taps[name] = t
-            return t
+            return t if tap_fn is None else tap_fn(name, t)
 
         x = tap("input", x)
         tokens = _patch_embed(spec, x, folded["patch_embed"])

@@ -10,9 +10,7 @@ Fields the port does not act on yet keep their JAX defaults so both
 packages accept the same overrides: ``data_axis``/``model_axis`` (no
 multi-GPU yet) and ``profile_dir``. The device is not a field: the stage
 CLIs run on ``cuda`` unless ``IEVM_PLATFORM=cpu`` (``cli/common.py``).
-``PruningConfig`` and ``QuantConfig`` (stages 3-4) keep every JAX field too;
-``QuantConfig`` refuses the accuracy tools that are not ported yet (QAT,
-AdaRound, the sensitivity sweep, automix) instead of ignoring them.
+``PruningConfig`` and ``QuantConfig`` (stages 3-4) keep every JAX field too.
 """
 
 from __future__ import annotations
@@ -255,17 +253,6 @@ class QuantConfig(BaseConfig):
 
     stage_name = "quantization"
 
-    def __init__(self, **kwargs):
-        super().__init__(**kwargs)
-        unported = [k for k, on in (("qat_epochs", self.qat_epochs > 0),
-                                    ("adaround_iters", self.adaround_iters > 0),
-                                    ("sensitivity", bool(self.sensitivity)),
-                                    ("automix", bool(self.automix))) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{unported}: QAT, AdaRound, the sensitivity sweep and automix are not ported "
-                f"yet (ROADMAP queue 1 item 12)")
-
     def _stage_defaults(self):
         self.model_type = "pruned"  # 'teacher' | 'student' | 'pruned'
         self.student_model = "resnet18"
@@ -283,7 +270,10 @@ class QuantConfig(BaseConfig):
         # 'percentile' | 'entropy' (KL); compress/quant/calib.py
         self.observer = "minmax"
         self.percentile = 99.99  # only read by observer='percentile'
-        # accuracy tools of the JAX package (not ported: nonzero / True raise)
+        # accuracy tools: QAT epochs before each static and weight-only
+        # conversion (compress/quant/qat.py), AdaRound iterations on the
+        # calibration split (adaround.py), the per-tap sensitivity sweep and
+        # the automix search (sensitivity.py, automix.py), each a CSV
         self.qat_epochs = 0
         self.qat_lr = 1e-5
         self.adaround_iters = 0

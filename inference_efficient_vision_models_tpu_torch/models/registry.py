@@ -4,13 +4,15 @@ generic entry points (the port of the JAX package's ``models/registry.py``).
 Spec parsing, the float forward, init and training entry points
 (``create_model``, ``apply_model``, ``features_and_logits``) cover the
 ResNet family (ResNeXt and Wide ResNet included), EfficientNet,
-MobileNetV2 and the ViT.
+MobileNetV2 and the ViT. ``register_model`` binds a name to a spec
+constructor; the name then works wherever a model name does (every stage
+CLI's ``model_name=``), ahead of the built-in names.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Tuple, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 
@@ -22,6 +24,25 @@ from .vit import ViTSpec, vit_spec
 from .widths import ResNetSpec, resnet_spec
 
 SpecLike = Union[str, Dict, ResNetSpec, ViTSpec, EfficientNetSpec, MobileNetV2Spec]
+
+# user-registered model names -> spec constructors (this package's own table,
+# not the JAX package's)
+_CUSTOM: Dict[str, Callable[..., Any]] = {}
+
+
+def register_model(name: str, spec_fn, *, overwrite: bool = False) -> None:
+    """Register ``name`` -> ``spec_fn(num_classes=..., in_chans=...) -> spec``,
+    a spec of one of the four families (their dataclasses carry the module
+    dispatch). Training, KD, pruning, every quantization method and serving
+    then take the name like a built-in one. A name already registered raises
+    ``ValueError`` unless ``overwrite``."""
+    if name in _CUSTOM and not overwrite:
+        raise ValueError(f"model {name!r} already registered")
+    _CUSTOM[name] = spec_fn
+
+
+def registered_models() -> List[str]:
+    return sorted(_CUSTOM)
 
 
 def spec_from_dict(d: Dict) -> Union[ResNetSpec, EfficientNetSpec, MobileNetV2Spec, ViTSpec]:
@@ -43,7 +64,7 @@ def spec_from_dict(d: Dict) -> Union[ResNetSpec, EfficientNetSpec, MobileNetV2Sp
 def make_spec(model: SpecLike, num_classes: int = 6, in_chans: int = 3,
               image_size: int = 224):
     """A spec, a spec dict or a name -> the spec (names as the JAX package
-    resolves them; registered custom names are not ported). A ViT's token
+    resolves them, a registered name first). A ViT's token
     count follows ``image_size`` (the JAX package fixes 224, the default:
     the stage CLIs pass their image size, so a ViT trains at any square
     size that its patch divides)."""
@@ -51,6 +72,8 @@ def make_spec(model: SpecLike, num_classes: int = 6, in_chans: int = 3,
         return model
     if isinstance(model, dict):
         return spec_from_dict(model)
+    if model in _CUSTOM:
+        return _CUSTOM[model](num_classes=num_classes, in_chans=in_chans)
     if model.startswith("vit_"):
         return vit_spec(model, num_classes=num_classes, image_size=int(image_size))
     if model.startswith("efficientnet"):

@@ -26,29 +26,48 @@ from . import steps as steps_mod
 from .optim import AdamWState, adamw_init, make_lr_schedule, opt_to_jax
 
 
+class StepClock:
+    """CUDA-event times of a loop's steps; nothing on the CPU, where no
+    device time exists. ``ms()`` waits for the last step."""
+
+    def __init__(self, device: torch.device):
+        self.on = device.type == "cuda"
+        self.events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def start(self):
+        if self.on:
+            self.events.append((torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)))
+            self.events[-1][0].record()
+
+    def stop(self):
+        if self.on:
+            self.events[-1][1].record()
+
+    def ms(self) -> List[float]:
+        if self.events:
+            self.events[-1][1].synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
 def _run_epoch(step_fn, carry, loader: Batches, extra_args=(), debug_mode=False):
     """Drive one epoch -> (carry, mean loss, mean acc, seconds, per-step ms)."""
     t0 = time.time()
-    timed = loader.images.device.type == "cuda"
-    events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+    clock = StepClock(loader.images.device)
     device_metrics = []
     for i, batch in enumerate(loader):
         if debug_mode and i == 2:
             break
-        if timed:
-            events.append((torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True)))
-            events[-1][0].record()
+        clock.start()
         params, state, opt = carry
         params, state, opt, m = step_fn(params, state, opt, *extra_args, batch)
         carry = (params, state, opt)
-        if timed:
-            events[-1][1].record()
+        clock.stop()
         device_metrics.append(torch.stack([m["loss"], m["acc"], m["n"]]))
     if not device_metrics:
         return carry, 0.0, 0.0, time.time() - t0, []
     loss, acc, n = torch.stack(device_metrics).double().cpu().numpy().T  # one sync per epoch
-    step_ms = [s.elapsed_time(e) for s, e in events]
+    step_ms = clock.ms()
     tot_n = max(float(n.sum()), 1.0)
     return (carry, float((loss * n).sum()) / tot_n, float((acc * n).sum()) / tot_n,
             time.time() - t0, step_ms)

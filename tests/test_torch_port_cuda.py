@@ -756,3 +756,39 @@ def test_served_resnext_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     assert counts == {"int8_matmul_requant": 22, "gconv_int8": 8}
     assert torch.equal(got, ref)
+
+
+def test_qat_adaround_static_int8_kernel_path_matches_plain_path(cuda):
+    """The accuracy tools' static-INT8 model: a seeded narrow ResNet
+    (``chip_smoke.TOOLS_STEP``) through one QAT epoch and 8 AdaRound
+    iterations on the card, converted, equals its plain path; its conversion
+    holds the learned integers (AdaRound's contract); 8 kernel-A and 5
+    kernel-B launches per forward (one basic block a stage)."""
+    from chip_smoke import TOOLS_STEP, adaround_contract, tools_inputs
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.compress.quant.adaround import (
+        adaround_refine)
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qat import qat_finetune
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+
+    spec, folded, train, calib = tools_inputs()
+    size = TOOLS_STEP["size"]
+    obs = qresnet.calibrate(spec, qresnet.place_folded(folded, cuda), Batches(*calib, 8, cuda),
+                            max_images=len(calib[0]))
+    tuned = qat_finetune(spec, qresnet, folded, obs, calib, lr=1e-4, batch_size=8, device=cuda)
+    hardened, rounding = adaround_refine(spec, qresnet, tuned, obs, calib, iters=8,
+                                         batch_size=8, device=cuda, return_rounding=True)
+    qm = qresnet.convert_static_int8(spec, hardened, obs, image_size=(size, size))
+    c = adaround_contract(tuned, hardened, rounding, qm)
+    assert c["int_equal"] and c["argmax_kept"] and c["scale_equal"], c
+    model = qresnet.from_jax_qmodel(spec.to_dict(), qm, cuda)
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (16, size, size, 3), dtype=np.uint8)).to(cuda)
+    _lib.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+        counts = dict(_lib.launches)
+        ref = model(x, impl="plain")
+    torch.cuda.synchronize()
+    assert counts == {"int8_matmul_requant": 8, "conv3x3_s1_int8": 5}
+    assert torch.equal(got, ref)

@@ -218,13 +218,46 @@ def test_port_quantizes_a_jax_pruned_checkpoint(tmp_path, cpu_platform, short_ti
     assert [r["method"] for r in rows] == ["fp32", "static_int8"]
 
 
-def test_unported_stage4_options_raise(tmp_path):
-    from inference_efficient_vision_models_tpu_torch.core.config import QuantConfig
+def test_quantize_cli_runs_the_accuracy_tools(tmp_path, cpu_platform, short_timing):
+    """Stage 4 with ``qat_epochs=1 adaround_iters=2 sensitivity=True
+    automix=True`` on the CPU: QAT before the static and both weight-only
+    methods, AdaRound after it, every artifact restored by ``choice=2`` at the
+    same accuracy, both CSVs with the JAX CLI's columns (one sensitivity row a
+    tap but the input, then ``__weights__`` and ``__all__``), and the tools'
+    knobs and timings in the fold's provenance."""
+    import csv
 
-    for over in ({"qat_epochs": 1}, {"adaround_iters": 4}, {"sensitivity": True},
-                 {"automix": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            QuantConfig(artifacts_root=str(tmp_path), **over)
+    from inference_efficient_vision_models_tpu.compress.prune import prune_model as j_prune
+    from inference_efficient_vision_models_tpu_torch.core.provenance import read_provenance
+
+    spec0 = jreg.spec_from_dict(STUDENT)
+    spec, p, s = j_prune(spec0, *resnet_params_from_seed(spec0, 3), ratio=0.25, round_to=8)
+    jart.save_checkpoint(str(tmp_path / "pruning" / "jx" / "fold_0"), "best", p, s, spec)
+    methods = ("static_int8", "weight_only_int8", "weight_only_int4")
+    argv = common_args(tmp_path, epochs=1) + [
+        "pruning_exp_name='jx'", "calibration_images=16", f"methods={methods!r}",
+        "qat_epochs=1", "adaround_iters=2", "sensitivity=True", "automix=True",
+        "DEBUG_MODE=True"]
+    rows = {r["method"]: r for r in quantize.main(argv)}
+    again = {r["method"]: r for r in quantize.main(argv + ["choice=2"])}
+    assert set(rows) == {"fp32", *methods}
+    assert all(again[m]["Accuracy"] == rows[m]["Accuracy"] for m in methods)
+    out = tmp_path / "quantization" / "test"
+    with open(out / "sensitivity_fold0.csv") as f:
+        sens = list(csv.DictReader(f))
+    with open(out / "automix_fold0.csv") as f:
+        ladder = list(csv.DictReader(f))
+    taps = ["stem"] + [f"l{i}b0{t}" for i in range(4) for t in ("i0", "o")] + ["feat"]
+    assert list(sens[0]) == ["tap", "logit_rmse", "top1_flips"]
+    assert sorted(r["tap"] for r in sens[:-2]) == sorted(taps)
+    assert [r["tap"] for r in sens[-2:]] == ["__weights__", "__all__"]
+    assert list(ladder[0]) == ["k", "float_taps", "top1_flips", "logit_rmse", "acc"]
+    assert ladder[0]["k"] == "0" and ladder[0]["float_taps"] == ""
+    rec = read_provenance(str(out / "fold_0"))
+    assert (rec["qat_epochs"], rec["adaround_iters"]) == (1, 2)
+    assert set(rec["accuracy_tool_timings"]) == {*methods, "sensitivity", "automix"}
+    assert set(rec["accuracy_tool_timings"]["static_int8"]) == {"qat_step_ms",
+                                                                "adaround_iter_ms"}
 
 
 def test_resume_continues_the_same_trajectory(tmp_path):
