@@ -147,7 +147,24 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``resnet18_accuracy_tools``), the contract on the card, each method's
    accuracy beside ``quantize_cli``'s and the tools' times
    (``accuracy_tools``); and one W4 QAT epoch on the ResNeXt chain's pruned
-   resnext26 (``rx_w4_qat``).
+   resnext26 (``rx_w4_qat``);
+12. deployment export, the mesh and the device profile: ``export_r2``
+   exports the committed pruned ResNet18 (``export.export_quantized``: one
+   ``torch.export`` program whose kernels are the ``ievm::*`` ops) at batch
+   256 in the s2d and ``device_preprocess`` layouts and at batch 1, loads
+   each container on the card, holds its logits on the r2 held-out images
+   to the eager forward's bit for bit with kernels A and B launched inside
+   the exported call, and times exported against eager, and the eager
+   forward through the ops against direct launches (``export_r2_times``);
+   ``export_families`` does the same for EfficientNet-B0 (fused: A and C;
+   unfused: A and E), ViT-Tiny (``static_int8``, ``static_int8_bf16``,
+   ``dynamic_int8``: A) and the seeded resnext26 (A and F);
+   ``export_cpu_platform`` runs the batch-1 r2 container on the CPU against
+   the CPU plain path; ``mesh_world1`` sets up a one-rank NCCL group (a
+   FileStore, no port) and holds a full-width ResNet18 train step and
+   ``Predictor(mesh=)`` to their one-process results, bit for bit;
+   ``device_profile`` reads the r2 forward's kernels with
+   ``metrics.device_profile.profile_device_ops``.
 
 Results go to stdout as JSON lines; the line before the last gives the card
 as nvidia-smi reports it and the last is ``{"ok": true, "device": ...}``.
@@ -1130,9 +1147,12 @@ def check_and_time_main_shapes(model, gen: torch.Generator, path: str = "resnet1
 
 def profile_window(run, per: int = 1, unit: str = "forward"):
     """Device time by kernel over ``run()`` (torch.profiler: the kernels of
-    every thread of the process), and the device's idle share of that
-    window's host wall time; counts and times per ``per`` ``unit``s."""
+    every thread of the process, read by ``metrics.device_profile.device_rows``),
+    and the device's idle share of that window's host wall time; counts and
+    times per ``per`` ``unit``s."""
     from torch.profiler import ProfilerActivity, profile
+
+    from inference_efficient_vision_models_tpu_torch.metrics.device_profile import device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1140,16 +1160,14 @@ def profile_window(run, per: int = 1, unit: str = "forward"):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    rows = device_rows(prof, per)
+    busy_ms = sum(r["total_self_us"] for r in rows) / 1e3
     return {
         f"{unit}s": per, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        f"launches_per_{unit}": sum(e.count for e in kernels) / per,
+        f"launches_per_{unit}": sum(r["occurrences"] for r in rows) / per,
         "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-        "top": [{"kernel": e.key[:100], f"ms_per_{unit}": e.self_device_time_total / 1e3 / per,
-                 f"calls_per_{unit}": e.count / per} for e in top],
+        "top": [{"kernel": r["name"][:100], f"ms_per_{unit}": r["avg_self_us"] / 1e3,
+                 f"calls_per_{unit}": r["occurrences"] / per} for r in rows[:12]],
     }
 
 
@@ -2885,6 +2903,8 @@ def run_resnext(dev, gen: torch.Generator, gen_np: np.random.Generator):
     x_np = rx_golden_images()
     with tempfile.TemporaryDirectory() as d:
         requests, served, forwards, launches, wall = serve(rx_artifact(d, spec, qj), x_np, gen_np)
+        export_check("export_families", "resnext26_32x4d", d, "static_int8", x_np,
+                     RX_PER_FORWARD)
     counts_ok = all(launches.get(k, 0) == RX_PER_FORWARD.get(k, 0) * forwards
                     for k in set(RX_PER_FORWARD) | set(launches))
     big = requests[-1]
@@ -5007,6 +5027,266 @@ def run_augment(dev):
         raise SmokeFailure(f"augment: card and CPU differ by {int(diff.max())} at the same draws")
 
 
+# --------------------------------------------------------------------------
+# deployment export, the mesh at world size 1, the device profile
+# --------------------------------------------------------------------------
+
+R2_EXPORT_PER_FORWARD = PER_FORWARD  # A 8 + B 13, in the exported program as in eager
+
+
+def export_check(phase: str, label: str, fold_dir: str, method: str, imgs: np.ndarray,
+                 per_forward: dict, device_preprocess: bool = False) -> dict:
+    """Export ``fold_dir``'s ``method`` on the card at ``imgs``' batch, load
+    the container back on the card, and hold its logits on ``imgs`` to the
+    eager ``load_quantized`` forward's, bit for bit; one exported call's
+    launches (set to 0 just before, read just after) must be
+    ``per_forward``. -> the record, with the module, the eager forward and
+    the input under "_run" for timing."""
+    from inference_efficient_vision_models_tpu_torch.export import export_quantized, load_program
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    t0 = time.perf_counter()
+    blob = export_quantized(fold_dir, method, batch_size=len(imgs), image_size=imgs.shape[1:3],
+                            device_preprocess=device_preprocess)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    module, header = load_program(blob, device="cuda")
+    load_s = time.perf_counter() - t0
+    _, _, fn, pre = load_quantized(fold_dir, method, device="cuda",
+                                   device_preprocess=device_preprocess)
+    x = torch.from_numpy(pre(imgs) if pre is not None else imgs).cuda()
+    with torch.no_grad():
+        eager = fn(x).float()
+        module(x)  # the first call builds the tensor maps of its constants
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        got = module(x)
+        torch.cuda.synchronize()
+        launches = dict(_lib.launches)
+    rec = {"phase": phase, "label": label, "method": method, "batch": len(imgs),
+           "input_layout": header["input_layout"], "input_shape": header["input_shape"],
+           "container_bytes": len(blob), "export_s": export_s, "load_s": load_s,
+           "equal_to_eager": bool(torch.equal(got, eager)),
+           "max_abs_err": float((got - eager).abs().max()), "launches": launches,
+           "expected_launches": per_forward}
+    emit(rec)
+    if not rec["equal_to_eager"] or launches != per_forward:
+        raise SmokeFailure(f"{phase} {label}: exported logits equal eager {rec['equal_to_eager']} "
+                           f"({rec['max_abs_err']}), launches {launches} != {per_forward}")
+    rec["_run"], rec["_blob"] = (module, fn, x), blob
+    return rec
+
+
+def _with_ops(flag: bool):
+    """The ops' switch, forced: eager calls go through ``torch.ops.ievm``
+    (True) or launch directly (False); for timing the two routes only."""
+    _lib.via_op = (lambda: True) if flag else torch.compiler.is_compiling
+
+
+def run_export_r2(dev, test_imgs: np.ndarray) -> dict:
+    """``export_r2``: the committed pruned ResNet18 exported as static_int8 at
+    batch 256 (s2d and ``device_preprocess``) and batch 1, each container's
+    logits on the r2 held-out images equal to eager bit for bit, kernels A and
+    B launched inside the exported call; exported against eager forward ms
+    at batch 256 and 1 (CUDA events, as the caller sees it, and device busy
+    ms from ``profile_device_ops``); and the eager forward with its kernels
+    through the ``ievm`` ops against direct launches, in turns (direct, ops,
+    ops, direct): the ops' dispatch cost beside the run-to-run spread.
+    ``export_cpu_platform``: the batch-1 container loaded on the CPU equals
+    the port's CPU plain path on 3 images. -> the batch-256 s2d record."""
+    from inference_efficient_vision_models_tpu_torch.export import load_exported
+    from inference_efficient_vision_models_tpu_torch.metrics.device_profile import (
+        profile_device_ops,
+    )
+    from inference_efficient_vision_models_tpu_torch.serving import load_quantized
+
+    recs = {
+        "b256_s2d": export_check("export_r2", "b256_s2d", ARTIFACT, "static_int8",
+                                 test_imgs[:BATCH], R2_EXPORT_PER_FORWARD),
+        "b256_nhwc": export_check("export_r2", "b256_device_preprocess", ARTIFACT,
+                                  "static_int8", test_imgs[:BATCH], R2_EXPORT_PER_FORWARD,
+                                  device_preprocess=True),
+        "b1_s2d": export_check("export_r2", "b1_s2d", ARTIFACT, "static_int8", test_imgs[:1],
+                               R2_EXPORT_PER_FORWARD),
+    }
+    times = {}
+    with torch.no_grad():
+        for b, key in ((BATCH, "b256_s2d"), (1, "b1_s2d")):
+            module, fn, x = recs[key]["_run"]
+            times[f"exported_ms_b{b}"] = time_ms(lambda: module(x))
+            times[f"eager_ms_b{b}"] = time_ms(lambda: fn(x))
+            times[f"exported_device_ms_b{b}"] = sum(
+                r["avg_self_us"] for r in profile_device_ops(lambda: module(x), iters=3)) / 1e3
+            times[f"eager_device_ms_b{b}"] = sum(
+                r["avg_self_us"] for r in profile_device_ops(lambda: fn(x), iters=3)) / 1e3
+            turns = []
+            try:
+                for flag in (False, True, True, False):
+                    _with_ops(flag)
+                    turns.append(time_ms(lambda: fn(x)))
+            finally:
+                _with_ops(False)
+            times[f"eager_direct_ms_b{b}"] = [turns[0], turns[3]]
+            times[f"eager_via_ops_ms_b{b}"] = [turns[1], turns[2]]
+            times[f"op_dispatch_ms_b{b}"] = (turns[1] + turns[2] - turns[0] - turns[3]) / 2
+            times[f"direct_spread_ms_b{b}"] = abs(turns[3] - turns[0])
+    emit({"phase": "export_r2_times", **_stage_card(dev), **times,
+          "calls_per_forward": sum(R2_EXPORT_PER_FORWARD.values())})
+
+    # one container, two platforms: the batch-1 program on the CPU
+    blob = recs["b1_s2d"]["_blob"]
+    call, header = load_exported(blob, device="cpu")
+    _, _, fn_cpu, pre = load_quantized(ARTIFACT, "static_int8", device="cpu")
+    errs = []
+    with torch.no_grad():
+        for img in test_imgs[:3]:
+            x = pre(img[None])
+            errs.append(float(np.abs(call(x) - fn_cpu(torch.from_numpy(x)).numpy()).max()))
+    emit({"phase": "export_cpu_platform", "platforms": header["platforms"], "images": len(errs),
+          "container_bytes": len(blob), "max_abs_err": max(errs)})
+    if max(errs) != 0.0:
+        raise SmokeFailure(f"export_cpu_platform: the container's CPU logits differ from the "
+                           f"CPU plain path by {max(errs)}")
+    return recs
+
+
+def run_export_families(dev) -> None:
+    """``export_families``: EfficientNet-B0 ``static_int8_fused`` (kernels A,
+    C) and ``static_int8`` (A, E) from the committed artifact, ViT-Tiny
+    ``static_int8``, ``static_int8_bf16`` (A) from the committed artifact and
+    ``dynamic_int8`` (A's dynamic route) of the seeded ViT-Tiny, each
+    exported at batch 8, equal to eager bit for bit with its launches (the
+    resnext26 case runs inside ``run_resnext``, on its seeded artifact)."""
+    from inference_efficient_vision_models_tpu_torch.cli.quantize import _save_qmodel
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
+    from inference_efficient_vision_models_tpu_torch.models.vit import vit_spec
+
+    imgs = np.random.default_rng(17).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+    export_check("export_families", "efficientnet_b0_fused", EFF_ARTIFACT, "static_int8_fused",
+                 imgs, EFF_PER_FORWARD)
+    export_check("export_families", "efficientnet_b0_unfused", EFF_ARTIFACT, "static_int8", imgs,
+                 EFF_UNFUSED_PER_FORWARD)
+    for method in ("static_int8", "static_int8_bf16"):
+        export_check("export_families", f"vit_tiny_{method}", VIT_ARTIFACT, method, imgs,
+                     VIT_PER_FORWARD)
+    spec = vit_spec("vit_tiny_patch16_224", 6)
+    with tempfile.TemporaryDirectory() as d:
+        _save_qmodel(d, "dynamic_int8", qvit.convert_dynamic_int8(
+            spec, vit_params_from_seed(spec, VIT_SEED)), spec)
+        export_check("export_families", "vit_tiny_dynamic_int8", d, "dynamic_int8", imgs,
+                     VIT_DYN_PER_FORWARD)
+
+
+MESH_STEP = dict(model="resnet18", batch=32, pad=5, size=224, seed=0)
+
+
+def _mesh_step(spec, weights, batch, mesh):
+    """One fp32 CE step of ``weights`` on ``batch``, over ``mesh`` or not ->
+    the loss, updated params, BN statistics and first moments, flat."""
+    from inference_efficient_vision_models_tpu_torch.models import resnet as tr
+    from inference_efficient_vision_models_tpu_torch.train import optim as to
+    from inference_efficient_vision_models_tpu_torch.train import steps as ts
+
+    p, s = tr.params_from_jax(weights[0], "cuda"), tr.params_from_jax(weights[1], "cuda")
+    step = ts.make_train_step(spec, learning_rate=1e-3, compute_dtype="float32", mesh=mesh)
+    p2, s2, opt, m = step(p, s, to.adamw_init(p), batch)
+    out = {"loss": m["loss"].reshape(1), "acc": m["acc"].reshape(1), "n": m["n"].reshape(1)}
+    for name, tree in (("p", p2), ("s", s2), ("mu", opt.mu)):
+        out.update({f"{name}/{i}": t.detach().reshape(-1)
+                    for i, t in enumerate(to.tree_leaves(tree))})
+    return out
+
+
+def run_mesh_world1(dev, test_imgs: np.ndarray) -> None:
+    """``mesh_world1``: a one-rank NCCL group through a FileStore in a
+    temporary directory (no port), ``make_mesh()``, one full-width ResNet18
+    fp32 train step on a padded batch of 32 with and without the mesh (cuDNN
+    deterministic: equal bit for bit), and ``Predictor(mesh=)`` on r2 equal
+    to ``Predictor``; then the group is destroyed."""
+    import torch.distributed as dist
+
+    from inference_efficient_vision_models_tpu_torch.models.widths import resnet_spec
+    from inference_efficient_vision_models_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+    )
+
+    cfg = MESH_STEP
+    spec = resnet_spec(cfg["model"], 6)
+    weights = resnet_params_from_seed(spec, cfg["seed"])
+    rng = np.random.default_rng(cfg["seed"])
+    mask = np.ones(cfg["batch"], np.float32)
+    mask[cfg["batch"] - cfg["pad"]:] = 0.0
+    batch = (torch.from_numpy(rng.integers(0, 256, (cfg["batch"], cfg["size"], cfg["size"], 3),
+                                           dtype=np.uint8)).cuda(),
+             torch.from_numpy(rng.integers(0, 6, cfg["batch"])).cuda(),
+             torch.from_numpy(mask).cuda())
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                               world_size=1)
+        try:
+            mesh = make_mesh()
+            plain = _mesh_step(spec, weights, batch, None)
+            meshed = _mesh_step(spec, weights, batch, mesh)
+            again = _mesh_step(spec, weights, batch, None)
+            step_equal = all(torch.equal(plain[k], meshed[k]) for k in plain)
+            repeat_equal = all(torch.equal(plain[k], again[k]) for k in plain)
+            step_err = max(float((plain[k] - meshed[k]).abs().max()) for k in plain)
+            imgs = test_imgs[:BATCH]
+            one = Predictor.from_artifact(ARTIFACT, "static_int8", device="cuda",
+                                          batch_size=BATCH).predict_logits(imgs)
+            dp = Predictor.from_artifact(ARTIFACT, "static_int8", batch_size=BATCH,
+                                         mesh=mesh).predict_logits(imgs)
+            rec = {"phase": "mesh_world1", **_stage_card(dev), "backend": dist.get_backend(),
+                   "world_size": dist.get_world_size(),
+                   "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), **cfg,
+                   "train_step_equal": step_equal, "train_step_max_abs_err": step_err,
+                   "no_mesh_repeat_equal": repeat_equal, "loss": float(plain["loss"]),
+                   "predictor_equal": bool(np.array_equal(one, dp)), "images": len(imgs)}
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    emit(rec)
+    if not (step_equal and rec["predictor_equal"]):
+        raise SmokeFailure(f"mesh_world1: results differ with the mesh: {rec}")
+
+
+def run_device_profile(dev, r2_rec: dict) -> None:
+    """``device_profile``: ``profile_device_ops`` over the r2 batch-256 forward:
+    its rows name the kernels' symbols, and their sum agrees with
+    ``profile_window``'s busy ms of the same forward (two profiler runs:
+    within 5%)."""
+    from inference_efficient_vision_models_tpu_torch.metrics.device_profile import (
+        profile_device_ops,
+        profile_hlo_ops,
+    )
+
+    _, fn, x = r2_rec["_run"]
+    iters = 3
+    with torch.no_grad():
+        rows = profile_device_ops(lambda: fn(x), iters=iters)
+        window = profile_window(lambda: [fn(x) for _ in range(iters)], iters)
+        ops = profile_hlo_ops(lambda: fn(x), iters=1)
+    names = [r["name"] for r in rows]
+    symbols = {k: any(sym in n for n in names)
+               for k, sym in (("int8_matmul_requant", "matmul"), ("conv3x3_s1_int8", "conv3x3"))}
+    busy = sum(r["avg_self_us"] for r in rows) / 1e3
+    rec = {"phase": "device_profile", **_stage_card(dev), "iters": iters, "rows": len(rows),
+           "device_ms_per_forward": busy,
+           "profile_window_busy_ms_per_forward": window["device_busy_ms"] / iters,
+           "kernel_symbols_found": symbols,
+           "top": [{k: r[k] for k in ("name", "category", "occurrences", "avg_self_us",
+                                      "self_percent")} for r in rows[:8]],
+           "top_ops": [{k: r[k] for k in ("name", "expression", "avg_self_us")}
+                       for r in ops[:5]]}
+    emit(rec)
+    ref = rec["profile_window_busy_ms_per_forward"]
+    if not (all(symbols.values()) and abs(busy - ref) <= 0.05 * ref):
+        raise SmokeFailure(f"device_profile: kernels {symbols}, {busy} ms against {ref}")
+
+
 def kernels_line(rows, launches_by_path, aside=()):
     """One entry per kernel: time, plain time, bound and library time summed
     over its calls in one batch-256 forward of every path that runs it (a row
@@ -5169,6 +5449,11 @@ def main() -> int:
     run_predict_cli(dev)
     run_augment(dev)
     calib, test = r2_data()
+    r2_exports = run_export_r2(dev, test[0])
+    run_export_families(dev)
+    run_mesh_world1(dev, test[0])
+    run_device_profile(dev, r2_exports["b256_s2d"])
+    del r2_exports
     run_float_r2_eval(dev, test)
     run_convert_r2(dev, calib, test)
     run_train_step_golden(dev)

@@ -69,6 +69,10 @@ def iter_folds(cfg):
 def setup_stage(cfg) -> Tuple:
     """Common preamble: logger, seed, dataset, persisted fold split.
     Returns (logger, root_seed, data, fold_idx_dict)."""
+    from ..parallel import initialize_distributed
+
+    # a no-op unless a launcher set multi-process coordinates (torchrun)
+    initialize_distributed(device=os.environ.get("IEVM_PLATFORM") or None)
     logger = get_logger(cfg)
     logger.info("config: %r", cfg)
     root_seed = set_seed(cfg.seed)

@@ -35,7 +35,9 @@ def _norm_consts(device: torch.device):
 def normalize_images(batch_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 NHWC -> normalized float NHWC, (u - 255 mean) / (255 std) in fp32
     (a true division, as the JAX package's ``normalize_images``), then cast."""
-    mean, std = _norm_consts(batch_u8.device)
+    # a trace makes its own constants: it must not fill the cache with them
+    consts = _norm_consts.__wrapped__ if torch.compiler.is_compiling() else _norm_consts
+    mean, std = consts(batch_u8.device)
     return ((batch_u8.float() - mean) / std).to(dtype)
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import bn_group, sum_over
 from ..utils.device import DeviceLike, exact_fp32, resolve_device
 from .widths import ResNetSpec
 
@@ -59,9 +60,13 @@ def conv2d(x, w, stride: int = 1, padding: int = 0, dtype=None, groups: int = 1)
 def batch_norm(x, p, s, *, train: bool, momentum: float = BN_MOMENTUM):
     """Functional batch norm in fp32, cast back to ``x.dtype``; returns
     (y, new_running_stats). In training mode the new statistics are fresh
-    tensors: ``s`` is left as it was."""
+    tensors: ``s`` is left as it was; inside a step over a mesh
+    (``parallel.mesh.GlobalView``) they are the whole batch's, summed over
+    the data axis."""
     x32 = x.float()
-    if train:
+    if train and bn_group() is not None:
+        y, new_s = _batch_norm_global(x32, p, s, momentum, bn_group())
+    elif train:
         mean, var = s["mean"].clone(), s["var"].clone()
         y = F.batch_norm(x32, mean, var, p["scale"], p["bias"], training=True,
                          momentum=momentum, eps=BN_EPS)
@@ -71,6 +76,24 @@ def batch_norm(x, p, s, *, train: bool, momentum: float = BN_MOMENTUM):
                          eps=BN_EPS)
         new_s = s
     return y.to(x.dtype), new_s
+
+
+def _batch_norm_global(x32, p, s, momentum: float, group):
+    """Training BatchNorm over the batch of every rank of ``group``
+    (SyncBatchNorm): two-pass mean and biased variance from differentiable
+    sums, running statistics with the unbiased variance."""
+    c = x32.shape[1]
+    dims = (0, 2, 3)
+    count = sum_over(torch.full((), float(x32.numel() // c), device=x32.device), group)
+    mean = sum_over(x32.sum(dims), group) / count
+    xc = x32 - mean.view(1, c, 1, 1)
+    var = sum_over((xc * xc).sum(dims), group) / count
+    y = (xc * torch.rsqrt(var + BN_EPS).view(1, c, 1, 1) * p["scale"].view(1, c, 1, 1)
+         + p["bias"].view(1, c, 1, 1))
+    with torch.no_grad():
+        new_s = {"mean": (1 - momentum) * s["mean"] + momentum * mean,
+                 "var": (1 - momentum) * s["var"] + momentum * var * (count / (count - 1))}
+    return y, new_s
 
 
 def max_pool(x, window: int = 3, stride: int = 2, padding: int = 1):

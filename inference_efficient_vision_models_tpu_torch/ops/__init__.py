@@ -1,5 +1,6 @@
 """The hand-written kernels (CUDA on a GPU tensor, plain PyTorch on a CPU
-tensor) and layout helpers."""
+tensor; each entry point also the ``torch.library`` op ``ievm::<name>``,
+``_lib.custom_op``) and layout helpers."""
 
 from .conv3x3 import conv3x3_s1_int8, conv3x3_s1_int8_plain
 from .dwconv_int8 import depthwise_conv_int8, depthwise_conv_int8_plain

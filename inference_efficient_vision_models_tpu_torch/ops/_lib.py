@@ -11,6 +11,14 @@ imports this module and never builds.
 
 ``launches`` counts, per kernel, the launches the wrappers made; a wrapper
 adds one right after its kernel launched and at no other place.
+
+Every kernel entry point is also a ``torch.library`` op in the ``ievm``
+namespace (``custom_op``), whose CPU implementation is the plain PyTorch
+version and whose CUDA implementation is the launch, so ``torch.export``
+can capture a forward that runs them: a ``ctypes`` call cannot be traced.
+``call`` is the one place that chooses between the op and a direct call of
+the same implementations: the op while a forward is traced, the direct call
+otherwise (an eager launch does not pay the op's dispatch).
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -163,3 +173,35 @@ def check(name: str, rc: int) -> None:
     else count the launch."""
     check_call(name, rc)
     launches[name] += 1
+
+
+# op name -> {device type: implementation}, the same functions the ops dispatch to
+_impls: Dict[str, Dict[str, Callable]] = {}
+
+
+def custom_op(name: str, schema: str, *, cpu: Callable, cuda: Callable, fake: Callable):
+    """Register ``ievm::<name>``: ``cpu`` (the plain version) for CPU tensors,
+    ``cuda`` (the launch) for CUDA tensors, ``fake`` for tracing (shapes and
+    dtypes only). No op writes to its inputs. Returns the op."""
+    op = torch.library.custom_op(f"ievm::{name}", cpu, mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    _impls[name] = {"cpu": cpu, "cuda": cuda}
+    return op
+
+
+def via_op() -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces the caller."""
+    return torch.compiler.is_compiling()
+
+
+def call(name: str, *args):
+    """Run ``ievm::<name>`` on ``args``: through the op while tracing, else
+    the implementation for the first argument's device, called directly."""
+    if via_op():
+        return getattr(torch.ops.ievm, name)(*args)
+    impl = _impls[name].get(args[0].device.type)
+    if impl is None:
+        raise ValueError(f"{name} runs on cpu or cuda, not {args[0].device}")
+    return impl(*args)

@@ -21,7 +21,7 @@ dequantized as ``(q - zp_s) * s``) or an fp32 tensor (the downsample's output).
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..compress.quant.observers import dequantize_affine_shifted, quantize_affine_shifted
 from . import _lib
 from .int8_matmul import (
+    PackedInt8Weight,
     TilePlan,
     WeightLike,
     _check_vec,
@@ -67,7 +68,7 @@ def _check_residual(residual, relu: bool, out_scale) -> None:
     if relu or out_scale is None:
         raise ValueError("residual ends a basic block: it needs out_scale and applies the "
                          "ReLU itself (relu=False)")
-    if not (isinstance(residual, torch.Tensor)
+    if not ((isinstance(residual, torch.Tensor) and residual.dtype == torch.float32)
             or (isinstance(residual, tuple) and len(residual) == 4 and residual[0] == "int8")):
         raise ValueError("residual is ('int8', x_in, in_scale, in_zp) or an fp32 tensor")
 
@@ -124,14 +125,49 @@ def conv3x3_s1_int8(
     residual: Residual = None,
 ) -> torch.Tensor:
     """Fused quantized 3x3 stride-1 same-pad conv -> int8 or fp32 (N, H, W, O);
-    with ``residual``, the basic block's int8 output."""
-    if x_s.device.type == "cpu":
-        return conv3x3_s1_int8_plain(x_s, w, w_scale, bias, w_sum, in_scale=in_scale,
-                                     in_zp=in_zp, relu=relu, out_scale=out_scale, out_zp=out_zp,
-                                     residual=residual)
+    with ``residual``, the basic block's int8 output. The op
+    ``ievm::conv3x3_s1_int8``, which takes the residual as one tensor: an
+    int8 block input (with its scale and zero point) or an fp32 identity."""
+    if residual is not None:
+        _check_residual(residual, relu, out_scale)
+    w = _packed(w)
+    res, res_scale, res_zp = residual, 0.0, 0
+    if isinstance(residual, tuple):
+        _, res, res_scale, res_zp = residual
+    return _lib.call("conv3x3_s1_int8", x_s, w.wt, list(w.shape), w_scale, bias, w_sum,
+                     float(in_scale), int(in_zp), bool(relu),
+                     None if out_scale is None else float(out_scale),
+                     None if out_zp is None else int(out_zp), res, float(res_scale), int(res_zp))
+
+
+def _residual(res: Optional[torch.Tensor], res_scale: float, res_zp: int) -> Residual:
+    if res is None or res.dtype != torch.int8:
+        return res
+    return ("int8", res, res_scale, res_zp)
+
+
+def _op_cpu(x, wt, w_shape, w_scale, bias, w_sum, in_scale, in_zp, relu, out_scale, out_zp, res,
+            res_scale, res_zp):
+    return conv3x3_s1_int8_plain(x, PackedInt8Weight(wt, tuple(w_shape)), w_scale, bias, w_sum,
+                                 in_scale=in_scale, in_zp=in_zp, relu=relu, out_scale=out_scale,
+                                 out_zp=out_zp, residual=_residual(res, res_scale, res_zp))
+
+
+def _op_fake(x, wt, w_shape, w_scale, bias, w_sum, in_scale, in_zp, relu, out_scale, out_zp, res,
+             res_scale, res_zp):
+    return x.new_empty((*x.shape[:3], w_shape[-1]),
+                       dtype=torch.int8 if out_scale is not None else torch.float32)
+
+
+def _op_cuda(x_s, wt, w_shape, w_scale, bias, w_sum, in_scale, in_zp, relu, out_scale, out_zp,
+             residual, res_scale, res_zp):
+    """Validate and launch kernel B on CUDA tensors."""
     if x_s.device.type != "cuda":
         raise ValueError(f"conv3x3_s1_int8 runs on cpu or cuda, not {x_s.device}")
-    w = _packed(w)
+    w = PackedInt8Weight(wt, tuple(w_shape))
+    residual = _residual(residual, res_scale, res_zp)
+    if residual is not None:
+        _check_residual(residual, relu, out_scale)
     dev = x_s.device
     if x_s.dim() != 4 or x_s.dtype != torch.int8 or not x_s.is_contiguous():
         raise ValueError(f"x must be a contiguous (N, H, W, C) int8 tensor, got "
@@ -149,7 +185,6 @@ def conv3x3_s1_int8(
     requant = out_scale is not None
     res, res_kind, res_zp_s, res_scale = None, 0, 0, 0.0
     if residual is not None:
-        _check_residual(residual, relu, out_scale)
         if isinstance(residual, torch.Tensor):
             res, res_kind, want = residual, 2, torch.float32
         else:
@@ -174,3 +209,10 @@ def conv3x3_s1_int8(
     )
     _lib.check("conv3x3_s1_int8", rc)
     return out
+
+
+_lib.custom_op("conv3x3_s1_int8",
+               "(Tensor x, Tensor wt, int[] w_shape, Tensor w_scale, Tensor bias, Tensor w_sum, "
+               "float in_scale, int in_zp, bool relu, float? out_scale, int? out_zp, "
+               "Tensor? residual, float res_scale, int res_zp) -> Tensor",
+               cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)

@@ -234,11 +234,25 @@ def depthwise_conv_int8(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Te
                         out_zp, act: str = "silu") -> torch.Tensor:
     """int8 depthwise conv + epilogue -> (N, Ho, Wo, C) int8 in the output's
     shifted quint8 domain; ``w_q`` is the (k, k, 1, C) int8 kernel (k 3 or 5,
-    stride 1 or 2, padding (k - 1) // 2), ``act`` "silu" or "relu6"."""
-    if x_s8.device.type == "cpu":
-        return depthwise_conv_int8_plain(x_s8, w_q, w_scale, bias, stride=stride,
-                                         in_scale=in_scale, in_zp=in_zp, out_scale=out_scale,
-                                         out_zp=out_zp, act=act)
+    stride 1 or 2, padding (k - 1) // 2), ``act`` "silu" or "relu6". The op
+    ``ievm::dwconv_int8``."""
+    return _lib.call("dwconv_int8", x_s8, w_q, w_scale, bias, int(stride), float(in_scale),
+                     int(in_zp), float(out_scale), float(out_zp), act)
+
+
+def _op_cpu(x_s8, w_q, w_scale, bias, stride, in_scale, in_zp, out_scale, out_zp, act):
+    return depthwise_conv_int8_plain(x_s8, w_q, w_scale, bias, stride=stride, in_scale=in_scale,
+                                     in_zp=in_zp, out_scale=out_scale, out_zp=out_zp, act=act)
+
+
+def _op_fake(x_s8, w_q, w_scale, bias, stride, in_scale, in_zp, out_scale, out_zp, act):
+    n, h, w, c = x_s8.shape
+    _, ho, wo = _out_hw(h, w, w_q.shape[0], stride)
+    return x_s8.new_empty((n, ho, wo, c))
+
+
+def _op_cuda(x_s8, w_q, w_scale, bias, stride, in_scale, in_zp, out_scale, out_zp, act):
+    """Validate and launch kernel E on CUDA tensors."""
     if act not in _ACTS:
         raise ValueError(f"unknown act {act!r}")
     if x_s8.device.type != "cuda":
@@ -277,3 +291,9 @@ def depthwise_conv_int8(x_s8: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Te
     )
     _lib.check("dwconv_int8", rc)
     return out
+
+
+_lib.custom_op("dwconv_int8",
+               "(Tensor x, Tensor w, Tensor w_scale, Tensor bias, int stride, float in_scale, "
+               "int in_zp, float out_scale, float out_zp, str act) -> Tensor",
+               cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)

@@ -81,9 +81,13 @@ def dense_plan(m: int, k: int, n: int, dtype: torch.dtype, aligned: bool) -> Den
 
 def dense_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``gelu(x @ w + b)`` for (..., K) fp32 or bf16 ``x``, (K, N) ``w`` and
-    (N,) ``b`` of the same dtype -> (..., N) in ``x.dtype``."""
-    if x.device.type == "cpu":
-        return dense_gelu_plain(x, w, b)
+    (N,) ``b`` of the same dtype -> (..., N) in ``x.dtype``: the op
+    ``ievm::dense_gelu``."""
+    return _lib.call("dense_gelu", x, w, b)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Validate and launch kernel D on CUDA tensors."""
     if x.device.type != "cuda":
         raise ValueError(f"dense_gelu runs on cpu or cuda, not {x.device}")
     if x.dtype not in _KINDS or w.dtype != x.dtype or b.dtype != x.dtype:
@@ -110,3 +114,8 @@ def dense_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     )
     _lib.check("dense_gelu", rc)
     return out
+
+
+_lib.custom_op("dense_gelu", "(Tensor x, Tensor w, Tensor b) -> Tensor",
+               cpu=dense_gelu_plain, cuda=_launch,
+               fake=lambda x, w, b: x.new_empty((*x.shape[:-1], w.shape[1])))

@@ -103,22 +103,42 @@ def _out_hw(h: int, w: int, kernel: int, stride: int):
 
 def fused_mbconv_block_plain(x_s8: torch.Tensor, packed: Dict, *, kernel: int, stride: int,
                              act: str, x_res: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernels, step by step, on any device.
+    """Plain PyTorch version of the kernels, launch by launch, on any device.
 
     Both int8 GEMMs accumulate in float64 (exact for int8 products); the
     depthwise sum is exact in fp32 (|sum| <= 25 * 255 * 128 < 2^24)."""
-    sc = packed["scal"]
+    return _block(x_s8, packed, kernel, stride, act, x_res,
+                  lambda name, *args: _PLAIN[name](*args))
+
+
+def _block(x_s8, packed, kernel, stride, act, x_res, run):
+    """The block as its three launches, each run by ``run(name, *args)``."""
+    sc = list(packed["scal"])
+    we = packed.get("we")
+    yq, pool = run("fused_mbconv_expand_dw", x_s8, we.wt if we else None,
+                   list(we.shape) if we else [], packed.get("ve"), packed["wdw"], packed["vdw"],
+                   sc, int(kernel), int(stride), act, "srw" in packed)
+    g = None
+    if "srw" in packed:
+        g = run("fused_mbconv_se_gate", pool, packed["srw"], packed["srb"], packed["sew"],
+                packed["seb"], sc[D_SCALE] / (yq.shape[1] * yq.shape[2]))
+    wp = packed["wp"]
+    return run("fused_mbconv_project", yq, g, wp.wt, list(wp.shape), packed["vp"], x_res, sc)
+
+
+def _expand_dw_plain(x_s8, we_wt, we_shape, ve, wdw, vdw, sc, kernel, stride, act, se):
+    """Launch 1: expand, depthwise, act, requant -> (yq: the quint8 values
+    - 128, int8; pool: their per-image sums of yq - d_zp, int32, or empty
+    without SE)."""
     n, h, w, cin = x_s8.shape
     pad, ho, wo = _out_hw(h, w, kernel, stride)
-    if "we" in packed:
-        acc = x_s8.reshape(-1, cin).double() @ packed["we"].kn().double()
-        y = act_plain(acc.float() * packed["ve"][0] + packed["ve"][1], act)
+    if we_wt is not None:
+        acc = x_s8.reshape(-1, cin).double() @ PackedInt8Weight(we_wt, tuple(we_shape)).kn().double()
+        y = act_plain(acc.float() * ve[0] + ve[1], act)
         hidden = (_requant_q(y, sc[INV_E], sc[E_ZP]) - sc[E_ZP]).reshape(n, h, w, -1)
     else:
         hidden = x_s8.float() - sc[ZP_S_IN]
-    ce = hidden.shape[-1]
     hp = F.pad(hidden, (0, 0, pad, pad, pad, pad))
-    wdw = packed["wdw"]
     acc = None
     for dy in range(kernel):
         for dx in range(kernel):
@@ -126,19 +146,35 @@ def fused_mbconv_block_plain(x_s8: torch.Tensor, packed: Dict, *, kernel: int, s
                     dx : dx + (wo - 1) * stride + 1 : stride, :]
             term = sl * wdw[dy * kernel + dx]
             acc = term if acc is None else acc + term
-    y = act_plain(acc * packed["vdw"][0] + packed["vdw"][1], act)
-    yq_d = _requant_q(y, sc[INV_D], sc[D_ZP]) - sc[D_ZP]
-    hf = yq_d * sc[D_SCALE]
-    if "srw" in packed:
-        g = se_gate_plain(yq_d.double().sum(dim=(1, 2)), packed, sc[D_SCALE] / (ho * wo))
+    q = _requant_q(act_plain(acc * vdw[0] + vdw[1], act), sc[INV_D], sc[D_ZP])
+    pool = ((q - sc[D_ZP]).double().sum(dim=(1, 2)).to(torch.int32) if se
+            else x_s8.new_zeros((0,), dtype=torch.int32))
+    return (q - 128.0).to(torch.int8), pool
+
+
+def _se_gate_plain(pool, srw, srb, sew, seb, pool_scale):
+    """Launch 2: the SE gate from the pooled sums."""
+    return se_gate_plain(pool, {"srw": srw, "srb": srb, "sew": sew, "seb": seb}, pool_scale)
+
+
+def _project_plain(yq, g, wp_wt, wp_shape, vp, x_res, sc):
+    """Launch 3: (yq - d_zp) * d_scale [* g], requantized, the project GEMM,
+    the residual and the block-output requant."""
+    n, ho, wo, ce = yq.shape
+    hf = ((yq.float() + 128.0) - sc[D_ZP]) * sc[D_SCALE]
+    if g is not None:
         hf = hf * g[:, None, None, :]
     hq = (_requant_q(hf, sc[INV_Q], sc[Q_ZP]) - 128.0).to(torch.int8)
-    wp = packed["wp"]
+    wp = PackedInt8Weight(wp_wt, tuple(wp_shape))
     accp = hq.reshape(-1, ce).double() @ wp.kn().double()
-    yp = (accp.float() * packed["vp"][0] + packed["vp"][1]).reshape(n, ho, wo, wp.n)
+    yp = (accp.float() * vp[0] + vp[1]).reshape(n, ho, wo, wp.n)
     if x_res is not None:
         yp = yp + (x_res.float() - sc[RES_ZP_S]) * sc[RES_SCALE]
     return (_requant_q(yp, sc[INV_O], sc[O_ZP]) - 128.0).to(torch.int8)
+
+
+_PLAIN = {"fused_mbconv_expand_dw": _expand_dw_plain, "fused_mbconv_se_gate": _se_gate_plain,
+          "fused_mbconv_project": _project_plain}
 
 
 # the first launch's tile plan (csrc/fused_mbconv.cu checks it and lays out its
@@ -226,10 +262,22 @@ def fused_mbconv_block(
     act: str,                         # 'silu' | 'relu6'
     x_res: Optional[torch.Tensor] = None,  # (N, Ho, Wo, Co) int8 residual input
 ) -> torch.Tensor:
-    """Run one packed MBConv block -> (N, Ho, Wo, Co) int8 in the block-out domain."""
-    if x_s8.device.type == "cpu":
-        return fused_mbconv_block_plain(x_s8, packed, kernel=kernel, stride=stride, act=act,
-                                        x_res=x_res)
+    """Run one packed MBConv block -> (N, Ho, Wo, Co) int8 in the block-out
+    domain: the ops ``ievm::fused_mbconv_expand_dw``, ``..._se_gate`` (with
+    SE) and ``..._project``, one per launch."""
+    return _block(x_s8, packed, kernel, stride, act, x_res, _lib.call)
+
+
+def _expand_dw_fake(x_s8, we_wt, we_shape, ve, wdw, vdw, sc, kernel, stride, act, se):
+    n, h, w, _ = x_s8.shape
+    _, ho, wo = _out_hw(h, w, kernel, stride)
+    ce = wdw.shape[-1]
+    return (x_s8.new_empty((n, ho, wo, ce)),
+            x_s8.new_empty((n, ce) if se else (0,), dtype=torch.int32))
+
+
+def _expand_dw_cuda(x_s8, we_wt, we_shape, ve, wdw, vdw, sc, kernel, stride, act, se):
+    """Validate and launch kernel C's first launch on CUDA tensors."""
     if x_s8.device.type != "cuda":
         raise ValueError(f"fused_mbconv_block runs on cpu or cuda, not {x_s8.device}")
     if act not in _ACTS:
@@ -242,67 +290,110 @@ def fused_mbconv_block(
                          f"{tuple(x_s8.shape)} {x_s8.dtype}")
     n, h, w, cin = x_s8.shape
     _, ho, wo = _out_hw(h, w, kernel, stride)
-    wdw, wp = packed["wdw"], packed["wp"]
-    ce, co = wdw.shape[-1], wp.n
-    has_expand, has_se = "we" in packed, "srw" in packed
-    if has_expand:
-        _check_weight("we", packed["we"], (cin, ce), dev)
-        _check_f32("ve", packed["ve"], (2, ce), dev)
+    ce = wdw.shape[-1]
+    we = None if we_wt is None else PackedInt8Weight(we_wt, tuple(we_shape))
+    if we is not None:
+        _check_weight("we", we, (cin, ce), dev)
+        _check_f32("ve", ve, (2, ce), dev)
     elif cin != ce:
         raise ValueError(f"a block without expand needs Cin == Ce, got {cin} and {ce}")
     _check_f32("wdw", wdw, (kernel * kernel, ce), dev)
-    _check_f32("vdw", packed["vdw"], (2, ce), dev)
+    _check_f32("vdw", vdw, (2, ce), dev)
+    if n * max(h * w * cin, ho * wo * ce) >= 2**31:
+        raise ValueError("the block's tensors exceed the kernels' int32 indexing")
+    # the byte of a hidden zero in the first launch's map
+    map_zp = sc[E_ZP] if we is not None else sc[ZP_S_IN] + 128.0
+    if not (float(map_zp).is_integer() and 0 <= map_zp <= 255):
+        raise ValueError(f"the hidden zero point must be an integer in [0, 255], got {map_zp}")
+    yq = torch.empty((n, ho, wo, ce), dtype=torch.int8, device=dev)
+    pool = torch.zeros((n, ce) if se else (0,), dtype=torch.int32, device=dev)
+    if yq.numel() == 0:
+        return yq, pool
+    plan = expand_dw_plan(h, w, cin, ce, kernel, stride, we is not None)
+    rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_expand_dw")(
+        x_s8.data_ptr(), we.wt.data_ptr() if we else None, we.wt.shape[1] if we else 0,
+        ve.data_ptr() if we else None, wdw.data_ptr(), vdw.data_ptr(),
+        yq.data_ptr(), pool.data_ptr() if se else None,
+        n, h, w, cin, ce, ho, wo, kernel, stride, _ACTS[act], plan.ct, plan.th, plan.tw,
+        map_zp, sc[INV_E], sc[INV_D], sc[D_ZP], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _lib.check("fused_mbconv_block", rc)
+    return yq, pool
+
+
+def _se_gate_cuda(pool, srw, srb, sew, seb, pool_scale):
+    """Validate and launch kernel C's SE-gate launch on CUDA tensors."""
+    dev = pool.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_mbconv_block runs on cpu or cuda, not {dev}")
+    n, ce = pool.shape
+    if pool.dtype != torch.int32 or not pool.is_contiguous():
+        raise ValueError(f"pool must be a contiguous (N, Ce) int32 tensor, got {pool.dtype}")
+    se = srw.shape[-1]
+    _check_f32("srw", srw, (ce, se), dev)
+    _check_f32("srb", srb, (se,), dev)
+    _check_f32("sew", sew, (se, ce), dev)
+    _check_f32("seb", seb, (ce,), dev)
+    g = torch.empty((n, ce), dtype=torch.float32, device=dev)
+    if g.numel() == 0:
+        return g
+    rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_se_gate")(
+        pool.data_ptr(), srw.data_ptr(), srb.data_ptr(), sew.data_ptr(), seb.data_ptr(),
+        g.data_ptr(), n, ce, se, pool_scale, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _lib.check("fused_mbconv_block", rc)
+    return g
+
+
+def _project_fake(yq, g, wp_wt, wp_shape, vp, x_res, sc):
+    return yq.new_empty((*yq.shape[:3], wp_shape[-1]))
+
+
+def _project_cuda(yq, g, wp_wt, wp_shape, vp, x_res, sc):
+    """Validate and launch kernel C's project launch on CUDA tensors."""
+    dev = yq.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_mbconv_block runs on cpu or cuda, not {dev}")
+    if yq.dim() != 4 or yq.dtype != torch.int8 or not yq.is_contiguous():
+        raise ValueError(f"yq must be a contiguous (N, Ho, Wo, Ce) int8 tensor, got "
+                         f"{tuple(yq.shape)} {yq.dtype}")
+    n, ho, wo, ce = yq.shape
+    wp = PackedInt8Weight(wp_wt, tuple(wp_shape))
+    co = wp.n
     _check_weight("wp", wp, (ce, co), dev)
-    _check_f32("vp", packed["vp"], (2, co), dev)
-    if has_se:
-        se = packed["srw"].shape[-1]
-        _check_f32("srw", packed["srw"], (ce, se), dev)
-        _check_f32("srb", packed["srb"], (se,), dev)
-        _check_f32("sew", packed["sew"], (se, ce), dev)
-        _check_f32("seb", packed["seb"], (ce,), dev)
+    _check_f32("vp", vp, (2, co), dev)
+    if g is not None:
+        _check_f32("g", g, (n, ce), dev)
     if x_res is not None and (tuple(x_res.shape) != (n, ho, wo, co) or x_res.dtype != torch.int8
                               or x_res.device != dev or not x_res.is_contiguous()):
         raise ValueError(f"x_res must be a contiguous {(n, ho, wo, co)} int8 tensor on {dev}")
-    if n * max(h * w * cin, ho * wo * max(ce, co)) >= 2**31:
+    if n * ho * wo * max(ce, co) >= 2**31:
         raise ValueError("the block's tensors exceed the kernels' int32 indexing")
-
-    sc = packed["scal"]
-    # the byte of a hidden zero in the first launch's map
-    map_zp = sc[E_ZP] if has_expand else sc[ZP_S_IN] + 128.0
-    if not (float(map_zp).is_integer() and 0 <= map_zp <= 255):
-        raise ValueError(f"the hidden zero point must be an integer in [0, 255], got {map_zp}")
     out = torch.empty((n, ho, wo, co), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    yq = torch.empty((n, ho, wo, ce), dtype=torch.int8, device=dev)
-    pool = torch.zeros((n, ce), dtype=torch.int32, device=dev) if has_se else None
-    we = packed["we"] if has_expand else None
-    plan = expand_dw_plan(h, w, cin, ce, kernel, stride, has_expand)
-    rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_expand_dw")(
-        x_s8.data_ptr(), we.wt.data_ptr() if we else None, we.wt.shape[1] if we else 0,
-        packed["ve"].data_ptr() if we else None, wdw.data_ptr(), packed["vdw"].data_ptr(),
-        yq.data_ptr(), pool.data_ptr() if has_se else None,
-        n, h, w, cin, ce, ho, wo, kernel, stride, _ACTS[act], plan.ct, plan.th, plan.tw,
-        map_zp, sc[INV_E], sc[INV_D], sc[D_ZP], stream,
-    )
-    _lib.check("fused_mbconv_block", rc)
-    g = None
-    if has_se:
-        g = torch.empty((n, ce), dtype=torch.float32, device=dev)
-        rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_se_gate")(
-            pool.data_ptr(), packed["srw"].data_ptr(), packed["srb"].data_ptr(),
-            packed["sew"].data_ptr(), packed["seb"].data_ptr(), g.data_ptr(),
-            n, ce, packed["srw"].shape[-1], sc[D_SCALE] / (ho * wo), stream,
-        )
-        _lib.check("fused_mbconv_block", rc)
     rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_project")(
-        yq.data_ptr(), g.data_ptr() if has_se else None, wp.wt.data_ptr(), wp.wt.shape[1],
-        packed["vp"].data_ptr(), x_res.data_ptr() if x_res is not None else None,
+        yq.data_ptr(), None if g is None else g.data_ptr(), wp.wt.data_ptr(), wp.wt.shape[1],
+        vp.data_ptr(), None if x_res is None else x_res.data_ptr(),
         out.data_ptr(), n * ho * wo, ho * wo, ce, co,
         sc[D_ZP], sc[D_SCALE], sc[INV_Q], sc[Q_ZP], sc[RES_SCALE], sc[RES_ZP_S],
-        sc[INV_O], sc[O_ZP], stream,
+        sc[INV_O], sc[O_ZP], torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("fused_mbconv_block", rc)
     return out
 
+
+_lib.custom_op("fused_mbconv_expand_dw",
+               "(Tensor x, Tensor? we, int[] we_shape, Tensor? ve, Tensor wdw, Tensor vdw, "
+               "float[] scal, int kernel, int stride, str act, bool se) -> (Tensor, Tensor)",
+               cpu=_expand_dw_plain, cuda=_expand_dw_cuda, fake=_expand_dw_fake)
+_lib.custom_op("fused_mbconv_se_gate",
+               "(Tensor pool, Tensor srw, Tensor srb, Tensor sew, Tensor seb, float pool_scale) "
+               "-> Tensor",
+               cpu=_se_gate_plain, cuda=_se_gate_cuda,
+               fake=lambda pool, srw, srb, sew, seb, pool_scale: pool.new_empty(
+                   pool.shape, dtype=torch.float32))
+_lib.custom_op("fused_mbconv_project",
+               "(Tensor yq, Tensor? g, Tensor wp, int[] wp_shape, Tensor vp, Tensor? x_res, "
+               "float[] scal) -> Tensor",
+               cpu=_project_plain, cuda=_project_cuda, fake=_project_fake)

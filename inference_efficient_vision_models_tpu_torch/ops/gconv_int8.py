@@ -536,12 +536,33 @@ def grouped_conv_int8(x_s8: torch.Tensor, w: GroupedInt8Weight, w_scale: torch.T
                       bias: torch.Tensor, w_sum: torch.Tensor, *, stride: int, in_scale, in_zp,
                       out_scale, out_zp, relu: bool = True) -> torch.Tensor:
     """int8 grouped 3x3 conv (padding 1, stride 1 or 2) + ReLU + requant ->
-    (N, Ho, Wo, C) int8 in the output's shifted quint8 domain."""
-    if x_s8.device.type == "cpu":
-        return grouped_conv_int8_plain(x_s8, w, w_scale, bias, w_sum, stride=stride,
-                                       in_scale=in_scale, in_zp=in_zp, out_scale=out_scale,
-                                       out_zp=out_zp, relu=relu)
-    if not relu or out_scale is None:
+    (N, Ho, Wo, C) int8 in the output's shifted quint8 domain. The op
+    ``ievm::gconv_int8``."""
+    if out_scale is None:
+        raise NotImplementedError("kernel F computes the ReLU + requant route only")
+    return _lib.call("gconv_int8", x_s8, w.words, w.hwio, int(w.groups), w_scale, bias, w_sum,
+                     int(stride), float(in_scale), int(in_zp), float(out_scale), float(out_zp),
+                     bool(relu))
+
+
+def _op_cpu(x_s8, words, hwio, groups, w_scale, bias, w_sum, stride, in_scale, in_zp, out_scale,
+            out_zp, relu):
+    return grouped_conv_int8_plain(x_s8, GroupedInt8Weight(hwio, words, groups), w_scale, bias,
+                                   w_sum, stride=stride, in_scale=in_scale, in_zp=in_zp,
+                                   out_scale=out_scale, out_zp=out_zp, relu=relu)
+
+
+def _op_fake(x_s8, words, hwio, groups, w_scale, bias, w_sum, stride, in_scale, in_zp, out_scale,
+             out_zp, relu):
+    n, h, wd, c = x_s8.shape
+    return x_s8.new_empty((n, *_out_hw(h, wd, stride), c))
+
+
+def _op_cuda(x_s8, words, hwio, groups, w_scale, bias, w_sum, stride, in_scale, in_zp,
+             out_scale, out_zp, relu):
+    """Validate and launch kernel F on CUDA tensors."""
+    w = GroupedInt8Weight(hwio, words, groups)
+    if not relu:
         raise NotImplementedError("kernel F computes the ReLU + requant route only")
     if x_s8.device.type != "cuda":
         raise ValueError(f"grouped_conv_int8 runs on cpu or cuda, not {x_s8.device}")
@@ -582,3 +603,10 @@ def grouped_conv_int8(x_s8: torch.Tensor, w: GroupedInt8Weight, w_scale: torch.T
     )
     _lib.check("gconv_int8", rc)
     return out
+
+
+_lib.custom_op("gconv_int8",
+               "(Tensor x, Tensor words, Tensor hwio, int groups, Tensor w_scale, Tensor bias, "
+               "Tensor w_sum, int stride, float in_scale, int in_zp, float out_scale, "
+               "float out_zp, bool relu) -> Tensor",
+               cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)

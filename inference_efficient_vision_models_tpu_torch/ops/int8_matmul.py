@@ -45,6 +45,25 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+# (data pointer, rows, cols) -> the 128-byte TMA descriptor of a packed weight:
+# it encodes only the address and the shape, so any tensor there fits it
+_tensor_maps: dict = {}
+
+
+def weight_tensor_map(wt: torch.Tensor) -> int:
+    """Address of the TMA descriptor of ``wt``, a packed (Np, Kp) int8 weight
+    on the GPU, encoded on first use of its address and shape."""
+    key = (wt.data_ptr(), wt.shape[0], wt.shape[1])
+    buf = _tensor_maps.get(key)
+    if buf is None:
+        buf = ctypes.create_string_buffer(128)
+        rc = _lib.kernel_fn("int8_matmul_requant", "ievm_int8_weight_tensor_map")(
+            wt.data_ptr(), wt.shape[0], wt.shape[1], ctypes.addressof(buf))
+        _lib.check_call("int8_matmul_requant tensor map", rc)
+        _tensor_maps[key] = buf
+    return ctypes.addressof(buf)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedInt8Weight:
     """An int8 weight in the kernels' layout: ``wt`` is (Np, Kp), K contiguous
@@ -53,8 +72,6 @@ class PackedInt8Weight:
 
     wt: torch.Tensor
     shape: Tuple[int, ...]
-    # the TMA descriptor of ``wt``, encoded on first use by the kernel
-    _tensor_map: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def k(self) -> int:
@@ -73,16 +90,8 @@ class PackedInt8Weight:
         return self.kn().reshape(self.shape)
 
     def tensor_map(self) -> int:
-        """Address of the 128-byte TMA descriptor of ``wt`` (a CUDA tensor),
-        encoded once: the weights are static."""
-        buf = self._tensor_map.get("buf")
-        if buf is None:
-            buf = ctypes.create_string_buffer(128)
-            rc = _lib.kernel_fn("int8_matmul_requant", "ievm_int8_weight_tensor_map")(
-                self.wt.data_ptr(), self.wt.shape[0], self.wt.shape[1], ctypes.addressof(buf))
-            _lib.check_call("int8_matmul_requant tensor map", rc)
-            self._tensor_map["buf"] = buf
-        return ctypes.addressof(buf)
+        """Address of the TMA descriptor of ``wt`` (a CUDA tensor)."""
+        return weight_tensor_map(self.wt)
 
 
 def pack_weight(w_q: torch.Tensor) -> PackedInt8Weight:
@@ -338,9 +347,13 @@ def int8_matmul_requant(
     out_zp=None,
     out_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Fused quantized dense layer -> (M, N) int8 (requantized) or float."""
-    return _launch(x_s, w, w_scale, bias, w_sum, in_scale=in_scale, in_zp=in_zp, relu=relu,
-                   act=act, out_scale=out_scale, out_zp=out_zp, out_dtype=out_dtype)
+    """Fused quantized dense layer -> (M, N) int8 (requantized) or float:
+    the op ``ievm::int8_matmul_requant``."""
+    w = _packed(w)
+    return _lib.call("int8_matmul_requant", x_s, w.wt, list(w.shape), w_scale, bias, w_sum,
+                     float(in_scale), int(in_zp), "relu" if relu else act or "none",
+                     None if out_scale is None else float(out_scale),
+                     None if out_zp is None else int(out_zp), out_dtype)
 
 
 def int8_matmul_requant_dynamic(
@@ -355,30 +368,71 @@ def int8_matmul_requant_dynamic(
     out_dtype=torch.float32,
 ) -> torch.Tensor:
     """The dynamic route: the kernel reads s_x and zp from ``qparams`` on the
-    device; a float output. A CPU tensor takes the plain version."""
-    if x.device.type == "cpu":
-        return int8_matmul_requant_dynamic_plain(x, w, w_scale, bias, w_sum, qparams, act=act,
-                                                 out_dtype=out_dtype)
+    device; a float output. The op ``ievm::int8_matmul_requant_dynamic``."""
+    w = _packed(w)
+    return _lib.call("int8_matmul_requant_dynamic", x, w.wt, list(w.shape), w_scale, bias,
+                     w_sum, qparams, act or "none", out_dtype)
+
+
+def _act(act: str) -> Optional[str]:
+    return None if act == "none" else act
+
+
+def _static_cpu(x, wt, w_shape, w_scale, bias, w_sum, in_scale, in_zp, act, out_scale, out_zp,
+                out_dtype):
+    return int8_matmul_requant_plain(
+        x, PackedInt8Weight(wt, tuple(w_shape)), w_scale, bias, w_sum, in_scale=in_scale,
+        in_zp=in_zp, act=_act(act), out_scale=out_scale, out_zp=out_zp, out_dtype=out_dtype)
+
+
+def _static_cuda(x, wt, w_shape, w_scale, bias, w_sum, in_scale, in_zp, act, out_scale, out_zp,
+                 out_dtype):
+    return _launch(x, PackedInt8Weight(wt, tuple(w_shape)), w_scale, bias, w_sum,
+                   in_scale=in_scale, in_zp=in_zp, act=_act(act), out_scale=out_scale,
+                   out_zp=out_zp, out_dtype=out_dtype)
+
+
+def _static_fake(x, wt, w_shape, w_scale, bias, w_sum, in_scale, in_zp, act, out_scale, out_zp,
+                 out_dtype):
+    return x.new_empty((x.shape[0], w_shape[-1]),
+                       dtype=torch.int8 if out_scale is not None else out_dtype)
+
+
+def _dynamic_cpu(x, wt, w_shape, w_scale, bias, w_sum, qparams, act, out_dtype):
+    return int8_matmul_requant_dynamic_plain(x, PackedInt8Weight(wt, tuple(w_shape)), w_scale,
+                                             bias, w_sum, qparams, act=_act(act),
+                                             out_dtype=out_dtype)
+
+
+def _dynamic_cuda(x, wt, w_shape, w_scale, bias, w_sum, qparams, act, out_dtype):
     if not x.is_floating_point():
         raise ValueError(f"the dynamic route quantizes a float input, got {x.dtype}")
     _check_qparams(qparams, x.device)
-    return _launch(x, w, w_scale, bias, w_sum, in_scale=1.0, in_zp=128, act=act,
-                   out_dtype=out_dtype, qparams=qparams)
+    return _launch(x, PackedInt8Weight(wt, tuple(w_shape)), w_scale, bias, w_sum, in_scale=1.0,
+                   in_zp=128, act=_act(act), out_dtype=out_dtype, qparams=qparams)
 
 
-def _launch(x_s, w, w_scale, bias, w_sum, *, in_scale, in_zp, relu=False, act=None,
-            out_scale=None, out_zp=None, out_dtype=torch.float32, qparams=None):
-    if x_s.device.type == "cpu":
-        return int8_matmul_requant_plain(
-            x_s, w, w_scale, bias, w_sum, in_scale=in_scale, in_zp=in_zp, relu=relu,
-            act=act, out_scale=out_scale, out_zp=out_zp, out_dtype=out_dtype)
+def _dynamic_fake(x, wt, w_shape, w_scale, bias, w_sum, qparams, act, out_dtype):
+    return x.new_empty((x.shape[0], w_shape[-1]), dtype=out_dtype)
+
+
+_A_ARGS = ("Tensor x, Tensor wt, int[] w_shape, Tensor w_scale, Tensor bias, Tensor w_sum")
+_lib.custom_op("int8_matmul_requant",
+               f"({_A_ARGS}, float in_scale, int in_zp, str act, float? out_scale, int? out_zp, "
+               "ScalarType out_dtype) -> Tensor",
+               cpu=_static_cpu, cuda=_static_cuda, fake=_static_fake)
+_lib.custom_op("int8_matmul_requant_dynamic",
+               f"({_A_ARGS}, Tensor qparams, str act, ScalarType out_dtype) -> Tensor",
+               cpu=_dynamic_cpu, cuda=_dynamic_cuda, fake=_dynamic_fake)
+
+
+def _launch(x_s, w, w_scale, bias, w_sum, *, in_scale, in_zp, act=None, out_scale=None,
+            out_zp=None, out_dtype=torch.float32, qparams=None):
+    """Validate and launch kernel A on CUDA tensors."""
     if x_s.device.type != "cuda":
         raise ValueError(f"int8_matmul_requant runs on cpu or cuda, not {x_s.device}")
-    if relu:
-        act = "relu"
     if act not in _ACTS:
         raise ValueError(f"unknown act {act!r}")
-    w = _packed(w)
     dev = x_s.device
     if x_s.dim() != 2 or x_s.dtype not in _X_KINDS or not x_s.is_contiguous():
         raise ValueError(f"x must be a contiguous 2-D int8/fp32/bf16 tensor, got "

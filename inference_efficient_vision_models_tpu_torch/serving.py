@@ -42,11 +42,12 @@ from .models.mobilenet import MobileNetV2Spec
 from .models.registry import spec_from_dict
 from .models.vit import ViTSpec
 from .ops.space_to_depth import space_to_depth_u8
+from .parallel.mesh import DATA_AXIS, mesh_device
 from .utils.device import DeviceLike, resolve_device
 
 
 def load_quantized(fold_dir: str, method: str = "static_int8", *, device: DeviceLike = None,
-                   device_preprocess: bool = False):
+                   device_preprocess: bool = False, mesh=None):
     """Restore a stage-4 artifact -> (spec, model, apply_fn, host_preprocess).
 
     Dispatches on the artifact's spec. A ResNet serves ``"static_int8"``
@@ -68,9 +69,17 @@ def load_quantized(fold_dir: str, method: str = "static_int8", *, device: Device
     ``"dynamic_int8"`` artifact through the dynamic executor (every dense
     layer int8 on kernel A's dynamic route). The MBConv families and ViT take
     raw uint8 images, with no host preprocess. A ResNeXt's ``"static_int8"``
-    runs its grouped convs on kernel F."""
+    runs its grouped convs on kernel F.
+
+    With ``mesh`` (``parallel.make_mesh``) the model is loaded on this
+    rank's device (a replica on each rank); serve it through
+    ``Predictor(mesh=...)``, which splits each batch over the data axis."""
     with open(os.path.join(fold_dir, "spec.json")) as f:
         spec = spec_from_dict(json.load(f))
+    if mesh is not None:
+        if method == "static_int8_fused":
+            raise ValueError("the fused executor is single-device")
+        device = mesh_device(mesh)
     if isinstance(spec, ViTSpec) and method in ("static_int8", "static_int8_bf16"):
         act = torch.bfloat16 if method == "static_int8_bf16" else torch.float32
         model = load_static_int8_vit(fold_dir, device, act_dtype=act)
@@ -132,28 +141,44 @@ class Predictor:
         prefetch: int = 2,
         bucket_sizes: Optional[Tuple[int, ...]] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         """``bucket_sizes``: ascending shape buckets for short work: a request
         (or tail chunk) of n < batch_size images is padded only to the
-        smallest bucket >= n instead of the full batch."""
+        smallest bucket >= n instead of the full batch.
+
+        ``mesh``: run data-parallel over a ``parallel.make_mesh`` mesh, every
+        rank calling with the same images: each batch is split over the data
+        axis (batch and bucket sizes must divide by its size), each rank runs
+        its rows on its device, and the logits are gathered, so every rank
+        returns the whole batch's. The model must sit on this rank's device
+        (``from_artifact(..., mesh=...)``)."""
         self.apply_fn = apply_fn
         self.host_preprocess = host_preprocess
         self.batch_size = batch_size
         self.prefetch = max(prefetch, 1)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh) if mesh is not None else resolve_device(device)
         self.bucket_sizes = tuple(sorted(set(bucket_sizes or ())))
         if any(b < 1 or b > batch_size for b in self.bucket_sizes):
             raise ValueError(
                 f"bucket_sizes {self.bucket_sizes} must lie in [1, batch_size={batch_size}]"
             )
+        if mesh is not None:
+            n_dp = mesh.size(0)
+            for b in (batch_size, *self.bucket_sizes):
+                if b % n_dp:
+                    raise ValueError(
+                        f"batch/bucket size {b} not divisible by data-axis size {n_dp}"
+                    )
 
     @classmethod
     def from_artifact(cls, fold_dir: str, method: str = "static_int8", *,
-                      device: DeviceLike = None, device_preprocess: bool = False,
+                      device: DeviceLike = None, device_preprocess: bool = False, mesh=None,
                       **kw) -> "Predictor":
         _, _, fn, pre = load_quantized(fold_dir, method, device=device,
-                                       device_preprocess=device_preprocess)
-        return cls(fn, host_preprocess=pre, device=device, **kw)
+                                       device_preprocess=device_preprocess, mesh=mesh)
+        return cls(fn, host_preprocess=pre, device=device, mesh=mesh, **kw)
 
     def _target_size(self, n: int) -> int:
         """Smallest shape bucket covering n, else the full batch."""
@@ -178,8 +203,23 @@ class Predictor:
         return t.pin_memory() if self.device.type == "cuda" else t
 
     def _run(self, host: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._run_mesh(host)
         with torch.inference_mode():
             return self.apply_fn(host.to(self.device, non_blocking=True))
+
+    def _run_mesh(self, host: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the batch, then every rank's logits gathered."""
+        import torch.distributed as dist
+
+        from .parallel import shard_batch
+
+        group = self.mesh.get_group(DATA_AXIS)
+        with torch.inference_mode():
+            mine = self.apply_fn(shard_batch(self.mesh, host))
+            parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, mine.contiguous(), group=group)
+            return torch.cat(parts)
 
     def warmup(self, image_shape: Tuple[int, int, int] = (224, 224, 3)) -> None:
         """Run every shape the predictor can dispatch (each bucket and the

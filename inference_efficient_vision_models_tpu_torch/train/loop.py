@@ -8,6 +8,11 @@ their metrics as device tensors, read once after the epoch, so the step
 loop never waits for the device. On a GPU each step is bracketed by
 CUDA events; ``history["step_ms"]`` keeps every epoch's per-step device
 times (empty on the CPU, where no device time exists).
+
+With more than one process in the group (``parallel.initialize_distributed``)
+training and evaluation run data-parallel over a mesh of every rank, as the
+JAX package's loop goes data-parallel over all its devices; rank 0 writes
+the checkpoints, the log and the plot.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from ..core import artifacts
 from ..data.augment import augment_options, make_augment_fn
 from ..data.pipeline import Batches
 from ..models.registry import params_from_jax, params_to_jax
+from ..parallel.mesh import make_mesh, world_size
 from ..utils.device import DeviceLike, resolve_device
 from . import steps as steps_mod
 from .optim import AdamWState, adamw_init, make_lr_schedule, opt_to_jax
@@ -48,6 +54,24 @@ class StepClock:
         if self.events:
             self.events[-1][1].synchronize()
         return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _maybe_mesh():
+    """A data-parallel mesh over every rank (None for one process)."""
+    return make_mesh(model_parallel=1) if world_size() > 1 else None
+
+
+def _plot(fold_dir: str, history: Dict, title: str, logger) -> None:
+    """``training_curves.png`` beside the checkpoints, where matplotlib is
+    installed (the GPU machine has none: one line says no plot was written)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        logger.info("matplotlib is not installed: no training_curves.png written")
+        return
+    from ..metrics.plots import plot_training_curves
+
+    plot_training_curves(fold_dir, history, title)
 
 
 def _run_epoch(step_fn, carry, loader: Batches, extra_args=(), debug_mode=False):
@@ -113,6 +137,11 @@ def train_classifier(
     included. Checkpoints are written in the JAX layout; ``save=False``
     writes nothing into ``fold_dir``."""
     dev = resolve_device(device)
+    mesh = _maybe_mesh()
+    if mesh is not None:
+        logger.info("data-parallel over %d ranks (mesh %s)", mesh.size(),
+                    dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    save = save and (mesh is None or mesh.get_rank() == 0)
     epochs = cfg.epochs if epochs is None else epochs
     lr, resume = cfg.learning_rate, cfg.resume
 
@@ -133,7 +162,8 @@ def train_classifier(
     if teacher is None:
         step = steps_mod.make_train_step(spec, learning_rate=lr,
                                          compute_dtype=cfg.compute_dtype, lr_schedule=schedule,
-                                         augment_fn=augment_fn, augment_seed=cfg.seed)
+                                         augment_fn=augment_fn, augment_seed=cfg.seed,
+                                         mesh=mesh)
         extra = ()
     else:
         t_spec, t_params, t_state = teacher
@@ -141,9 +171,9 @@ def train_classifier(
             spec, t_spec, alpha=cfg.alpha, temperature=cfg.temperature,
             learning_rate=lr, compute_dtype=cfg.compute_dtype,
             lr_schedule=schedule, sp_weight=float(cfg.sp_weight),
-            augment_fn=augment_fn, augment_seed=cfg.seed)
+            augment_fn=augment_fn, augment_seed=cfg.seed, mesh=mesh)
         extra = (t_params, t_state)
-    eval_step = steps_mod.make_eval_step(spec, compute_dtype=cfg.compute_dtype)
+    eval_step = steps_mod.make_eval_step(spec, compute_dtype=cfg.compute_dtype, mesh=mesh)
 
     history = {"train_loss": [], "train_acc": [], "val_loss": [], "val_acc": [],
                "epoch_time": [], "step_ms": []}
@@ -198,6 +228,8 @@ def train_classifier(
                 opt=opt_to_jax(carry[2], to_jax), meta={"epoch": epoch, "best_acc": best_acc},
             )
             artifacts.save_training_log(fold_dir, history)
+    if save and history["train_loss"]:
+        _plot(fold_dir, history, spec.name, logger)
 
     if best is None:  # epochs == 0 or resumed past the best epoch
         if resume and best_acc >= 0 and artifacts.checkpoint_exists(fold_dir, artifacts.BEST):

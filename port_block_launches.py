@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of kernel C's three launches at every EfficientNet-B0 block,
 or (``--resnet``) of kernel B's calls and the whole ResNet18 forward by kernel,
-or (``--dwconv``) of kernel E's calls, or (``--gconv``) of kernel F's.
+or (``--dwconv``) of kernel E's calls, or (``--gconv``) of kernel F's, or
+(``--forward``) the ResNet18 INT8 forward as its caller sees it.
 
 Run from the repository root: ``python3 port_block_launches.py [--root DIR]
 [--resnet | --dwconv [--ablate] | --gconv [--ablate]]``. It serves nothing. By default it loads the committed
@@ -29,6 +30,10 @@ kernel F with a part taken out (``GC_ABLATIONS``: the mma loop and
 epilogue, the epilogue, the mma, the staging, the output copy, the k loop)
 or its fp32 quotient replaced by ``div_rn_by``; ``--sweep`` times each call
 under every tile plan (the check of ``gconv_plan``'s cost model).
+With ``--forward`` it times the committed pruned ResNet18's eager INT8
+forward (``load_static_int8``, device-resident uint8 images from a seed) at
+batch 1 and at ``--batch``: CUDA events around each call, host launch
+overhead included, median of 25 after 3 warm-up calls (``chip_smoke.time_ms``).
 ``--root`` takes the port
 package (and, with ``--resnet`` or ``--dwconv``, its ``chip_smoke.py``)
 from another checkout (for example the parent commit
@@ -328,6 +333,28 @@ def gconv(batch: int, ablate: bool = False, sweep: bool = False) -> dict:
     return out
 
 
+def forward(root: str, batch: int) -> dict:
+    """The r2 ResNet18 INT8 forward of the checkout at ``root``, timed as its
+    caller sees it at batch 1 and ``batch``."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qresnet import (
+        load_static_int8,
+    )
+
+    model = load_static_int8(os.path.join(root, "artifacts", "bench", "quantization", "r2",
+                                          "fold_0"), device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for b in (1, batch):
+            x = torch.from_numpy(np.random.default_rng(2).integers(
+                0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda()
+            out[f"forward_ms_b{b}"] = cs.time_ms(lambda: model(x))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
@@ -338,6 +365,8 @@ def main() -> int:
                       help="kernel B's calls and the ResNet18 forward by kernel")
     mode.add_argument("--dwconv", action="store_true", help="kernel E's calls")
     mode.add_argument("--gconv", action="store_true", help="kernel F's calls")
+    mode.add_argument("--forward", action="store_true",
+                      help="the ResNet18 INT8 forward at batch 1 and --batch")
     ap.add_argument("--ablate", action="store_true",
                     help="with --dwconv or --gconv: also copies of this checkout's kernel with "
                          "a part taken out")
@@ -359,9 +388,13 @@ def main() -> int:
                           "device": torch.cuda.get_device_name(0),
                           **gconv(args.batch, args.ablate, args.sweep)}))
         return 0
-    if args.resnet or args.dwconv:
+    if args.resnet or args.dwconv or args.forward:
         root = os.path.abspath(args.root)
-        res = resnet(root, args.batch) if args.resnet else dwconv(root, args.batch, args.ablate)
+        if args.forward:
+            res = forward(root, args.batch)
+        else:
+            res = resnet(root, args.batch) if args.resnet else dwconv(root, args.batch,
+                                                                      args.ablate)
         print(json.dumps({"root": root, "batch": args.batch,
                           "device": torch.cuda.get_device_name(0), **res}))
         return 0

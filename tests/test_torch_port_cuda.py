@@ -792,3 +792,94 @@ def test_qat_adaround_static_int8_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     assert counts == {"int8_matmul_requant": 8, "conv3x3_s1_int8": 5}
     assert torch.equal(got, ref)
+
+
+# --------------------------------------------------------------------------
+# the kernels as torch.library ops: each op's CUDA implementation against the
+# direct launch, bit for bit, at every call of the served forwards
+# --------------------------------------------------------------------------
+
+
+def _served_forward(name, dev):
+    """(forward on uint8 images, batch) of a served path."""
+    from inference_efficient_vision_models_tpu_torch.compress.quant.qeffnet import (
+        load_static_int8 as load_effnet)
+
+    if name == "resnet18":
+        return load_static_int8(ARTIFACT, device=dev), 256
+    if name == "efficientnet_b0_fused":
+        return load_static_int8_fused(EFF_ARTIFACT, device=dev), 256
+    if name == "efficientnet_b0_unfused":
+        return load_effnet(EFF_ARTIFACT, dev), 256
+    if name == "vit_tiny_int8":
+        return qvit.load_static_int8(VIT_ARTIFACT, device=dev, act_dtype=torch.float32), 256
+    spec = vit.vit_spec("vit_tiny_patch16_224", num_classes=6)
+    if name == "vit_tiny_dynamic":
+        q = qvit.convert_dynamic_int8(spec, vit_params_from_seed(spec, VIT_SEED))
+        return qvit.from_dynamic_qmodel(spec, q, dev), 256
+    params = vit.params_from_jax(vit_params_from_seed(spec, VIT_SEED), dev)
+    return (lambda x: vit.apply(spec, params, {}, normalize_images(x),
+                                compute_dtype=torch.bfloat16, fused_mlp=True)[0]), 256
+
+
+@pytest.mark.parametrize("path", ["resnet18", "efficientnet_b0_fused", "efficientnet_b0_unfused",
+                                  "vit_tiny_int8", "vit_tiny_dynamic", "vit_float_fused_mlp"])
+def test_ops_cuda_implementation_equals_direct_launch(cuda, monkeypatch, path):
+    """Every kernel call of a served forward (kernels A static and dynamic, B,
+    C's three launches, D, E), replayed through ``torch.ops.ievm`` and
+    through its direct launch: equal bit for bit, one launch each."""
+    fn, batch = _served_forward(path, cuda)
+    calls = []
+    direct = _lib.call
+
+    def record(name, *args):
+        out = direct(name, *args)
+        calls.append((name, args, out))
+        return out
+
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (batch, 224, 224, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    monkeypatch.setattr(_lib, "call", record)
+    with torch.inference_mode():
+        fn(x)
+    monkeypatch.setattr(_lib, "call", direct)
+    assert calls
+    for name, args, out in calls:
+        with torch.inference_mode():
+            before = sum(_lib.launches.values())
+            via_op = getattr(torch.ops.ievm, name)(*args)
+            mid = sum(_lib.launches.values())
+            again = _lib._impls[name]["cuda"](*args)
+            after = sum(_lib.launches.values())
+        outs = zip(via_op, again, out) if isinstance(out, tuple) else [(via_op, again, out)]
+        for a, b, c in outs:
+            assert torch.equal(a, b) and torch.equal(a, c), name
+        assert mid - before == after - mid == 1, name
+
+
+def test_resnext_ops_cuda_implementation_equals_direct_launch(cuda, monkeypatch):
+    """Kernel F's op at the seeded resnext26's 8 grouped calls."""
+    from chip_smoke import resnet_params_from_seed
+    from inference_efficient_vision_models_tpu_torch.compress.quant import qresnet
+    from inference_efficient_vision_models_tpu_torch.data.pipeline import Batches
+    from inference_efficient_vision_models_tpu_torch.models.registry import make_spec
+
+    spec = make_spec("resnext26_32x4d", 6)
+    p, s = resnet_params_from_seed(spec, 0)
+    folded = qresnet.fold(spec, p, s)
+    imgs = np.random.default_rng(0).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+    obs = qresnet.calibrate(spec, qresnet.place_folded(folded, cuda),
+                            Batches(imgs, np.zeros(8, np.int32), 8, cuda), max_images=8)
+    model = qresnet.from_jax_qmodel(spec.to_dict(), qresnet.convert_static_int8(
+        spec, folded, obs), cuda)
+    calls = []
+    direct = _lib.call
+    monkeypatch.setattr(_lib, "call", lambda name, *a: calls.append((name, a)) or direct(name, *a))
+    with torch.inference_mode():
+        model(torch.from_numpy(imgs).to(cuda))
+    monkeypatch.setattr(_lib, "call", direct)
+    grouped = [(n, a) for n, a in calls if n == "gconv_int8"]
+    assert len(grouped) == 8
+    for name, args in grouped:
+        with torch.inference_mode():
+            assert torch.equal(torch.ops.ievm.gconv_int8(*args), _lib._impls[name]["cuda"](*args))
