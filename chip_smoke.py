@@ -21,8 +21,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    JAX package's golden logits committed in ``testdata/``;
 3. EfficientNet-B0 path (the committed static-INT8 EfficientNet-B0, served by
    the fused-MBConv executor): (a) kernel C against its plain version, bit
-   for bit, at the 16 block shapes (batch 256) and at odd shapes, with each
-   block's three launches timed apart (``port_block_launches.launch_ms``),
+   for bit, at the 16 block shapes (batch 256) and at odd shapes, its
+   project and SE-gate launches alone at their edges (``PROJECT_EDGES``,
+   ``SE_EDGES``), with each block's three launches timed apart
+   (``port_block_launches.launch_ms``) beside each launch's own bound (``launch_bounds``, on
+   every fused path: ``eff_c_launches``),
    kernel A at its 3 shapes (batch 256 and 1);
    (a') every block's int8 output on 8 golden images with teacher forcing
    (kernel and plain fed the same plain-path input), the check that decides
@@ -270,6 +273,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 FP32_FMA_PER_S = 33.5e12    # H100 SXM: 67 TFLOP/s fp32 outside the tensor cores, 2 per FMA
+FP64_FMA_PER_S = 33.5e12    # H100 SXM: 67 TFLOP/s fp64 on the tensor cores, 2 per FMA
 # kernel F's first design (dp4a): ms per call at batch 256 and 1, by path
 # and call, as PERF.md section 6 records them (H100 80GB HBM3, 700.00 W):
 # each row's ``old_ms``
@@ -1252,6 +1256,88 @@ def compare_block(got: torch.Tensor, ref: torch.Tensor, min_exact: float = 0.98)
     return err <= 1 and exact >= min_exact, err, exact
 
 
+# kernel C's project launch alone: (n, ho, wo, ce, co, se, residual). B0's
+# first and last block shapes, Co 320 split across blocks at batch 1, Co past
+# 320, Ce not a multiple of 16, 8 or 4 (copies of 8, 4 and 1 bytes), Co not a
+# multiple of 8, 7 x 7 images straddling panels, 1 x 1 maps, two K chunks
+PROJECT_EDGES = [
+    (4, 112, 112, 32, 16, True, False), (3, 7, 7, 1152, 320, True, False),
+    (1, 7, 7, 1152, 320, True, False), (5, 7, 7, 1152, 192, True, True),
+    (2, 7, 9, 38, 30, True, True), (3, 5, 5, 37, 20, False, True), (2, 15, 15, 24, 16, True, False),
+    (2, 6, 6, 36, 24, False, True), (2, 9, 9, 100, 37, True, False), (2, 7, 7, 200, 330, False, False),
+    (200, 1, 1, 96, 24, True, False), (4, 14, 14, 672, 112, True, True),
+    (4, 7, 7, 960, 160, False, True), (2, 56, 56, 144, 24, False, True),
+]
+# kernel C's SE-gate launch alone: (n, ce, se). B0's late and first blocks,
+# one image, groups with a ragged last one, Ce not a multiple of 4 (4-byte
+# copies), Se of 256, FC2 chunks of one row, the pruned chain's late blocks
+SE_EDGES = [(256, 1152, 48), (256, 32, 8), (1, 1152, 48), (3, 100, 5), (133, 240, 10),
+            (2, 37, 256), (5, 37, 3), (9, 4100, 7), (256, 920, 40)]
+# launch 3 at an output scale TINY_SCALE times smaller, the gate path and the
+# table path: y * inv_o then spans about +-2.4e7, through (-3 * 2^23, -1.5 *
+# 2^23), where the bits of y * inv_o + 1.5 * 2^23 read as an int wrap round
+PROJECT_TINY_SCALE = [(2, 14, 14, 96, 24, True, True), (3, 7, 7, 37, 20, False, False)]
+TINY_SCALE = 5e5
+
+
+def project_inputs(rng: np.random.Generator, n, ho, wo, ce, co, se, residual, offset=0,
+                   inv_o_mul=1.0, device="cuda"):
+    """A random packed block and launch 3's inputs on ``device``: yq, the SE
+    gate (or None) and x_res (or None), the int8 ones ``offset`` bytes into
+    their buffers; the output requant's 1 / scale times ``inv_o_mul``."""
+    from inference_efficient_vision_models_tpu_torch.ops.fused_mbconv import INV_O
+
+    p_np, _ = random_block(rng, cin=8, ce=ce, co=co, se=4 if se else 0, k=3, expand=True)
+    packed = to_device_packed(p_np, device)
+    sc = list(packed["scal"])
+    sc[INV_O] *= inv_o_mul
+    packed["scal"] = tuple(sc)
+
+    def int8_at(shape, mean):
+        v = np.clip(np.rint(rng.normal(mean, 40, int(np.prod(shape)) + offset)), -128, 127)
+        return torch.from_numpy(v.astype(np.int8)).to(device)[offset:].view(shape)
+
+    g = (torch.from_numpy(rng.uniform(0.05, 0.95, (n, ce)).astype(np.float32)).to(device)
+         if se else None)
+    return (packed, int8_at((n, ho, wo, ce), -100), g,
+            int8_at((n, ho, wo, co), 0) if residual else None)
+
+
+def check_launch_edges(rng: np.random.Generator):
+    """Launch 3 alone at PROJECT_EDGES, three offset views and
+    PROJECT_TINY_SCALE, launch 2 alone at SE_EDGES, each against its plain
+    version bit for bit; -> (checks, max abs err, failures)."""
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv as fm
+
+    fails, err, checks = [], 0.0, 0
+    cases = ([(c, 0, 1.0) for c in PROJECT_EDGES]
+             + [((2, 14, 14, 96, 24, True, True), o, 1.0) for o in (1, 4, 8)]
+             + [(c, 0, TINY_SCALE) for c in PROJECT_TINY_SCALE])
+    for case, offset, mul in cases:
+        packed, yq, g, x_res = project_inputs(rng, *case, offset=offset, inv_o_mul=mul)
+        wp = packed["wp"]
+        args = (yq, g, wp.wt, list(wp.shape), packed["vp"], x_res, list(packed["scal"]))
+        got, ref = fm._project_cuda(*args), fm._project_plain(*args)
+        torch.cuda.synchronize()
+        e = float((got.int() - ref.int()).abs().max())
+        err, checks = max(err, e), checks + 1
+        if not torch.equal(got, ref):
+            fails.append(f"fused_mbconv_project {case} offset {offset} 1/scale x{mul}: "
+                         f"max abs err {e}")
+    for n, ce, se in SE_EDGES:
+        p_np, _ = random_block(rng, cin=8, ce=ce, co=8, se=se, k=3, expand=True)
+        packed = to_device_packed(p_np, "cuda")
+        pool = torch.from_numpy(rng.integers(-2000, 20000, (n, ce)).astype(np.int32)).cuda()
+        args = (pool, packed["srw"], packed["srb"], packed["sew"], packed["seb"], 0.01 / 49)
+        got, ref = fm._se_gate_cuda(*args), fm._se_gate_plain(*args)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        err, checks = max(err, e), checks + 1
+        if not torch.equal(got, ref):
+            fails.append(f"fused_mbconv_se_gate {(n, ce, se)}: max abs err {e}")
+    return checks, err, fails
+
+
 def block_cost(x: torch.Tensor, packed, kernel: int, stride: int, residual: bool):
     """(bytes, int8 ops, depthwise MACs) of one fused block call: the bytes the
     TPU kernel moves (x_in, x_res, y_out, every operand once; the port's extra
@@ -1267,6 +1353,40 @@ def block_cost(x: torch.Tensor, packed, kernel: int, stride: int, residual: bool
     nbytes = x.numel() + (out if residual else 0) + out + weights
     ops = 2 * (n * h * w * cin * ce if "we" in packed else 0) + 2 * n * ho * wo * ce * co
     return nbytes, ops, n * ho * wo * ce * kernel * kernel
+
+
+def launch_bounds(x: torch.Tensor, packed, kernel: int, stride: int, residual: bool):
+    """Each of kernel C's launches' own bound at one block call (ms), the
+    larger of its bytes (each input read once, each output written once)
+    over HBM and its operations over the card's rate for them, and which of
+    the two decides it ("bytes" or "operations"):
+    - expand_dw: x, the expand and depthwise weights and scales in, yq and
+      the pool sums out; the expand's int8 operations, the depthwise MACs;
+    - se_gate: the pool sums, both SE weights and biases in, the gate out;
+      the two FCs' float64 multiply-adds (at the tensor cores' fp64 rate);
+    - project: yq, the gate, x_res, the project weight and vp in, the output
+      out; its int8 operations.
+    -> ({launch: ms}, {launch: "bytes" or "operations"}); no SE: 0.0, None."""
+    n, h, w, cin = x.shape
+    pad = (kernel - 1) // 2
+    ho, wo = (h + 2 * pad - kernel) // stride + 1, (w + 2 * pad - kernel) // stride + 1
+    ce, co = packed["wdw"].shape[-1], packed["wp"].n
+    m, se = n * ho * wo, packed["srw"].shape[1] if "srw" in packed else 0
+    expand = "we" in packed
+    b1 = (x.numel() + (cin * ce + 8 * ce if expand else 0) + (kernel * kernel + 2) * ce * 4
+          + m * ce + (n * ce * 4 if se else 0))
+    ops1 = max((2 * n * h * w * cin * ce if expand else 0) / INT8_OPS_PER_S,
+               m * ce * kernel * kernel / FP32_FMA_PER_S)
+    b2 = 2 * n * ce * 4 + 2 * ce * se * 4 + (se + ce) * 4
+    b3 = m * ce + (n * ce * 4 if se else 0) + (m * co if residual else 0) + m * co + ce * co + 8 * co
+    terms = {"expand_dw": (b1 / HBM_BYTES_PER_S, ops1),
+             "se_gate": (b2 / HBM_BYTES_PER_S, 2 * n * ce * se / FP64_FMA_PER_S),
+             "project": (b3 / HBM_BYTES_PER_S, 2 * m * ce * co / INT8_OPS_PER_S)}
+    if not se:
+        del terms["se_gate"]
+    ms = {k: max(t) * 1e3 for k, t in terms.items()}
+    by = {k: "bytes" if t[0] >= t[1] else "operations" for k, t in terms.items()}
+    return {"se_gate": 0.0, **ms}, {"se_gate": None, **by}
 
 
 def eff_block_inputs(model, b: int, gen: torch.Generator):
@@ -1290,7 +1410,8 @@ def eff_check_odd_shapes(gen_np: np.random.Generator, gen: torch.Generator):
     """(a) kernel C at shapes off the served path, bit for bit: relu6 without
     SE, without expand, no residual, ragged H/W, Ce not a multiple of 8 or of
     the channel tile (and not of 4), stride 2 on odd H, k = 1/3/5; Ce of 32
-    and 96, Cin of 16, k5 at stride 2."""
+    and 96, Cin of 16, k5 at stride 2; then its project and SE-gate launches
+    alone at their edges (``check_launch_edges``)."""
     cases = [  # (n, h, w, cin, ce, co, se, k, stride, expand, act, residual)
         (3, 12, 12, 24, 36, 20, 0, 3, 1, True, "relu6", False),
         (2, 10, 10, 40, 40, 40, 0, 3, 1, False, "relu6", True),
@@ -1322,8 +1443,10 @@ def eff_check_odd_shapes(gen_np: np.random.Generator, gen: torch.Generator):
         if not ok:
             fails.append(f"fused_mbconv_block {(n, h, w, cin, ce, co, se, k, stride, expand, act, residual)}:"
                          f" max abs err {err}, exact {exact}")
-    emit({"phase": "eff_a_odd_shapes", "checks": len(cases), "max_abs_err": err_max,
-          "failed": fails})
+    checks, err, f = check_launch_edges(gen_np)
+    fails += f
+    emit({"phase": "eff_a_odd_shapes", "checks": len(cases) + checks,
+          "max_abs_err": max(err_max, err), "launch_edges": checks, "failed": fails})
     return fails
 
 
@@ -1349,12 +1472,12 @@ def eff_kernel_a_calls(model, b: int):
 
 def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "efficientnet_b0",
                                    time_a: bool = False):
-    """(a) kernel C at the 16 block shapes, bit for bit, and kernel A at its
-    3, batch 256, then the timings: each block's three launches apart
-    (device time, torch.profiler; on the committed model's path only)
-    beside the whole call and its bound. ``path`` names the model's path in
-    the rows; kernel A is timed on the committed model's path and, with
-    ``time_a``, on ``path``."""
+    """(a) kernel C at every block shape, bit for bit, and kernel A at its
+    3, batch 256, then the timings: each block's launches apart (device
+    time, CUDA events: ``port_block_launches.launch_ms``) beside the whole call, its bound and
+    each launch's own bound (``launch_bounds``), on every path. ``path`` names the
+    model's path in the rows; kernel A is timed on the committed model's
+    path and, with ``time_a``, on ``path``."""
     from inference_efficient_vision_models_tpu_torch.compress.quant.engine import quant_module
 
     main = path == "efficientnet_b0"
@@ -1369,6 +1492,7 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "eff
             fails.append(f"fused_mbconv_block {name} {tuple(x.shape)}: max abs err {err}, "
                          f"exact {exact}")
         nbytes, ops, dw = block_cost(x, packed, k, stride, residual)
+        lb_ms, lb_by = launch_bounds(x, packed, k, stride, residual)
         rows.append({
             "path": path, "kernel": "fused_mbconv_block", "call": name,
             "x": list(x.shape), "ce": packed["wdw"].shape[-1], "n": packed["wp"].n,
@@ -1378,12 +1502,23 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "eff
             "bytes": nbytes, "ops": ops, "dw_macs": dw,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / INT8_OPS_PER_S * 1e3,
             "dw_ms": dw / FP32_FMA_PER_S * 1e3, "library_ms": None,
-            **({"launch_ms": launch_ms(lambda: fused_mbconv_block(x, packed, **kw))}
-               if main else {}),
+            "launch_ms": launch_ms(x, packed, k, stride, act, kw["x_res"]),
+            "launch_bound_ms": lb_ms, "launch_bound_by": lb_by,
         })
         emit({"phase": "eff_a_main_shape", **rows[-1]})
         del x
     mine = [r for r in rows if r["kernel"] == "fused_mbconv_block"]
+    emit({"phase": "eff_c_launches", "path": path, "batch": BATCH,
+          "blocks": [{"block": r["call"], **r["launch_ms"], "ms": r["ms"],
+                      "bound_ms": max(r["bytes_ms"], r["ops_ms"], r["dw_ms"]),
+                      "launch_bound_ms": r["launch_bound_ms"],
+                      "launch_bound_by": r["launch_bound_by"]} for r in mine],
+          "total": {k: sum(r["launch_ms"][k] for r in mine) for k in LAUNCHES},
+          "launch_bound_ms": {k: sum(r["launch_bound_ms"][k] for r in mine) for k in LAUNCHES},
+          # the blocks whose launch bound each term decides
+          "launch_bound_by": {k: {by: sum(r["launch_bound_by"][k] == by for r in mine)
+                                  for by in ("bytes", "operations")} for k in LAUNCHES},
+          "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"], r["dw_ms"]) for r in mine)})
     if not main:
         emit({"phase": "eff_c_blocks", "path": path, "batch": BATCH, "calls": len(mine),
               "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
@@ -1394,11 +1529,6 @@ def eff_check_and_time_main_shapes(model, gen: torch.Generator, path: str = "eff
             rows.append(row)
             fails += f
         return rows, fails
-    emit({"phase": "eff_c_launches", "batch": BATCH,
-          "blocks": [{"block": r["call"], **r["launch_ms"], "ms": r["ms"],
-                      "bound_ms": max(r["bytes_ms"], r["ops_ms"], r["dw_ms"])} for r in mine],
-          "total": {k: sum(r["launch_ms"][k] for r in mine) for k in LAUNCHES},
-          "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"], r["dw_ms"]) for r in mine)})
     for b in (BATCH, 1):
         for _, label, shape, dtype, leaf, kw in eff_kernel_a_calls(model, b):
             row, f = kernel_a_row("efficientnet_b0", label,

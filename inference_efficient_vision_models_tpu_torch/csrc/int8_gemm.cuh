@@ -1,7 +1,7 @@
 // Shared core of the int8 kernels: the scalar affine-int8 epilogue of the
 // JAX package's Pallas kernels (affine_y, act_t, requant_u8; every int8
-// kernel takes it) and, for the fused MBConv block's project launch, a
-// shared-memory tiled int8 GEMM on mma.sync m16n8k32 (int8 x int8 -> int32):
+// kernel takes it) and the mma.sync m16n8k32 step (int8 x int8 -> int32)
+// of the kernels that multiply from registers:
 //
 //   acc  = X_s . W_q                      (int32, exact)
 //   acc -= zp_s * sum_k W_q[k, n]         (affine-input correction)
@@ -13,13 +13,6 @@
 // epilogue uses __fmul_rn/__fadd_rn so nvcc cannot contract it into an FMA;
 // the plain PyTorch versions then agree with the kernels bit for bit on the
 // integer paths. Build without --use_fast_math.
-//
-// Tiling of gemm_tile: a block computes a BM x BN output tile with 8 warps (4
-// along M, 2 along N, 32 x 32 each), stepping K in BK-byte slices through
-// shared memory; the next slice is loaded into registers while the current
-// one is multiplied. The A operand comes through the caller's loader, B from
-// weights packed once at load time as (Np, Kp) int8, K contiguous per output
-// column, zero-padded to the tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,12 +21,7 @@
 
 namespace ievm {
 
-constexpr int BM = 128;
-constexpr int BN = 64;   // must match ops/_lib.py TILE_N
-constexpr int BK = 64;   // must match ops/_lib.py TILE_K
-constexpr int SROW = BK + 16;  // 80-byte smem rows: the 32 lanes of a fragment load hit 32 banks
-constexpr int THREADS = 256;
-constexpr int A_WORDS = BM * BK / 4 / THREADS;  // 8 four-byte A words per thread per slice
+constexpr int BM = 128;  // rows of a panel_gemm.cuh slice
 
 enum OutKind { OUT_I8 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_GELU_TANH = 3 };
@@ -179,83 +167,6 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, ui
 // and beyond that it stays past the clip on the same side. zpm = M - zp.
 __device__ __forceinline__ uint32_t requant_u8(float y, float inv, float zpm) {
   return clip_u8(__fsub_rn(__fadd_rn(__fmul_rn(y, inv), RINT_MAGIC), zpm));
-}
-
-// Thread t loads A words (row (t >> 4) + 16 j, bytes 4 (t & 15) .. +3) of each
-// BM x BK slice; loaders fill `r[j]` for slice `kt`, zero outside the matrix.
-// gemm_tile computes the BM x BN output tile at (bm, bn) and hands every
-// in-range int32 sum to `st(m, n, acc)`; it may be called several times in one
-// block (the shared tiles are reused after its final barrier).
-template <class ALoader, class Store>
-__device__ __forceinline__ void gemm_tile(ALoader& al, const int8_t* __restrict__ wt, int Kp, int M,
-                                          int N, int bm, int bn, const Store& st) {
-  __shared__ __align__(16) int8_t As[BM * SROW];
-  __shared__ __align__(16) int8_t Bs[BN * SROW];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int gid = lane >> 2, tig = lane & 3;
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  const int8_t* wrow = wt + (size_t)(bn + (tid >> 2)) * Kp + (tid & 3) * 16;
-  uint32_t areg[A_WORDS];
-  uint4 breg;
-  const int nk = Kp / BK;
-  al.load(0, areg);
-  breg = *reinterpret_cast<const uint4*>(wrow);
-
-  for (int kt = 0; kt < nk; ++kt) {
-#pragma unroll
-    for (int j = 0; j < A_WORDS; ++j)
-      *reinterpret_cast<uint32_t*>(&As[((tid >> 4) + 16 * j) * SROW + (tid & 15) * 4]) = areg[j];
-    *reinterpret_cast<uint4*>(&Bs[(tid >> 2) * SROW + (tid & 3) * 16]) = breg;
-    __syncthreads();
-    if (kt + 1 < nk) {
-      al.load(kt + 1, areg);
-      breg = *reinterpret_cast<const uint4*>(wrow + (size_t)(kt + 1) * BK);
-    }
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r0 = wm * 32 + mt * 16 + gid;
-        const int c0 = ks + tig * 4;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r0 * SROW + c0]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&As[(r0 + 8) * SROW + c0]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r0 * SROW + c0 + 16]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&As[(r0 + 8) * SROW + c0 + 16]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + gid;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[c * SROW + ks + tig * 4]);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[c * SROW + ks + 16 + tig * 4]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = bm + wm * 32 + mt * 16 + gid + (r >= 2 ? 8 : 0);
-        const int n = bn + wn * 32 + nt * 8 + tig * 2 + (r & 1);
-        if (m < M && n < N) st(m, n, acc[mt][nt][r]);
-      }
 }
 
 }  // namespace ievm

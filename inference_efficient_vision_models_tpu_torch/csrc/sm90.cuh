@@ -263,7 +263,127 @@ struct WgmmaS8<256> {
   }
 };
 
+// More of the widths the s8 wgmma takes, for kernel C's project launch, whose
+// N tile is Co rounded up to one of 16, 24, 32, 48, 64, 80, 96, 112, 128 or 160.
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : IEVM_D8(0)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<24> {
+  static __device__ __forceinline__ void mma(int (&d)[12], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p;\n}\n"
+        : IEVM_D8(0), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : IEVM_D8(0), IEVM_D8(8)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<48> {
+  static __device__ __forceinline__ void mma(int (&d)[24], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p;\n}\n"
+        : IEVM_D8(0), IEVM_D8(8), IEVM_D8(16)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<80> {
+  static __device__ __forceinline__ void mma(int (&d)[40], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p;\n}\n"
+        : IEVM_D8(0), IEVM_D8(8), IEVM_D8(16), IEVM_D8(24), IEVM_D8(32)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<96> {
+  static __device__ __forceinline__ void mma(int (&d)[48], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p;\n}\n"
+        : IEVM_D8(0), IEVM_D8(8), IEVM_D8(16), IEVM_D8(24), IEVM_D8(32), IEVM_D8(40)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<112> {
+  static __device__ __forceinline__ void mma(int (&d)[56], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, %56, %57, p;\n}\n"
+        : IEVM_D8(0), IEVM_D8(8), IEVM_D8(16), IEVM_D8(24), IEVM_D8(32), IEVM_D8(40), IEVM_D8(48)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<160> {
+  static __device__ __forceinline__ void mma(int (&d)[80], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p;\n}\n"
+        : IEVM_D8(0), IEVM_D8(8), IEVM_D8(16), IEVM_D8(24), IEVM_D8(32), IEVM_D8(40), IEVM_D8(48),
+          IEVM_D8(56), IEVM_D8(64), IEVM_D8(72)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
 #undef IEVM_D8
+
 
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {

@@ -38,8 +38,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# Tile sizes the packed weight layout must pad to (csrc/int8_gemm.cuh BN, BK, for
-# kernel C's project launch; the TMA loads of kernels A and B need only Kp % 16 == 0).
+# Tile sizes the packed weight layout pads to (ops/int8_matmul.py:pack_weight).
+# The kernels need only Kp % 16 == 0 (kernel A's and B's TMA loads, kernel C's
+# 16-byte copies) and, in kernel C's launches, Kp >= K rounded up to 32.
 TILE_N = 64
 TILE_K = 64
 
@@ -69,9 +70,9 @@ KERNELS = {
     "fused_mbconv_block": ("fused_mbconv", {
         "ievm_fused_mbconv_expand_dw":
             [_P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 13 + [_F] * 4 + [_P],
-        "ievm_fused_mbconv_se_gate": [_P] * 6 + [_I, _I, _I, _D, _P],
+        "ievm_fused_mbconv_se_gate": [_P] * 6 + [_I, _I, _I, _D, _I, _P],
         "ievm_fused_mbconv_project":
-            [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] * 8 + [_P],
+            [_P, _P, _P, _I, _I, _P, _P, _P] + [_I] * 4 + [_F] * 8 + [_I] * 6 + [_P],
     }),
     "dwconv_int8": ("dwconv_int8", {
         "ievm_dwconv_int8": [_P] * 5 + [_I] * 8 + [_F, _D, _F] + [_I] * 6 + [_P],

@@ -17,7 +17,9 @@ around a per-image SE gate). Same contract, on shifted-quint8 int8 NHWC:
 
 ``fused_mbconv_block`` launches the kernels for a CUDA tensor (three
 launches with SE, two without) and runs ``fused_mbconv_block_plain`` for a
-CPU tensor only; ``expand_dw_plan`` chooses the first launch's tiles. The
+CPU tensor only; ``expand_dw_plan`` chooses the first launch's tiles,
+``se_gate_group`` the images per block of the second, ``project_plan`` the
+third's. The
 SE gate is taken in float64 from the exact integer sum of ``yq - d_zp`` and
 rounded to fp32 once, on both sides, so kernel and plain version agree bit
 for bit whatever order each sums in; the JAX kernel takes it in fp32 from an
@@ -27,6 +29,7 @@ fp32 mean, which differs from both by ulps of ``g``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -34,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
-from .int8_matmul import PackedInt8Weight, pack_weight
+from .int8_matmul import NUM_SMS, PackedInt8Weight, pack_weight
 
 # the scalar row of the packed block (the Pallas kernel's SMEM row layout)
 ZP_S_IN = 0      # input zero point - 128 (shifted)
@@ -241,6 +244,157 @@ def expand_dw_plan(h: int, w: int, cin: int, ce: int, kernel: int, stride: int,
                         expand_dw_smem(rh * rw, ct, kc, kernel, expand))
 
 
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+# the SE gate's images per block and shared memory (csrc/fused_mbconv.cu SeLayout)
+SE_THREADS = 512
+SE_MAX_SQUEEZE = 256  # Se: FC1 gives each column a thread per row group
+SE_GROUPS = (1, 2, 4, 8)
+SE_STAGES = 4         # chunks of the SE weights in the ring
+SE_CHUNK = 8192       # floats a chunk takes at most, unless one row is longer
+
+
+def se_gate_smem(group: int, ce: int, se: int) -> int:
+    """Dynamic shared memory of one SE-gate block (``SeLayout``): the pooled
+    means and FC2's sums (group x Ce doubles each), FC1's partial sums by row
+    group (512 // Se groups x group x Se doubles) and its activations (group
+    x Se doubles), then, on a 16-byte boundary, a ring of SE_STAGES weight
+    chunks (FC1: a multiple of 4 rows of Se floats, FC2: rows of Ce floats,
+    about SE_CHUNK floats)."""
+    rows1 = SE_CHUNK // se // 4 * 4 if SE_CHUNK // se >= 8 else 4
+    rows2 = max(1, SE_CHUNK // ce)
+    stage = -(-max(rows1 * se, rows2 * ce) // 4) * 4
+    head = (2 * group * ce + (SE_THREADS // se) * group * se + group * se) * 8
+    return _round16(head) + SE_STAGES * stage * 4
+
+
+def se_gate_group(n: int, ce: int, se: int) -> int:
+    """Images per SE-gate block: the fewest that keep the blocks within one
+    wave of the SMs (each block reads both SE weights once), at most 8, and
+    fewer where their sums would not fit in shared memory."""
+    fits = [g for g in SE_GROUPS if se_gate_smem(g, ce, se) <= DW_SMEM_LIMIT] or [1]
+    return next((g for g in fits if -(-n // g) <= NUM_SMS), fits[-1])
+
+
+# the project launch's tile plan (csrc/fused_mbconv.cu checks it and lays out
+# its shared memory by the same formula as project_smem)
+PJ_KS = 128          # K bytes per chunk: one 128-byte-swizzled row
+PJ_BM = 64           # rows a panel: one warpgroup's wgmma M
+PJ_THREADS = 256     # at most two warpgroups a block, along N
+PJ_NARROW = 48       # tiles up to this wide are built for 1024 threads an SM (64 registers)
+PJ_SM_SMEM = 233_472  # an SM's shared memory (228 KB), 1 KB of it reserved per block
+PJ_TNS = (16, 24, 32, 48, 64, 80, 96, 112, 128, 160)  # s8 wgmma widths the served Co need
+
+
+def project_smem(nb: int, nch: int, stages: int, resident: bool, gi: int, co: int,
+                 se: bool, residual: bool) -> int:
+    """Dynamic shared memory of one project block (``ProjLayout``): the A
+    ring (stages x 64 rows of 128 bytes), the weights (nch resident chunks or
+    a ring of stages, nb rows of 128 bytes), the gate ring (stages x gi
+    images x 128 fp32), the residual ring (stages x 64 x Co bytes), the
+    staged output rows (64 x nb), vp (2 x nb fp32), the byte table and the
+    1024-byte alignment."""
+    return (stages * PJ_BM * PJ_KS + (nch if resident else stages) * nb * PJ_KS
+            + (stages * gi * PJ_KS * 4 if se else 0)
+            + (stages * _round16(PJ_BM * co) if residual else 0)
+            + _round16(PJ_BM * nb) + 8 * nb + 256 + 1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectPlan:
+    """Tiles of the project launch. A warpgroup multiplies a panel of 64 rows
+    by ``tn`` columns; a block has ``wg_n`` of them, so it owns ``nb`` =
+    wg_n tn columns, Co split over ``nsplit`` blocks along y. ``grid``
+    persistent blocks along x walk the ``panels`` chunk by chunk (``nch``
+    chunks of 128 bytes of K, K padded to ``kc``, a multiple of 32) through
+    a ring of ``stages`` units; the weights stay ``resident`` or stream
+    through the ring. ``gi``: the images a panel spans, at most."""
+
+    tn: int
+    wg_n: int
+    nsplit: int
+    stages: int
+    resident: bool
+    grid: int
+    nb: int
+    kc: int
+    nch: int
+    gi: int
+    panels: int
+    threads: int
+    blocks_per_sm: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def project_plan(m: int, hwo: int, ce: int, co: int, se: bool, residual: bool) -> ProjectPlan:
+    """The project launch's tiles for (M, Ce) -> (M, Co), M = N * HWo:
+
+    - warpgroups along N: one per 160 columns of Co (two at Co 192 and 320),
+      Co split across blocks past 320, and in two where the 64-row panels
+      do not fill the SMs (small M) and the second block would get columns;
+    - ``tn``: the narrowest of ``PJ_TNS`` that covers the block's share;
+    - blocks per SM: as many as the kernel's registers allow
+      (``project_max_blocks``) and shared memory holds with two stages, the
+      weights resident where they take at most half of a block's share and
+      then fit, else streamed; the ring and the grid by ``project_fit``.
+
+    Every plan at B0's and MobileNetV2's blocks on the H100
+    (``port_block_launches.py --sweep``, PERF.md): the blocks per SM move a
+    block's time up to 3.4x, streamed weights are 3-18% slower than
+    resident ones at every count, and this choice sums within 1.1% of the
+    fastest plan of each block. 128- and 256-row panels as well moved the
+    sums by under 2% (in turns against a tree that chose them)."""
+    if m <= 0 or hwo <= 0 or m % hwo or ce <= 0 or co <= 0:
+        raise ValueError(f"no project plan for M {m}, HWo {hwo}, Ce {ce}, Co {co}")
+    kc, nch = -(-ce // 32) * 32, -(-ce // PJ_KS)
+    wg_n = -(-co // PJ_TNS[-1])
+    nsplit = 1
+    if wg_n > 2:
+        wg_n, nsplit = 2, -(-wg_n // 2)
+    if nsplit == 1 and -(-m // PJ_BM) < NUM_SMS and co > wg_n * PJ_TNS[0]:
+        nsplit = 2
+    tn = next((t for t in PJ_TNS if t * wg_n * nsplit >= co), None)
+    if tn is None or (nsplit - 1) * wg_n * tn >= co:
+        raise ValueError(f"no project plan for Co {co}")
+    base = ProjectPlan(tn, wg_n, nsplit, 0, False, 0, wg_n * tn, kc, nch,
+                       min(m // hwo, (PJ_BM - 1) // hwo + 2), -(-m // PJ_BM), 128 * wg_n, 0, 0)
+    for bps in range(project_max_blocks(base), 0, -1):
+        budget = min(DW_SMEM_LIMIT, PJ_SM_SMEM // bps - 1024)
+        for resident in (True, False) if nch * base.nb * PJ_KS <= budget // 2 else (False,):
+            p = project_fit(base, bps, resident, co, se, residual)
+            if p is not None:
+                return p
+    raise ValueError(f"no project plan fits shared memory: M {m}, HWo {hwo}, Ce {ce}, Co {co}")
+
+
+def project_max_blocks(p: ProjectPlan) -> int:
+    """Blocks of plan ``p`` an SM's registers hold at once: the kernel is
+    built for 1024 threads of 64 registers where ``tn`` <= 48, else 512 of
+    128."""
+    return (1024 if p.tn <= PJ_NARROW else 512) // p.threads
+
+
+def project_fit(p: ProjectPlan, bps: int, resident: bool, co: int, se: bool,
+                residual: bool) -> Optional[ProjectPlan]:
+    """Plan ``p`` at ``bps`` blocks per SM with the weights ``resident`` or
+    streamed: the ring as deep as a block's share of shared memory holds (up
+    to 6 units with one chunk of K, 4 with two, 3 past; at least 2), and as
+    many persistent blocks as fit at once, at most the panels; None where
+    two stages do not fit."""
+    budget = min(DW_SMEM_LIMIT, PJ_SM_SMEM // bps - 1024)
+    smax = 6 if p.nch == 1 else 4 if p.nch == 2 else 3
+    for st in range(smax, 1, -1):
+        smem = project_smem(p.nb, p.nch, st, resident, p.gi, co, se, residual)
+        if smem <= budget:
+            return dataclasses.replace(p, stages=st, resident=resident, blocks_per_sm=bps,
+                                       grid=min(p.panels, max(1, NUM_SMS * bps // p.nsplit)),
+                                       smem=smem)
+    return None
+
+
 def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
     if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device
             or not t.is_contiguous()):
@@ -337,9 +491,13 @@ def _se_gate_cuda(pool, srw, srb, sew, seb, pool_scale):
     g = torch.empty((n, ce), dtype=torch.float32, device=dev)
     if g.numel() == 0:
         return g
+    group = se_gate_group(n, ce, se)
+    if se > SE_MAX_SQUEEZE or se_gate_smem(group, ce, se) > DW_SMEM_LIMIT:
+        raise ValueError(f"the SE gate kernel takes Se <= {SE_MAX_SQUEEZE} and its sums within "
+                         f"{DW_SMEM_LIMIT} bytes, got Ce {ce}, Se {se}")
     rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_se_gate")(
         pool.data_ptr(), srw.data_ptr(), srb.data_ptr(), sew.data_ptr(), seb.data_ptr(),
-        g.data_ptr(), n, ce, se, pool_scale, torch.cuda.current_stream(dev).cuda_stream,
+        g.data_ptr(), n, ce, se, pool_scale, group, torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("fused_mbconv_block", rc)
     return g
@@ -347,6 +505,15 @@ def _se_gate_cuda(pool, srw, srb, sew, seb, pool_scale):
 
 def _project_fake(yq, g, wp_wt, wp_shape, vp, x_res, sc):
     return yq.new_empty((*yq.shape[:3], wp_shape[-1]))
+
+
+def check_project_zero_points(sc, gated: bool) -> None:
+    """The project kernel requantizes in the integer domain (``requant_zi``):
+    o_zp, and with SE d_zp and q_zp, must be integers in [0, 255]."""
+    zps = (O_ZP, D_ZP, Q_ZP) if gated else (O_ZP,)
+    if not all(float(sc[i]).is_integer() and 0 <= sc[i] <= 255 for i in zps):
+        raise ValueError(f"the project launch needs integer zero points in [0, 255] (o_zp, and "
+                         f"d_zp and q_zp with SE), got {[sc[i] for i in zps]}")
 
 
 def _project_cuda(yq, g, wp_wt, wp_shape, vp, x_res, sc):
@@ -369,15 +536,20 @@ def _project_cuda(yq, g, wp_wt, wp_shape, vp, x_res, sc):
         raise ValueError(f"x_res must be a contiguous {(n, ho, wo, co)} int8 tensor on {dev}")
     if n * ho * wo * max(ce, co) >= 2**31:
         raise ValueError("the block's tensors exceed the kernels' int32 indexing")
+    if wp.wt.data_ptr() % 16 or not wp.wt.is_contiguous():
+        raise ValueError("wp must be a contiguous packed weight on a 16-byte boundary")
+    check_project_zero_points(sc, g is not None)
     out = torch.empty((n, ho, wo, co), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
+    p = project_plan(n * ho * wo, ho * wo, ce, co, g is not None, x_res is not None)
     rc = _lib.kernel_fn("fused_mbconv_block", "ievm_fused_mbconv_project")(
-        yq.data_ptr(), None if g is None else g.data_ptr(), wp.wt.data_ptr(), wp.wt.shape[1],
-        vp.data_ptr(), None if x_res is None else x_res.data_ptr(),
+        yq.data_ptr(), None if g is None else g.data_ptr(), wp.wt.data_ptr(), wp.wt.shape[0],
+        wp.wt.shape[1], vp.data_ptr(), None if x_res is None else x_res.data_ptr(),
         out.data_ptr(), n * ho * wo, ho * wo, ce, co,
         sc[D_ZP], sc[D_SCALE], sc[INV_Q], sc[Q_ZP], sc[RES_SCALE], sc[RES_ZP_S],
-        sc[INV_O], sc[O_ZP], torch.cuda.current_stream(dev).cuda_stream,
+        sc[INV_O], sc[O_ZP], p.tn, p.wg_n, p.nsplit, p.stages, int(p.resident), p.grid,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _lib.check("fused_mbconv_block", rc)
     return out

@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
-"""Device time of kernel C's three launches at every EfficientNet-B0 block,
-or (``--resnet``) of kernel B's calls and the whole ResNet18 forward by kernel,
+"""Device time of kernel C's three launches at every EfficientNet-B0 block
+(``--mbv2``: MobileNetV2's 17), or (``--resnet``) of kernel B's calls and the whole ResNet18 forward by kernel,
 or (``--dwconv``) of kernel E's calls, or (``--gconv``) of kernel F's, or
 (``--forward``) the ResNet18 INT8 forward as its caller sees it.
 
 Run from the repository root: ``python3 port_block_launches.py [--root DIR]
-[--resnet | --dwconv [--ablate] | --gconv [--ablate]]``. It serves nothing. By default it loads the committed
+[[--mbv2] [--ablate] [--sweep] | --resnet | --dwconv [--ablate] | --gconv [--ablate] [--sweep]]``.
+It serves nothing. By default it loads the committed
 static-INT8 EfficientNet-B0 (``testdata/effnet_b0_int8``) on the GPU, feeds
 each fused MBConv block int8 activations at batch 256 spread around the
-block's input zero point (from a seed), and times ``fused_mbconv_block`` per
-launch (expand + depthwise, SE gate, project) as device time by
-``torch.profiler``. With ``--resnet`` it loads the committed pruned ResNet18
+block's input zero point (from a seed), and times each of its launches
+(expand + depthwise, SE gate, project) alone on the block's own
+intermediates: CUDA events, the device alone (``launch_ms``, which
+``chip_smoke.py`` uses for its per-block rows too). With ``--mbv2`` it does
+the same at MobileNetV2's 17
+block shapes (``MBV2_BLOCKS``: ReLU6, no SE), on blocks of seeded random
+weights (``chip_smoke.random_block``). ``--ablate`` adds, for either net,
+the project launch (launch 3) on copies of this checkout's kernel C with a
+part taken out (``C_ABLATIONS``: the transform, the MMA, the epilogue, the
+output stores or the copies in), and for B0 the SE-gate
+launch (launch 2) on copies without its FC1 or FC2 multiply-adds, its
+weight copies or its sigmoid (``SE_ABLATIONS``); ``--sweep`` adds the
+project launch under every tile plan (``c_sweep``). With ``--resnet`` it loads the committed pruned ResNet18
 (``artifacts/bench/quantization/r2/fold_0``), times every
 ``conv3x3_s1_int8`` call of a batch-256 forward as that checkout's
 ``chip_smoke.py`` makes it (CUDA events, the device alone), and profiles
@@ -35,11 +46,9 @@ forward (``load_static_int8``, device-resident uint8 images from a seed) at
 batch 1 and at ``--batch``: CUDA events around each call, host launch
 overhead included, median of 25 after 3 warm-up calls (``chip_smoke.time_ms``).
 ``--root`` takes the port
-package (and, with ``--resnet`` or ``--dwconv``, its ``chip_smoke.py``)
-from another checkout (for example the parent commit
-unpacked with ``git archive``), so two versions can be timed in one run on
-one card. Prints one JSON object. ``chip_smoke.py`` uses ``launch_ms`` for
-its own per-block rows.
+package and its ``chip_smoke.py`` from another checkout (for example the
+parent commit unpacked with ``git archive``), so two versions can be timed
+in one run on one card. Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -52,24 +61,38 @@ import sys
 LAUNCHES = ("expand_dw", "se_gate", "project")
 
 
-def launch_ms(call, runs: int = 10) -> dict:
-    """Device ms per call of each of kernel C's launches (by kernel name),
-    averaged over ``runs`` calls after one warm-up call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def launch_args(x, packed, kernel: int, stride: int, act: str, x_res):
+    """The arguments of kernel C's three launch ops at one block call, on the
+    block's own intermediates (launch 1's yq and pool sums, launch 2's gate):
+    (expand_dw, se_gate or None, project)."""
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv as fm
 
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            call()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(LAUNCHES, 0.0)
-    for e in prof.key_averages():
-        for k in LAUNCHES:
-            if f"{k}_kernel" in e.key:
-                out[k] += e.self_device_time_total / 1e3 / runs
-    return out
+    sc, we, se = list(packed["scal"]), packed.get("we"), "srw" in packed
+    a1 = (x, we.wt if we else None, list(we.shape) if we else [], packed.get("ve"),
+          packed["wdw"], packed["vdw"], sc, kernel, stride, act, se)
+    yq, pool = fm._expand_dw_cuda(*a1)
+    a2 = g = None
+    if se:
+        a2 = (pool, packed["srw"], packed["srb"], packed["sew"], packed["seb"],
+              sc[fm.D_SCALE] / (yq.shape[1] * yq.shape[2]))
+        g = fm._se_gate_cuda(*a2)
+    wp = packed["wp"]
+    return a1, a2, (yq, g, wp.wt, list(wp.shape), packed["vp"], x_res, sc)
+
+
+def launch_ms(x, packed, kernel: int, stride: int, act: str, x_res) -> dict:
+    """Device ms of each of kernel C's launches at one block call, apart:
+    each launch's op called alone on the block's own intermediates
+    (``launch_args``), CUDA events around each call with the device alone
+    (``chip_smoke.time_ms(spin=True)``, median of 25). ``chip_smoke.py``
+    times its per-block rows with it too."""
+    import chip_smoke as cs
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv as fm
+
+    a1, a2, a3 = launch_args(x, packed, kernel, stride, act, x_res)
+    return {"expand_dw": cs.time_ms(lambda: fm._expand_dw_cuda(*a1), spin=True),
+            "se_gate": cs.time_ms(lambda: fm._se_gate_cuda(*a2), spin=True) if a2 else 0.0,
+            "project": cs.time_ms(lambda: fm._project_cuda(*a3), spin=True)}
 
 
 def kernels_by_name(fn, iters: int = 3) -> dict:
@@ -355,6 +378,161 @@ def forward(root: str, batch: int) -> dict:
     return out
 
 
+# Kernel C's project launch with one part taken out (a text edit of
+# csrc/fused_mbconv.cu; the outputs are then wrong): --ablate times each.
+C_ABLATIONS = {
+    "no_transform": ("    pj_transform(a, PieceMap(", "    if (a.M < 0) pj_transform(a, PieceMap("),
+    "no_mma": ("      if (ck * PJ_KS + PJ_KS <= a.kc) {  // a whole chunk",
+               "      if (a.M > 0) {\n      } else if (ck * PJ_KS + PJ_KS <= a.kc) {  // a whole chunk"),
+    "no_epilogue": ("      if (has_cols) pj_epilogue<TN>(", "      if (has_cols && a.M < 0) pj_epilogue<TN>("),
+    "no_stores": ("  if (ncb == a.Co && a.flat16) {", "  if (a.M > 0) return;\n  if (ncb == a.Co && a.flat16) {"),
+    "no_copies": ("    if (in_u < units) {", "    if (in_u < units && a.M < 0) {"),
+}
+# Kernel C's SE-gate launch with one part taken out: the float64 multiply-adds
+# of FC1 or FC2, the weight copies, or the final exp and reciprocal.
+SE_ABLATIONS = {
+    "no_fc1_math": ("for (int im = 0; im < G; ++im) acc[im] += pooled[im * Ce + c0 + cl] * wv;",
+                    "acc[0] += wv;"),
+    "no_fc2_math": ("for (int im = 0; im < G; ++im) sum[im] += r[im * Se + j0 + jl] * wv;",
+                    "sum[0] += wv;"),
+    "no_weight_copies": ("    const int nf = rows_of(k) * len;",
+                         "    if (nrows > 0) return;\n    const int nf = rows_of(k) * len;"),
+    "no_sigmoid": ("(float)(1.0 / (1.0 + exp(-(acc2[im * Ce + c] + b))));",
+                   "(float)(acc2[im * Ce + c] + b);"),
+}
+# MobileNetV2 (width 1.0) at 224 x 224: (block, input side, Cin, Ce, Co, k,
+# stride, residual); no SE, ReLU6
+MBV2_BLOCKS = [
+    ("s0b0", 112, 32, 32, 16, 3, 1, False), ("s1b0", 112, 16, 96, 24, 3, 2, False),
+    ("s1b1", 56, 24, 144, 24, 3, 1, True), ("s2b0", 56, 24, 144, 32, 3, 2, False),
+    ("s2b1", 28, 32, 192, 32, 3, 1, True), ("s2b2", 28, 32, 192, 32, 3, 1, True),
+    ("s3b0", 28, 32, 192, 64, 3, 2, False), ("s3b1", 14, 64, 384, 64, 3, 1, True),
+    ("s3b2", 14, 64, 384, 64, 3, 1, True), ("s3b3", 14, 64, 384, 64, 3, 1, True),
+    ("s4b0", 14, 64, 384, 96, 3, 1, False), ("s4b1", 14, 96, 576, 96, 3, 1, True),
+    ("s4b2", 14, 96, 576, 96, 3, 1, True), ("s5b0", 14, 96, 576, 160, 3, 2, False),
+    ("s5b1", 7, 160, 960, 160, 3, 1, True), ("s5b2", 7, 160, 960, 160, 3, 1, True),
+    ("s6b0", 7, 160, 960, 320, 3, 1, False),
+]
+
+
+def c_blocks(root: str, batch: int, mbv2: bool):
+    """(name, x, packed, kwargs) of every fused block of the net at batch
+    ``batch``: the committed B0's blocks, or MobileNetV2's on seeded random
+    blocks, int8 inputs spread around each block's input zero point."""
+    import numpy as np
+    import torch
+
+    from inference_efficient_vision_models_tpu_torch.ops import to_device_packed
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def x_of(h, cin, zp):
+        return (torch.randn((batch, h, h, cin), generator=gen, device="cuda") * 30
+                + (zp - 118)).round().clamp(-128, 127).to(torch.int8)
+
+    out = []
+    if mbv2:
+        import chip_smoke as cs
+
+        rng = np.random.default_rng(0)
+        for name, h, cin, ce, co, k, stride, residual in MBV2_BLOCKS:
+            p_np, zp = cs.random_block(rng, cin=cin, ce=ce, co=co, se=0, k=k, expand=ce != cin)
+            x = x_of(h, cin, zp)
+            out.append((name, x, to_device_packed(p_np, "cuda"),
+                        dict(kernel=k, stride=stride, act="relu6", x_res=x if residual else None)))
+        return out
+    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
+        block_plan,
+        load_static_int8_fused,
+    )
+
+    model = load_static_int8_fused(os.path.join(root, "inference_efficient_vision_models_tpu_torch",
+                                                "testdata", "effnet_b0_int8"), device="cuda")
+    h = model.q["stem"]["e"].shape[1]
+    for name, k, stride, residual in block_plan(model.spec):
+        packed = model.qf[name]
+        cin = packed["we"].k if "we" in packed else packed["wdw"].shape[-1]
+        x = x_of(h, cin, int(packed["scal"][0]) + 128)
+        out.append((name, x, packed, dict(kernel=k, stride=stride, act="silu",
+                                          x_res=x if residual else None)))
+        h = (h - 1) // stride + 1
+    return out
+
+
+def c_launches(root: str, batch: int, mbv2: bool, ablate: bool, sweep: bool) -> dict:
+    """Kernel C's launches apart at every block of the net (``c_blocks``,
+    ``launch_ms``); with ``ablate``, the project launch on each copy of
+    ``C_ABLATIONS`` and (B0) the SE gate on each of ``SE_ABLATIONS``; with
+    ``sweep``, the project launch under every plan (``c_sweep``)."""
+    from inference_efficient_vision_models_tpu_torch.ops import _lib
+
+    blocks = c_blocks(root, batch, mbv2)
+
+    def timed():
+        per = {name: launch_ms(x, packed, kw["kernel"], kw["stride"], kw["act"], kw["x_res"])
+               for name, x, packed, kw in blocks}
+        return {"blocks": per, "total": {k: sum(b[k] for b in per.values()) for k in LAUNCHES}}
+
+    out = timed()
+    if sweep:
+        out["sweep"] = c_sweep(blocks)
+    if ablate:
+        out["ablations"] = {}
+        for launch, edits in [("project", C_ABLATIONS)] + ([] if mbv2 else
+                                                            [("se_gate", SE_ABLATIONS)]):
+            sym = f"ievm_fused_mbconv_{launch}"
+            kernel = _lib.kernel_fn("fused_mbconv_block", sym)
+            for name, fn in ablated_kernels("fused_mbconv", sym, "fused_mbconv_block",
+                                            edits).items():
+                _lib._fns[sym] = fn
+                t = timed()
+                out["ablations"][name] = {f"{launch}_ms": t["total"][launch],
+                                          "ms": {b: v[launch] for b, v in t["blocks"].items()}}
+            _lib._fns[sym] = kernel
+    return out
+
+
+def c_sweep(blocks) -> dict:
+    """The project launch at each block under every plan the kernel takes
+    for its (M, Ce, Co): each count of blocks per SM its registers allow,
+    the weights resident (where they fit) or streamed, the ring as deep as
+    fits (``fused_mbconv.project_fit``); each held equal to the plain
+    version, the plan ``project_plan`` chooses marked. -> {block: {"chosen":
+    ms, "best": ms, "plans": [[bps, resident, stages, ms], ...]}}."""
+    import chip_smoke as cs
+    import torch
+
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv as fm
+
+    chosen_fn, res = fm.project_plan, {}
+    for name, x, packed, kw in blocks:
+        _, _, a3 = launch_args(x, packed, kw["kernel"], kw["stride"], kw["act"], kw["x_res"])
+        yq, g, co = a3[0], a3[1], packed["wp"].n
+        n, ho, wo, ce = yq.shape
+        shape = (n * ho * wo, ho * wo, ce, co, g is not None, kw["x_res"] is not None)
+        chosen, ref = chosen_fn(*shape), fm._project_plain(*a3)
+        plans = []
+        for bps in range(fm.project_max_blocks(chosen), 0, -1):
+            for resident in (True, False):
+                p = fm.project_fit(chosen, bps, resident, co, *shape[4:])
+                if p is None:
+                    continue
+                fm.project_plan = lambda *a_, p=p: p
+                try:
+                    if not torch.equal(fm._project_cuda(*a3), ref):
+                        raise RuntimeError(f"project launch at {name} under {p} differs")
+                    plans.append([bps, resident, p.stages,
+                                  cs.time_ms(lambda: fm._project_cuda(*a3), spin=True),
+                                  p == chosen])
+                finally:
+                    fm.project_plan = chosen_fn
+        res[name] = {"chosen": next(t for *_, t, c in plans if c),
+                     "best": min(t for *_, t, _ in plans),
+                     "plans": [pl[:4] for pl in plans]}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
@@ -367,16 +545,19 @@ def main() -> int:
     mode.add_argument("--gconv", action="store_true", help="kernel F's calls")
     mode.add_argument("--forward", action="store_true",
                       help="the ResNet18 INT8 forward at batch 1 and --batch")
+    mode.add_argument("--mbv2", action="store_true",
+                      help="kernel C's launches at MobileNetV2's 17 block shapes")
     ap.add_argument("--ablate", action="store_true",
-                    help="with --dwconv or --gconv: also copies of this checkout's kernel with "
-                         "a part taken out")
+                    help="kernel C (the default, or --mbv2), --dwconv or --gconv: also copies of "
+                         "the checkout's kernel with a part taken out")
     ap.add_argument("--sweep", action="store_true",
-                    help="with --gconv: also every tile plan of each call")
+                    help="kernel C (the default, or --mbv2) or --gconv: also every tile plan of "
+                         "each call")
     args = ap.parse_args()
-    if args.sweep and not args.gconv:
-        ap.error("--sweep goes with --gconv")
-    if args.ablate and not (args.dwconv or args.gconv):
-        ap.error("--ablate goes with --dwconv or --gconv")
+    if args.sweep and (args.resnet or args.dwconv or args.forward):
+        ap.error("--sweep goes with kernel C or --gconv")
+    if args.ablate and (args.resnet or args.forward):
+        ap.error("--ablate goes with kernel C, --dwconv or --gconv")
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -398,31 +579,10 @@ def main() -> int:
         print(json.dumps({"root": root, "batch": args.batch,
                           "device": torch.cuda.get_device_name(0), **res}))
         return 0
-    from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
-        block_plan,
-        load_static_int8_fused,
-    )
-    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv_block
-
-    artifact = os.path.join(os.path.abspath(args.root), "inference_efficient_vision_models_tpu_torch",
-                            "testdata", "effnet_b0_int8")
-    model = load_static_int8_fused(artifact, device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    h = model.q["stem"]["e"].shape[1]
-    blocks = {}
-    for name, k, stride, residual in block_plan(model.spec):
-        packed = model.qf[name]
-        cin = packed["we"].k if "we" in packed else packed["wdw"].shape[-1]
-        zp = int(packed["scal"][0]) + 128
-        x = (torch.randn((args.batch, h, h, cin), generator=gen, device="cuda") * 30
-             + (zp - 118)).round().clamp(-128, 127).to(torch.int8)
-        kw = dict(kernel=k, stride=stride, act="silu", x_res=x if residual else None)
-        blocks[name] = launch_ms(lambda: fused_mbconv_block(x, packed, **kw))
-        h = (h - 1) // stride + 1
-    total = {k: sum(b[k] for b in blocks.values()) for k in LAUNCHES}
-    print(json.dumps({"root": os.path.abspath(args.root), "batch": args.batch,
-                      "device": torch.cuda.get_device_name(0), "blocks": blocks, "total": total}))
+    root = os.path.abspath(args.root)
+    print(json.dumps({"root": root, "batch": args.batch, "net": "mobilenet_v2" if args.mbv2
+                      else "efficientnet_b0", "device": torch.cuda.get_device_name(0),
+                      **c_launches(root, args.batch, args.mbv2, args.ablate, args.sweep)}))
     return 0
 
 

@@ -9,7 +9,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import VIT_SEED, random_block, vit_params_from_seed
+from chip_smoke import (
+    PROJECT_EDGES,
+    PROJECT_TINY_SCALE,
+    SE_EDGES,
+    TINY_SCALE,
+    VIT_SEED,
+    project_inputs,
+    random_block,
+    vit_params_from_seed,
+)
 from inference_efficient_vision_models_tpu_torch.compress.quant import qvit
 from inference_efficient_vision_models_tpu_torch.compress.quant.fusedpath import (
     load_static_int8_fused,
@@ -358,6 +367,61 @@ def test_fused_mbconv_kernel_matches_plain(cuda, n, h, w, cin, ce, co, se, k, st
     assert got.shape == ref.shape == (n, ho, wo, co)
     assert torch.equal(got, ref)  # the depthwise sums are exact integers in any order
     assert got.float().std() > 2  # the requants land mid-range, not on a clip
+
+
+def _check_project_launch(packed, yq, g, x_res):
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv as fm
+
+    sc, wp = list(packed["scal"]), packed["wp"]
+    args = (yq, g, wp.wt, list(wp.shape), packed["vp"], x_res, sc)
+    before = _lib.launches["fused_mbconv_block"]
+    got = fm._project_cuda(*args)
+    torch.cuda.synchronize()
+    assert _lib.launches["fused_mbconv_block"] == before + 1
+    ref = fm._project_plain(*args)
+    assert torch.equal(got, ref)
+    assert got.float().std() > 2
+
+
+@pytest.mark.parametrize("n,ho,wo,ce,co,se,residual", PROJECT_EDGES)
+def test_fused_mbconv_project_launch_matches_plain(cuda, n, ho, wo, ce, co, se, residual):
+    """Kernel C's project launch alone at its edges (``chip_smoke.PROJECT_EDGES``)."""
+    rng = np.random.default_rng(n + ho + ce + co)
+    _check_project_launch(*project_inputs(rng, n, ho, wo, ce, co, se, residual))
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_fused_mbconv_project_launch_on_offset_views(cuda, offset):
+    """yq and x_res `offset` bytes into their buffers: the byte, 4- and 8-byte
+    copies of yq, and the residual rows byte by byte."""
+    rng = np.random.default_rng(offset)
+    _check_project_launch(*project_inputs(rng, 2, 14, 14, 96, 24, True, True, offset))
+
+
+@pytest.mark.parametrize("case", PROJECT_TINY_SCALE, ids=["gate", "table"])
+def test_fused_mbconv_project_launch_at_a_tiny_output_scale(cuda, case):
+    """y * inv_o through (-3 * 2^23, -1.5 * 2^23), where the integer-domain
+    requant's bits would wrap round without its raise to -2^22
+    (``chip_smoke.PROJECT_TINY_SCALE``)."""
+    rng = np.random.default_rng(sum(case[:5]))
+    _check_project_launch(*project_inputs(rng, *case, inv_o_mul=TINY_SCALE))
+
+
+@pytest.mark.parametrize("n,ce,se", SE_EDGES)
+def test_fused_mbconv_se_gate_launch_matches_plain(cuda, n, ce, se):
+    """Kernel C's SE-gate launch alone at its edges (``chip_smoke.SE_EDGES``)."""
+    from inference_efficient_vision_models_tpu_torch.ops import fused_mbconv as fm
+
+    rng = np.random.default_rng(n + ce + se)
+    p_np, _ = random_block(rng, cin=8, ce=ce, co=8, se=se, k=3, expand=True)
+    packed = to_device_packed(p_np, cuda)
+    pool = torch.from_numpy(rng.integers(-2000, 20000, (n, ce)).astype(np.int32)).to(cuda)
+    args = (pool, packed["srw"], packed["srb"], packed["sew"], packed["seb"], 0.01 / 49)
+    before = _lib.launches["fused_mbconv_block"]
+    got = fm._se_gate_cuda(*args)
+    torch.cuda.synchronize()
+    assert _lib.launches["fused_mbconv_block"] == before + 1
+    assert torch.equal(got, fm._se_gate_plain(*args))  # float64 sums rounded to fp32 once
 
 
 def test_served_effnet_kernel_path_matches_plain_path(cuda):
