@@ -13,7 +13,8 @@ Endpoints
 ---------
 ``GET  /healthz``       ``{"status": "ok"}`` once the model is warmed up.
 ``GET  /v1/metadata``   model method / class names / batching config.
-``GET  /v1/stats``      live MicroBatcher coalescing counters.
+``GET  /v1/stats``      live MicroBatcher coalescing counters, with
+                        ``queue_wait_ms_mean`` (submit to dispatch).
 ``POST /v1/predict``    images in, logits + class predictions out.
 
 Request payloads (by ``Content-Type``):

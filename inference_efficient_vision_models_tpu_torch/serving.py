@@ -14,6 +14,10 @@ every CUDA operation comes from the calling thread.
 ``MicroBatcher`` coalesces concurrent small requests into one forward per
 batch on a dispatcher thread, the only thread that runs the model: clients
 hand it numpy arrays and wait on futures.
+
+Each step opens a span (``utils.profiling.annotate``) named
+``ievm.<layer>.<step>``: ``ievm.staging.*`` and ``ievm.executor.forward``
+in ``Predictor``, ``ievm.batcher.*`` in ``MicroBatcher``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .models.vit import ViTSpec
 from .ops.space_to_depth import space_to_depth_u8
 from .parallel.mesh import DATA_AXIS, mesh_device
 from .utils.device import DeviceLike, resolve_device
+from .utils.profiling import annotate
 
 
 def load_quantized(fold_dir: str, method: str = "static_int8", *, device: DeviceLike = None,
@@ -199,14 +204,19 @@ class Predictor:
         """Host batch -> (pinned, for a GPU) CPU tensor; host memory only."""
         if self.host_preprocess is not None:
             chunk = self.host_preprocess(chunk)
-        t = torch.from_numpy(np.ascontiguousarray(chunk))
-        return t.pin_memory() if self.device.type == "cuda" else t
+        with annotate("ievm.staging.pin"):
+            t = torch.from_numpy(np.ascontiguousarray(chunk))
+            return t.pin_memory() if self.device.type == "cuda" else t
 
     def _run(self, host: torch.Tensor) -> torch.Tensor:
+        """The forward of a staged batch, enqueued on the current stream."""
         if self.mesh is not None:
             return self._run_mesh(host)
         with torch.inference_mode():
-            return self.apply_fn(host.to(self.device, non_blocking=True))
+            with annotate("ievm.staging.h2d"):
+                x = host.to(self.device, non_blocking=True)
+            with annotate("ievm.executor.forward"):
+                return self.apply_fn(x)
 
     def _run_mesh(self, host: torch.Tensor) -> torch.Tensor:
         """This rank's rows of the batch, then every rank's logits gathered."""
@@ -256,7 +266,8 @@ class Predictor:
         out, pending = [], []  # pending: (device logits, valid), a few in flight
         try:
             while True:
-                item = q.get()
+                with annotate("ievm.staging.wait_host"):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):
@@ -265,9 +276,11 @@ class Predictor:
                 pending.append((self._run(host), valid))
                 if len(pending) > self.prefetch:
                     r, v = pending.pop(0)
-                    out.append(r[:v].cpu().numpy())
+                    with annotate("ievm.staging.gather"):
+                        out.append(r[:v].cpu().numpy())
             for r, v in pending:
-                out.append(r[:v].cpu().numpy())
+                with annotate("ievm.staging.gather"):
+                    out.append(r[:v].cpu().numpy())
         finally:
             stop.set()
             t.join()
@@ -320,6 +333,8 @@ class MicroBatcher:
         self.n_batches = 0
         self.n_images = 0  # valid images dispatched
         self.n_slots = 0  # padded batch rows dispatched
+        self.queue_wait_s = 0.0  # submit to dispatch, summed over the requests dispatched
+        self.queue_waited = 0
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -344,7 +359,7 @@ class MicroBatcher:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
             self.n_requests += 1
-            self._q.put((images, fut, len(images)))
+            self._q.put((images, fut, len(images), time.perf_counter()))
         return fut
 
     def infer(self, images: np.ndarray) -> np.ndarray:
@@ -359,11 +374,13 @@ class MicroBatcher:
         with self._lock:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
-            self._q.put((image_shape, fut, 0))
+            self._q.put((image_shape, fut, 0, 0.0))
         fut.result()
 
     def stats(self) -> dict:
-        """Coalescing counters (mean_batch = valid images per forward)."""
+        """Coalescing counters (mean_batch = valid images per forward;
+        queue_wait_ms_mean = a request's mean wait from ``submit`` to the
+        start of its dispatch)."""
         b = max(self.n_batches, 1)
         return {
             "requests": self.n_requests,
@@ -371,6 +388,7 @@ class MicroBatcher:
             "images": self.n_images,
             "mean_batch": self.n_images / b,
             "mean_dispatch_slots": self.n_slots / b,
+            "queue_wait_ms_mean": 1e3 * self.queue_wait_s / max(self.queue_waited, 1),
         }
 
     def close(self) -> None:
@@ -398,13 +416,14 @@ class MicroBatcher:
                     first = self._q.get()
                     if first is _CLOSE:
                         return
-                if first[2] == 0:  # a warmup() call: (image shape, future, 0)
+                if first[2] == 0:  # a warmup() call: (image shape, future, 0, 0.0)
                     try:
                         first[1].set_result(self.pred.warmup(first[0]))
                     except Exception as e:  # handed to the waiting caller
                         first[1].set_exception(e)
                     continue
-                batch: List[Tuple[np.ndarray, Future, int]] = [first]
+                # (images, future, n, submit time)
+                batch: List[Tuple[np.ndarray, Future, int, float]] = [first]
                 total = first[2]
                 deadline = time.monotonic() + self.max_wait_s
                 while total < self.max_batch:
@@ -426,23 +445,31 @@ class MicroBatcher:
                 self._dispatch(batch, total)
 
     def _dispatch(self, batch, total: int) -> None:
-        live = [fut.set_running_or_notify_cancel() for _, fut, _ in batch]
-        try:
-            imgs = np.concatenate([im for im, _, _ in batch], axis=0)
-            tgt = self.pred._target_size(total)
-            if tgt > total:
-                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], tgt - total, 0)])
-            logits = self.pred._run(self.pred._stage_host(imgs))[:total].cpu().numpy()
-        except Exception as e:  # scatter the failure to every caller
-            for (_, fut, _), ok in zip(batch, live):
+        with annotate("ievm.batcher.dispatch"):
+            now = time.perf_counter()
+            self.queue_wait_s += sum(now - t for *_, t in batch)
+            self.queue_waited += len(batch)
+            live = [fut.set_running_or_notify_cancel() for _, fut, _, _ in batch]
+            try:
+                with annotate("ievm.batcher.concat"):
+                    imgs = np.concatenate([im for im, _, _, _ in batch], axis=0)
+                with annotate("ievm.batcher.pad"):
+                    tgt = self.pred._target_size(total)
+                    if tgt > total:
+                        imgs = np.concatenate([imgs, np.repeat(imgs[-1:], tgt - total, 0)])
+                logits = self.pred._run(self.pred._stage_host(imgs))
+                with annotate("ievm.staging.gather"):
+                    logits = logits[:total].cpu().numpy()
+            except Exception as e:  # scatter the failure to every caller
+                for (_, fut, _, _), ok in zip(batch, live):
+                    if ok:
+                        fut.set_exception(e)
+                return
+            off = 0
+            for (_, fut, n, _), ok in zip(batch, live):
                 if ok:
-                    fut.set_exception(e)
-            return
-        off = 0
-        for (_, fut, n), ok in zip(batch, live):
-            if ok:
-                fut.set_result(logits[off : off + n])
-            off += n
-        self.n_batches += 1
-        self.n_images += total
-        self.n_slots += tgt
+                    fut.set_result(logits[off : off + n])
+                off += n
+            self.n_batches += 1
+            self.n_images += total
+            self.n_slots += tgt
