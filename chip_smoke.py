@@ -4761,16 +4761,17 @@ def _server(fold: str, method: str):
 
 @contextlib.contextmanager
 def recorded_forwards(pred, keep_inputs: bool = True):
-    """Wrap ``pred._stage_host`` and ``pred.apply_fn``, which the server's
+    """Wrap ``pred._run`` and ``pred.apply_fn``, which the server's
     dispatcher thread calls in turn once per coalesced and padded batch, to
-    keep each batch's host images (``keep_inputs``: the array the batcher
-    made, no copy), its logits and CUDA events around the forward; yields
-    the list they go to and unwraps on exit."""
-    log, stage, fn = [], pred._stage_host, pred.apply_fn
+    keep each batch's staged host input (``keep_inputs``: a copy, since the
+    batcher stages every batch in one reused buffer), its logits and CUDA
+    events around the forward; yields the list they go to and unwraps on
+    exit."""
+    log, run_staged, fn = [], pred._run, pred.apply_fn
 
-    def stage_host(chunk):
-        log.append([chunk if keep_inputs else None])
-        return stage(chunk)
+    def run_host(host):
+        log.append([host.clone() if keep_inputs else None])
+        return run_staged(host)
 
     def run(x):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4780,11 +4781,11 @@ def recorded_forwards(pred, keep_inputs: bool = True):
         log[-1] += [y, start, end]
         return y
 
-    pred._stage_host, pred.apply_fn = stage_host, run
+    pred._run, pred.apply_fn = run_host, run
     try:
         yield log
     finally:
-        pred._stage_host, pred.apply_fn = stage, fn
+        pred._run, pred.apply_fn = run_staged, fn
 
 
 def forward_spans(log) -> dict:
@@ -4798,16 +4799,16 @@ def forward_spans(log) -> dict:
                      "sum": float(np.sum(v))} for b, v in sorted(spans.items())}
 
 
-def dispatched_vs_plain(pred, model, log, tau=None):
-    """Every batch the server dispatched, staged again by ``pred`` and held
-    against ``model``'s plain version on that device input: bit for bit
-    (``tau`` None), else ``logits_close`` at ``tau``. -> (summary, failures)."""
+def dispatched_vs_plain(model, log, tau=None):
+    """Every batch the server dispatched, its staged host input held
+    against ``model``'s plain version on it: bit for bit (``tau`` None),
+    else ``logits_close`` at ``tau``. -> (summary, failures)."""
     rows = same = 0
     worst, fails, by_rows = 0.0, [], {}
     with torch.inference_mode():
-        for i, (chunk, y, _, _) in enumerate(log):
+        for i, (host, y, _, _) in enumerate(log):
             by_rows[str(len(y))] = by_rows.get(str(len(y)), 0) + 1
-            plain = model(pred._stage_host(chunk).cuda(), impl="plain")
+            plain = model(host.cuda(), impl="plain")
             got, ref = y.float().cpu().numpy(), plain.float().cpu().numpy()
             err = float(np.abs(got - ref).max())
             worst = max(worst, err)
@@ -4899,7 +4900,7 @@ def run_server_r2(dev):
         if (stats["requests"] != SERVER_CLIENTS * SERVER_REQUESTS + len(solo)
                 or stats["images"] != n_counted):
             raise SmokeFailure(f"server_r2: stats {stats} for {n_counted} images")
-        plain, plain_fails = dispatched_vs_plain(srv.pred, model, log)
+        plain, plain_fails = dispatched_vs_plain(model, log)
         del log
 
         # pass 2, timed, keeping no inputs: each forward's device span, the
@@ -5053,7 +5054,7 @@ def run_server_one(dev, label: str, fold: str, method: str, per_forward: dict, t
             code, got = post_npy(srv.port, imgs)
             secs = time.perf_counter() - t0
         launches, stats = _server_launches(srv, per_forward, label)
-        plain, plain_fails = dispatched_vs_plain(srv.pred, model, log, tau)
+        plain, plain_fails = dispatched_vs_plain(model, log, tau)
         spans = forward_spans(log)
         del log
     finally:

@@ -14,7 +14,9 @@ Endpoints
 ``GET  /healthz``       ``{"status": "ok"}`` once the model is warmed up.
 ``GET  /v1/metadata``   model method / class names / batching config.
 ``GET  /v1/stats``      live MicroBatcher coalescing counters, with
-                        ``queue_wait_ms_mean`` (submit to dispatch).
+                        ``queue_wait_ms_mean`` (submit to dispatch) and
+                        ``staged_in_place`` / ``staged_copy`` (dispatches
+                        staged in the reused buffer / by copies).
 ``POST /v1/predict``    images in, logits + class predictions out.
 
 Request payloads (by ``Content-Type``):

@@ -310,6 +310,16 @@ class MicroBatcher:
     batch leads the next one; a failed forward delivers its exception to
     every future of the batch.
 
+    The batch is staged in one reused buffer of uint8 images (pinned on a
+    CUDA predictor), allocated by :meth:`warmup`: the dispatcher copies
+    each request into its rows as it takes it off the queue, fills the
+    bucket's pad rows with the last frame, as the copy path pads (an
+    executor may take a statistic over the whole batch: the dynamic INT8
+    head's activation range), and hands those rows on. A batch holding a
+    request of another dtype or image shape, or any batch before the first
+    warmup, is joined and padded by copies instead, and staged by the
+    predictor.
+
     The dispatcher is the only thread that touches the device: ``submit``
     takes and returns numpy arrays and never waits on the device. Use as a
     context manager or call :meth:`close` to drain and stop the dispatcher.
@@ -335,6 +345,10 @@ class MicroBatcher:
         self.n_slots = 0  # padded batch rows dispatched
         self.queue_wait_s = 0.0  # submit to dispatch, summed over the requests dispatched
         self.queue_waited = 0
+        self.n_staged_in_place = 0  # dispatches staged in the reused buffer
+        self.n_staged_copy = 0  # dispatches joined and padded by copies
+        self._buf: Optional[torch.Tensor] = None  # the reused staging buffer (rows, H, W, C)
+        self._buf_np: Optional[np.ndarray] = None  # its numpy view, written by the dispatcher
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -367,9 +381,10 @@ class MicroBatcher:
         return self.submit(images).result()
 
     def warmup(self, image_shape: Tuple[int, int, int] = (224, 224, 3)) -> None:
-        """Run :meth:`Predictor.warmup` on the dispatcher thread (kernel
-        builds and allocator growth happen there, before any request) and
-        wait for it; counted in no statistic."""
+        """Allocate and touch the staging buffer for ``image_shape`` and run
+        :meth:`Predictor.warmup`, on the dispatcher thread (kernel builds,
+        allocator growth and page faults happen there, before any request),
+        and wait for it; counted in no statistic."""
         fut: Future = Future()
         with self._lock:
             if self._closed:
@@ -380,7 +395,8 @@ class MicroBatcher:
     def stats(self) -> dict:
         """Coalescing counters (mean_batch = valid images per forward;
         queue_wait_ms_mean = a request's mean wait from ``submit`` to the
-        start of its dispatch)."""
+        start of its dispatch; staged_in_place / staged_copy = dispatches
+        staged in the reused buffer / joined and padded by copies)."""
         b = max(self.n_batches, 1)
         return {
             "requests": self.n_requests,
@@ -389,6 +405,8 @@ class MicroBatcher:
             "mean_batch": self.n_images / b,
             "mean_dispatch_slots": self.n_slots / b,
             "queue_wait_ms_mean": 1e3 * self.queue_wait_s / max(self.queue_waited, 1),
+            "staged_in_place": self.n_staged_in_place,
+            "staged_copy": self.n_staged_copy,
         }
 
     def close(self) -> None:
@@ -418,6 +436,8 @@ class MicroBatcher:
                         return
                 if first[2] == 0:  # a warmup() call: (image shape, future, 0, 0.0)
                     try:
+                        if self._buf is None or self._buf.shape[1:] != tuple(first[0]):
+                            self._allocate(first[0])
                         first[1].set_result(self.pred.warmup(first[0]))
                     except Exception as e:  # handed to the waiting caller
                         first[1].set_exception(e)
@@ -425,6 +445,9 @@ class MicroBatcher:
                 # (images, future, n, submit time)
                 batch: List[Tuple[np.ndarray, Future, int, float]] = [first]
                 total = first[2]
+                in_place = self._fits(first[0])
+                if in_place:
+                    self._stage_rows(first[0], 0)
                 deadline = time.monotonic() + self.max_wait_s
                 while total < self.max_batch:
                     timeout = deadline - time.monotonic()
@@ -441,26 +464,71 @@ class MicroBatcher:
                         self._carry = item  # leads the next round
                         break
                     batch.append(item)
+                    in_place = in_place and self._fits(item[0])
+                    if in_place:
+                        self._stage_rows(item[0], total)
                     total += item[2]
-                self._dispatch(batch, total)
+                self._dispatch(batch, total, in_place)
 
-    def _dispatch(self, batch, total: int) -> None:
+    def _allocate(self, image_shape: Tuple[int, ...]) -> None:
+        """The staging buffer for images of ``image_shape``: rows for the
+        largest bucket a batch can reach, pinned on a CUDA predictor, and
+        zeroed, so that no request pays for its page faults."""
+        self._drain()
+        rows = self.pred._target_size(self.max_batch)
+        self._buf = torch.zeros((rows, *image_shape), dtype=torch.uint8,
+                                pin_memory=self.pred.device.type == "cuda")
+        self._buf_np = self._buf.numpy()
+
+    def _drain(self) -> None:
+        """Wait for the predictor's device, so that no H2D copy out of the
+        buffer is still queued. A dispatch that returns has drained it
+        already, by its ``.cpu()`` gather."""
+        if self.pred.device.type == "cuda":
+            torch.cuda.synchronize(self.pred.device)
+
+    def _fits(self, images: np.ndarray) -> bool:
+        """Whether ``images`` can be staged in the buffer: uint8 of its image shape."""
+        return (self._buf is not None and images.dtype == np.uint8
+                and images.shape[1:] == self._buf.shape[1:])
+
+    def _stage_rows(self, images: np.ndarray, row: int) -> None:
+        with annotate("ievm.batcher.concat"):
+            np.copyto(self._buf_np[row : row + len(images)], images)
+
+    def _dispatch(self, batch, total: int, in_place: bool) -> None:
+        """Run a coalesced batch: staged in the buffer (``in_place``; its
+        valid rows are written, its pad rows filled here), else joined,
+        padded and staged by copies."""
         with annotate("ievm.batcher.dispatch"):
             now = time.perf_counter()
             self.queue_wait_s += sum(now - t for *_, t in batch)
             self.queue_waited += len(batch)
             live = [fut.set_running_or_notify_cancel() for _, fut, _, _ in batch]
             try:
-                with annotate("ievm.batcher.concat"):
-                    imgs = np.concatenate([im for im, _, _, _ in batch], axis=0)
-                with annotate("ievm.batcher.pad"):
-                    tgt = self.pred._target_size(total)
-                    if tgt > total:
-                        imgs = np.concatenate([imgs, np.repeat(imgs[-1:], tgt - total, 0)])
-                logits = self.pred._run(self.pred._stage_host(imgs))
+                if in_place:
+                    with annotate("ievm.batcher.pad"):
+                        tgt = self.pred._target_size(total)
+                        self._buf_np[total:tgt] = self._buf_np[total - 1]
+                    host = (self._buf[:tgt] if self.pred.host_preprocess is None
+                            else self.pred._stage_host(self._buf_np[:tgt]))
+                else:
+                    with annotate("ievm.batcher.concat"):
+                        imgs = np.concatenate([im for im, _, _, _ in batch], axis=0)
+                    with annotate("ievm.batcher.pad"):
+                        tgt = self.pred._target_size(total)
+                        if tgt > total:
+                            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], tgt - total, 0)])
+                    host = self.pred._stage_host(imgs)
+                logits = self.pred._run(host)
                 with annotate("ievm.staging.gather"):
                     logits = logits[:total].cpu().numpy()
             except Exception as e:  # scatter the failure to every caller
+                if in_place:
+                    try:  # its H2D out of the buffer may still be queued
+                        self._drain()
+                    except Exception:  # a sticky device error reaches the next batch too
+                        pass
                 for (_, fut, _, _), ok in zip(batch, live):
                     if ok:
                         fut.set_exception(e)
@@ -473,3 +541,5 @@ class MicroBatcher:
             self.n_batches += 1
             self.n_images += total
             self.n_slots += tgt
+            self.n_staged_in_place += in_place
+            self.n_staged_copy += not in_place

@@ -947,3 +947,71 @@ def test_resnext_ops_cuda_implementation_equals_direct_launch(cuda, monkeypatch)
     for name, args in grouped:
         with torch.inference_mode():
             assert torch.equal(torch.ops.ievm.gconv_int8(*args), _lib._impls[name]["cuda"](*args))
+
+
+@pytest.mark.parametrize("device_preprocess", [True, False], ids=["device_s2d", "host_s2d"])
+def test_microbatcher_stages_in_a_pinned_buffer(cuda, device_preprocess):
+    """The served ResNet18 behind a MicroBatcher: every dispatch is staged
+    in one pinned buffer (the same pointer each time on the device-s2d
+    route, where the buffer itself is copied to the card), and each
+    request's logits equal ``Predictor.predict_logits`` on it alone bit for
+    bit."""
+    from inference_efficient_vision_models_tpu_torch.serving import MicroBatcher, Predictor
+
+    pred = Predictor.from_artifact(ARTIFACT, device="cuda", device_preprocess=device_preprocess,
+                                   batch_size=64, bucket_sizes=(8,))
+    hosts = []
+    run = pred._run
+    pred._run = lambda host: hosts.append(host.data_ptr()) or run(host)
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+            for n in (7, 1, 8, 5, 3, 8, 2, 6, 4, 1)]
+    with MicroBatcher(pred, max_wait_ms=5, max_batch=16) as mb:
+        mb.warmup((224, 224, 3))
+        assert mb._buf.is_pinned() and mb._buf.shape == (64, 224, 224, 3)
+        hosts.clear()
+        answers = [f.result(timeout=120) for f in [mb.submit(r) for r in reqs]]
+        stats = mb.stats()
+        buf = mb._buf.data_ptr()
+    assert stats["staged_in_place"] == stats["batches"] == len(hosts) and stats["staged_copy"] == 0
+    if device_preprocess:
+        assert hosts == [buf] * len(hosts)
+    for req, got in zip(reqs, answers):
+        np.testing.assert_array_equal(got, pred.predict_logits(req))
+
+
+def test_microbatcher_waits_for_the_h2d_out_of_its_buffer(cuda):
+    """A dispatch that raises after its H2D copy was enqueued, behind ~0.5 s
+    of work on the stream: the batcher waits for the device before it hands
+    the failure on, so the next batch, written into the buffer after that,
+    answers right."""
+    from inference_efficient_vision_models_tpu_torch.serving import MicroBatcher, Predictor
+
+    fail, h2d_done = [False], torch.cuda.Event()
+
+    def forward(x):
+        if fail[0]:
+            h2d_done.record()  # on the stream, behind the sleep and the H2D
+            raise RuntimeError("forward failed after its H2D")
+        return x.reshape(len(x), -1)[:, :3].float()
+
+    pred = Predictor(forward, batch_size=8, bucket_sizes=(2,), device="cuda")
+    run = pred._run
+
+    def slow_run(host):
+        if fail[0]:
+            torch.cuda._sleep(1_000_000_000)  # the stream busy before the H2D
+        return run(host)
+
+    pred._run = slow_run
+    x1, x2 = (np.random.default_rng(s).integers(0, 256, (2, 4, 4, 3), dtype=np.uint8)
+              for s in (1, 2))
+    with MicroBatcher(pred, max_wait_ms=1) as mb:
+        mb.warmup((4, 4, 3))
+        fail[0] = True
+        f1 = mb.submit(x1)
+        assert isinstance(f1.exception(timeout=60), RuntimeError)
+        assert h2d_done.query()  # the H2D had run before the failure reached its caller
+        fail[0] = False
+        got = mb.submit(x2).result(timeout=60)
+    np.testing.assert_array_equal(got, x2.reshape(2, -1)[:, :3].astype(np.float32))

@@ -212,11 +212,15 @@ def test_microbatcher_spans_once_per_dispatch_and_its_queue_wait():
     assert dispatches >= 4 and mb.queue_waited == stats["requests"] == 8
     assert mb.queue_wait_s >= 0
     assert stats["queue_wait_ms_mean"] == 1e3 * mb.queue_wait_s / 8
-    for name in ("ievm.batcher.dispatch", "ievm.batcher.concat", "ievm.batcher.pad",
-                 "ievm.staging.gather"):
+    for name in ("ievm.batcher.dispatch", "ievm.batcher.pad", "ievm.staging.gather"):
         assert _delta(before, warm, name)[0] == 0, name
         assert _delta(warm, after, name)[0] == dispatches, name
-    # the warmup runs each shape once: the bucket and the full batch
-    for name in ("ievm.staging.pin", "ievm.staging.h2d", "ievm.executor.forward"):
+    # each request is copied into the staging buffer as it is coalesced
+    assert _delta(before, warm, "ievm.batcher.concat")[0] == 0
+    assert _delta(warm, after, "ievm.batcher.concat")[0] == stats["requests"]
+    # the warmup runs each shape once: the bucket and the full batch; the
+    # dispatches hand the buffer on with no pinned copy
+    for name, per_dispatch in (("ievm.staging.pin", 0), ("ievm.staging.h2d", 1),
+                               ("ievm.executor.forward", 1)):
         assert _delta(before, warm, name)[0] == 2, name
-        assert _delta(warm, after, name)[0] == dispatches, name
+        assert _delta(warm, after, name)[0] == per_dispatch * dispatches, name

@@ -46,19 +46,23 @@ LOG = logging.getLogger("test_torch_port_server")
 SIZE = 64
 
 
-def make_artifact(root) -> str:
+def make_artifact(root, method: str = "static_int8") -> str:
     """A static-INT8 ResNet18 fold dir for 64x64 images, made by the port's
-    stage-4 engine (minmax, 16 calibration images) from seeded weights."""
+    stage-4 engine (minmax, 16 calibration images) from seeded weights;
+    ``method="dynamic_int8"``: the same weights with the dynamic INT8 head,
+    whose activation range is taken over the whole batch."""
     spec = treg.make_spec("resnet18", 6)
     p, s = resnet_params_from_seed(spec, 0)
     cfg = QuantConfig(artifacts_root=str(root / "cfg"), batch_size=8, image_size=(SIZE, SIZE),
                       calibration_images=16)
     eng = QuantizationEngine(cfg, spec, tr.params_from_jax(p, "cpu"),
                              tr.params_from_jax(s, "cpu"), LOG, "cpu")
-    imgs = images(16, seed=0)
-    qmodel, _ = eng.static_quantize((imgs, np.zeros(16, np.int32)))
+    if method == "dynamic_int8":
+        qmodel, _ = eng.dynamic_quantize()
+    else:
+        qmodel, _ = eng.static_quantize((images(16, seed=0), np.zeros(16, np.int32)))
     fold = str(root / "fold_0")
-    _save_qmodel(fold, "static_int8", qmodel, spec)
+    _save_qmodel(fold, method, qmodel, spec)
     return fold
 
 
@@ -69,6 +73,11 @@ def images(n: int, seed: int, size: int = SIZE) -> np.ndarray:
 @pytest.fixture(scope="module")
 def fold(tmp_path_factory):
     return make_artifact(tmp_path_factory.mktemp("r18"))
+
+
+@pytest.fixture(scope="module")
+def dynamic_fold(tmp_path_factory):
+    return make_artifact(tmp_path_factory.mktemp("r18_dynamic"), "dynamic_int8")
 
 
 @pytest.fixture(scope="module")
@@ -148,9 +157,11 @@ def test_server_answers_as_jax_server(servers, case):
 
 def test_stats_keys_and_a_bad_bmp(servers):
     t, j = servers
-    # the port's batcher also reports its requests' mean queue wait
+    # the port's batcher also reports its requests' mean queue wait and how
+    # its dispatches were staged
     assert json.loads(http(t.port, "GET", "/v1/stats")[2]).keys() == \
-        json.loads(http(j.port, "GET", "/v1/stats")[2]).keys() | {"queue_wait_ms_mean"}
+        json.loads(http(j.port, "GET", "/v1/stats")[2]).keys() | {
+            "queue_wait_ms_mean", "staged_in_place", "staged_copy"}
     # both refuse a body that is no BMP with 400 (the decoders word it differently)
     for s in servers:
         code, _, raw = http(s.port, "POST", "/v1/predict", b"BMnonsense",
@@ -339,3 +350,174 @@ SCENARIOS = {f.__name__.strip("_"): f for f in (
 @pytest.mark.parametrize("scenario", sorted(SCENARIOS))
 def test_microbatcher(scenario, fold, oracle):
     SCENARIOS[scenario](fold, oracle)
+
+
+# -- MicroBatcher's reused staging buffer ------------------------------------
+
+
+class _Gate:
+    """A forward that, once ``hold()`` is called, waits at its next call
+    until ``release()``: requests submitted meanwhile queue up, so the
+    batches after it are made of them in a known order. Records each call's
+    rows."""
+
+    def __init__(self, fn):
+        self.fn, self.rows = fn, []
+        self.entered, self.open = threading.Event(), threading.Event()
+        self.open.set()
+
+    def __call__(self, x):
+        self.rows.append(int(x.shape[0]))
+        self.entered.set()
+        assert self.open.wait(timeout=60)
+        return self.fn(x)
+
+    def hold(self):
+        self.rows.clear()
+        self.entered.clear()
+        self.open.clear()
+
+    def queue_behind(self, mb, first, rest):
+        """``first`` dispatched alone, ``rest`` submitted while its forward
+        waits; -> the futures of all, in order."""
+        self.hold()
+        futs = [mb.submit(first)]
+        assert self.entered.wait(timeout=60)
+        futs += [mb.submit(r) for r in rest]
+        self.release()
+        return futs
+
+    def release(self):
+        self.open.set()
+
+
+def _toy(x):
+    return x.reshape(len(x), -1)[:, :3].float()
+
+
+def _mixed_sizes(pred, gate, copies: bool):
+    """Requests of 1, 3, 4, 2 and 1 images at batch 8, buckets 2 and 4: the
+    first alone (bucket 2, its pad row zeros before it is filled), then 3 + 4
+    (bucket 8; the 2 would overflow and leads the next batch), then 2 + 1
+    (bucket 4, its pad row a frame of the batch before until filled). The
+    last two requests are low-contrast frames, whose features lie well below
+    a noise frame's: a stale pad row would widen the dynamic INT8 head's
+    range. ``copies``: every batch joined and padded by copies, as before
+    the buffer. -> (answers, requests, stats, batcher)."""
+    reqs = [images(n, seed=60 + i) for i, n in enumerate((1, 3, 4, 2, 1))]
+    reqs[3:] = [120 + r // 16 for r in reqs[3:]]
+    mb = MicroBatcher(pred, max_wait_ms=50)
+    try:
+        mb.warmup((SIZE, SIZE, 3))
+        if copies:
+            mb._fits = lambda images: False
+        futs = gate.queue_behind(mb, reqs[0], reqs[1:])
+        answers = [f.result(timeout=60) for f in futs]
+    finally:
+        mb.close()
+    assert gate.rows == [2, 8, 4]
+    return answers, reqs, mb.stats(), mb
+
+
+ROUTES = {  # (artifact, method, device_preprocess)
+    "host_s2d": ("fold", "static_int8", False),
+    "device_s2d": ("fold", "static_int8", True),
+    "dynamic_int8": ("dynamic_fold", "dynamic_int8", False),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_microbatcher_stages_in_place_as_the_concat_path(request, oracle, route):
+    """Logits of requests staged in the reused buffer equal bit for bit those
+    of the same batches joined and padded by copies: the pad rows hold the
+    last frame, not zeros or stale frames, so the dynamic INT8 head's
+    batch-wide activation range is that of the copy path."""
+    artifact, method, device_preprocess = ROUTES[route]
+    base = Predictor.from_artifact(request.getfixturevalue(artifact), method, device="cpu",
+                                   device_preprocess=device_preprocess)
+    gate = _Gate(base.apply_fn)
+    pred = Predictor(gate, host_preprocess=base.host_preprocess, batch_size=8,
+                     bucket_sizes=(2, 4), device="cpu")
+    got, reqs, stats, mb = _mixed_sizes(pred, gate, copies=False)
+    want, _, want_stats, _ = _mixed_sizes(pred, gate, copies=True)
+    for req, g, w in zip(reqs, got, want):
+        np.testing.assert_array_equal(g, w)
+        if method == "static_int8":  # row by row: each request alone
+            np.testing.assert_allclose(g, oracle(req), rtol=1e-6, atol=1e-6)
+    # the last batch's pad row holds its last frame
+    np.testing.assert_array_equal(mb._buf_np[3], reqs[4][0])
+    assert (stats["batches"], stats["staged_in_place"], stats["staged_copy"]) == (3, 3, 0)
+    assert (want_stats["staged_in_place"], want_stats["staged_copy"]) == (0, 3)
+    assert stats["mean_dispatch_slots"] == want_stats["mean_dispatch_slots"] == 14 / 3
+
+
+def test_microbatcher_reuses_one_buffer():
+    """One buffer, allocated by warmup (rows for the largest bucket
+    max_batch can reach, zeroed), is handed to every dispatch; a warmup of
+    another image shape replaces it."""
+    pred = Predictor(_toy, batch_size=8, bucket_sizes=(2, 4), device="cpu")
+    hosts = []
+    run = pred._run
+    pred._run = lambda host: hosts.append(host.data_ptr()) or run(host)
+    with MicroBatcher(pred, max_wait_ms=1, max_batch=3) as mb:
+        mb.warmup((4, 4, 3))
+        buf = mb._buf
+        assert buf.shape == (4, 4, 4, 3) and not buf.is_pinned() and not buf.any()
+        hosts.clear()
+        for i in range(4):
+            x = images(1 + i % 3, seed=70 + i, size=4)
+            np.testing.assert_array_equal(mb.submit(x).result(timeout=60),
+                                          _toy(torch.from_numpy(x)).numpy())
+        assert hosts == [buf.data_ptr()] * 4 and mb._buf is buf
+        mb.warmup((5, 5, 3))
+        assert mb._buf.shape == (4, 5, 5, 3)
+        assert mb.stats()["staged_in_place"] == mb.stats()["batches"] == 4
+
+
+def test_microbatcher_stages_by_copies_before_a_warmup():
+    """A batcher never warmed up has no buffer: it stages by copies."""
+    pred = Predictor(_toy, batch_size=8, bucket_sizes=(2, 4), device="cpu")
+    x = images(3, seed=85, size=4)
+    with MicroBatcher(pred, max_wait_ms=1) as mb:
+        np.testing.assert_array_equal(mb.submit(x).result(timeout=60),
+                                      _toy(torch.from_numpy(x)).numpy())
+        assert mb._buf is None
+        stats = mb.stats()
+    assert (stats["batches"], stats["staged_in_place"], stats["staged_copy"]) == (1, 0, 1)
+
+
+FALLBACKS = {
+    # (requests queued behind a first one of 1 uint8 4x4 image, dispatched
+    # alone; what each of them answers)
+    "float_dtype": ([np.ones((2, 4, 4, 3), np.float32)], "logits"),
+    "other_shape": ([images(2, seed=80, size=5)], "logits"),
+    "mixed_dtype_batch": ([images(1, seed=81, size=4), np.full((2, 4, 4, 3), 0.5, np.float32)],
+                          "logits"),
+    "unjoinable_batch": ([images(1, seed=82, size=4), images(2, seed=83, size=5)], ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FALLBACKS))
+def test_microbatcher_falls_back_to_copies(case):
+    """A batch holding a request of another dtype or image shape takes the
+    copy path, with its outcome: the forward of the joined batch, or the
+    join's exception to every future."""
+    rest, outcome = FALLBACKS[case]
+    gate = _Gate(_toy)
+    pred = Predictor(gate, batch_size=8, bucket_sizes=(2, 4), device="cpu")
+    first = images(1, seed=84, size=4)
+    with MicroBatcher(pred, max_wait_ms=50) as mb:
+        mb.warmup((4, 4, 3))
+        futs = gate.queue_behind(mb, first, rest)
+        np.testing.assert_array_equal(futs[0].result(timeout=60),
+                                      _toy(torch.from_numpy(first)).numpy())
+        for req, fut in zip(rest, futs[1:]):
+            if outcome == "logits":
+                np.testing.assert_array_equal(fut.result(timeout=60),
+                                              _toy(torch.from_numpy(req)).numpy())
+            else:
+                assert isinstance(fut.exception(timeout=60), outcome)
+        stats = mb.stats()
+    copied = 1 if outcome == "logits" else 0  # a batch that raised counts in no statistic
+    assert (stats["staged_in_place"], stats["staged_copy"]) == (1, copied)
+    assert stats["batches"] == 1 + copied
